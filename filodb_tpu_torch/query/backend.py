@@ -1,0 +1,460 @@
+"""PyTorch device backend for the query engine (counterpart of
+``filodb_tpu.query.tpu``).
+
+``TorchBackend`` is the engine's device hook. It has the two methods the
+engine calls, ``periodic_samples`` and ``fused_groupsum``, and serves the
+rate family (rate/increase/delta):
+
+  * regular-cadence series ride cached aligned tiles
+    (``query/tilestore.py``): per-series rates from the counter evaluators,
+    grouped sums from the fused group-sum kernel;
+  * steps whose windows reach the unflushed write-buffer tail, and series
+    of irregular cadence, take the packed path: ragged series padded into
+    [S, N] tiles, the boundary-extract kernel, then the f64 extrapolation.
+
+Every other function returns None, and the engine's numpy oracle answers
+it. Entry points run on CUDA unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from filodb_tpu_torch.query import kernels as kn
+from filodb_tpu_torch.query import tilestore as tst
+from filodb_tpu_torch.query.model import GridResult, RangeParams, RawSeries
+
+F64 = torch.float64
+I64 = torch.int64
+
+# sentinel timestamp for padding: larger than any real ms timestamp
+_TS_PAD = np.int64(1) << 60
+
+# functions this backend serves on the device; the rest go to the oracle
+DEVICE_FUNCS = frozenset({"rate", "increase", "delta"})
+
+_ENDPOINT_RATE = {"rate": (True, True), "increase": (True, False),
+                  "delta": (False, False)}
+
+
+def _next_pow2(n: int, lo: int = 8) -> int:
+    p = lo
+    while p < n:
+        p <<= 1
+    return p
+
+
+def clean_rows(series: Sequence[RawSeries], drop_nan: bool
+               ) -> Tuple[List[Tuple[np.ndarray, np.ndarray]], int]:
+    """Per-series NaN-drop (stale markers) shared by all packers.
+    Returns (rows, max_len)."""
+    cleaned: List[Tuple[np.ndarray, np.ndarray]] = []
+    maxlen = 1
+    for s in series:
+        if drop_nan:
+            m = ~np.isnan(s.values)
+            ts, vals = s.ts[m], s.values[m]
+        else:
+            ts, vals = s.ts, s.values
+        cleaned.append((ts, vals))
+        maxlen = max(maxlen, ts.size)
+    return cleaned, maxlen
+
+
+def pack_series(series: Sequence[RawSeries], drop_nan: bool = True
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pack ragged raw series into padded [S, N] tiles (host side).
+    Returns (ts_pad i64, vals f64, lens i32)."""
+    cleaned, maxlen = clean_rows(series, drop_nan)
+    N = _next_pow2(maxlen)
+    S = len(series)
+    ts_pad = np.full((S, N), _TS_PAD, dtype=np.int64)
+    vals_pad = np.zeros((S, N), dtype=np.float64)
+    lens = np.zeros(S, dtype=np.int32)
+    for i, (ts, vals) in enumerate(cleaned):
+        n = ts.size
+        ts_pad[i, :n] = ts
+        vals_pad[i, :n] = vals
+        lens[i] = n
+    return ts_pad, vals_pad, lens
+
+
+def _pad_series_rows(ts: np.ndarray, vals: np.ndarray, lens: np.ndarray,
+                     s_bucket: int):
+    """Pad the series axis to a pow2 bucket: pad rows are
+    all-sentinel/empty, produce all-NaN outputs, and are sliced off by the
+    caller."""
+    S, N = ts.shape
+    ts2 = np.full((s_bucket, N), _TS_PAD, dtype=np.int64)
+    vals2 = np.zeros((s_bucket, N), dtype=np.float64)
+    lens2 = np.zeros(s_bucket, dtype=np.int32)
+    ts2[:S] = ts
+    vals2[:S] = vals
+    lens2[:S] = lens
+    return ts2, vals2, lens2
+
+
+def _window_sample_bound(series, window_ms: int, n_cap: int) -> int:
+    """Static upper bound on samples per window: window / min-interval."""
+    min_dt = None
+    for s in series:
+        if s.ts.size >= 2:
+            d = np.diff(s.ts).min()
+            if d > 0:
+                min_dt = d if min_dt is None else min(min_dt, d)
+    if min_dt is None or min_dt <= 0:
+        return n_cap
+    bound = int(window_ms // int(min_dt)) + 2
+    return min(_next_pow2(bound, 4), max(n_cap, 4))
+
+
+# ---------------------------------------------------------------------------
+# Device computations (tensor ops)
+# ---------------------------------------------------------------------------
+
+def _correction(vals: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Counter-reset correction per sample: cumsum of drop magnitudes."""
+    idx = torch.arange(vals.shape[1], device=vals.device)
+    valid = idx[None, :] < lens[:, None]
+    prev = torch.cat([vals[:, :1], vals[:, :-1]], dim=1)
+    dropped = (vals < prev) & valid & (idx[None, :] > 0)
+    drops = torch.where(dropped, prev, torch.zeros((), dtype=vals.dtype,
+                                                   device=vals.device))
+    return torch.cumsum(drops, dim=1)
+
+
+def _extrapolated_rate(wstart, wend, counts, t1, v1, t2, v2, is_counter,
+                       is_rate):
+    """Prometheus extrapolated rate in f64 (rangefn/RateFunctions.scala:37
+    semantics). Shape-agnostic: callers broadcast wstart/wend against
+    their tile orientation ([S, T] or [T, S])."""
+    dev = v1.device
+    counts = counts.to(F64)
+    dstart = (t1 - wstart).to(F64) / 1000.0
+    dend = (wend - t2).to(F64) / 1000.0
+    sampled = (t2 - t1).to(F64) / 1000.0
+    avg_dur = sampled / (counts - 1.0)
+    delta = v2 - v1
+    nan = torch.full((), float("nan"), dtype=F64, device=dev)
+    if is_counter:
+        inf = torch.full((), float("inf"), dtype=F64, device=dev)
+        dzero = torch.where((delta > 0) & (v1 >= 0),
+                            sampled * (v1 / torch.where(delta == 0, nan,
+                                                        delta)),
+                            inf)
+        dstart = torch.minimum(dstart, dzero)
+    thresh = avg_dur * 1.1
+    half = avg_dur / 2.0
+    extrap = sampled + torch.where(dstart < thresh, dstart, half) \
+        + torch.where(dend < thresh, dend, half)
+    scaled = delta * (extrap / sampled)
+    if is_rate:
+        scaled = scaled / (wend - wstart).to(F64) * 1000.0
+    return torch.where(counts >= 2, scaled, nan)
+
+
+def _bounds(ts: torch.Tensor, w0s: int, w0e: int, step: int, nsteps: int):
+    """[S, T] window index bounds for a UNIFORM step grid, by arithmetic
+    window assignment + a per-row histogram + cumsum:
+
+    lo[s,t] = #{i: ts[s,i] <  wstart[t]}   (searchsorted side='left')
+    hi[s,t] = #{i: ts[s,i] <= wend[t]} - 1 (searchsorted side='right' - 1)
+    """
+    S, N = ts.shape
+    step = max(int(step), 1)
+    b_lo = torch.clamp(torch.div(ts - w0s, step, rounding_mode="floor") + 1,
+                       0, nsteps)
+    b_hi = torch.clamp(-torch.div(w0e - ts, step, rounding_mode="floor"),
+                       0, nsteps)
+    ones = torch.ones((S, N), dtype=I64, device=ts.device)
+    hist_lo = torch.zeros((S, nsteps + 1), dtype=I64, device=ts.device)
+    hist_hi = torch.zeros((S, nsteps + 1), dtype=I64, device=ts.device)
+    hist_lo.scatter_add_(1, b_lo, ones)
+    hist_hi.scatter_add_(1, b_hi, ones)
+    lo = torch.cumsum(hist_lo, dim=1)[:, :nsteps]
+    hi = torch.cumsum(hist_hi, dim=1)[:, :nsteps] - 1
+    return lo, hi
+
+
+def _window_endpoint_rate(func: str, ts, vals, lens, w0s: int, w0e: int,
+                          step: int, nsteps: int) -> torch.Tensor:
+    """Rate family over padded [S, N] i64/f64 tiles -> [S, T] f64 (the
+    exact path for grids too wide for int31 relative times)."""
+    S, N = ts.shape
+    t = torch.arange(nsteps, dtype=I64, device=ts.device)
+    wstart = (w0s + t * step)[None, :]
+    wend = (w0e + t * step)[None, :]
+    lo, hi = _bounds(ts, w0s, w0e, step, nsteps)
+    counts = hi - lo + 1
+    has = counts >= 1
+    lo_c = torch.clamp(lo, 0, N - 1)
+    hi_c = torch.clamp(hi, 0, N - 1)
+    counter, is_rate = _ENDPOINT_RATE[func]
+    v = vals + _correction(vals, lens) if counter else vals
+    out = _extrapolated_rate(wstart, wend, counts,
+                             torch.gather(ts, 1, lo_c),
+                             torch.gather(v, 1, lo_c),
+                             torch.gather(ts, 1, hi_c),
+                             torch.gather(v, 1, hi_c), counter, is_rate)
+    return torch.where(has, out, torch.full((), float("nan"), dtype=F64,
+                                            device=ts.device))
+
+
+def _extract_rate(func: str, ts, vals, lens, w0s: int, w0e: int,
+                  step: int, nsteps: int) -> torch.Tensor:
+    """Rate family through the boundary-extract kernel: counter
+    correction + exact f64 -> 3xf32 split in, f64 extrapolation out."""
+    S, N = ts.shape
+    dev = ts.device
+    in_len = torch.arange(N, device=dev)[None, :] < lens[:, None]
+    is_counter = func != "delta"
+    v = vals + _correction(vals, lens) if is_counter else vals
+    pad = torch.full((), int(kn.TR_PAD), dtype=I64, device=dev)
+    tr = torch.where(in_len, ts - w0s, pad).to(torch.int32)
+    pay = kn.split3(torch.where(in_len, v, torch.zeros((), dtype=F64,
+                                                       device=dev)))
+    cnt, tlo, thi, plo, phi = kn.window_extract(
+        tr.contiguous(), pay.contiguous(), step, w0e - w0s, nsteps)
+    t = torch.arange(nsteps, dtype=I64, device=dev)
+    wstart = w0s + t * step
+    wend = w0e + t * step
+    t1 = tlo.to(I64) + w0s
+    t2 = thi.to(I64) + w0s
+    v1 = kn.combine3(plo)
+    v2 = kn.combine3(phi)
+    out = _extrapolated_rate(wstart[None, :], wend[None, :], cnt, t1, v1,
+                             t2, v2, is_counter, func == "rate")
+    return torch.where(cnt >= 1, out, torch.full((), float("nan"),
+                                                 dtype=F64, device=dev))
+
+
+def _extract_span_ok(ts: np.ndarray, lens: np.ndarray, w0s: int, w0e: int,
+                     step: int, nsteps: int) -> Optional[bool]:
+    """Whether the packed grid fits the kernel's int31 relative times;
+    None when there are no samples at all."""
+    mask = np.arange(ts.shape[1])[None, :] < lens[:, None]
+    if not mask.any():
+        return None
+    t_min, t_max = int(ts[mask].min()), int(ts[mask].max())
+    return (abs(t_min - w0s) < 2**31 - 2
+            and abs(t_max - w0s) < 2**31 - 2
+            and (w0e - w0s) + (nsteps - 1) * step < 2**31 - 2)
+
+
+class _TileEntry:
+    """One tile-cache entry: device tiles over an immutable prefix, plus
+    the coverage bound (first ms NOT in the tiles; None = all)."""
+
+    __slots__ = ("tiles", "idx", "cov_min_ms")
+
+    def __init__(self, tiles, idx, cov_min_ms):
+        self.tiles = tiles
+        self.idx = idx
+        self.cov_min_ms = cov_min_ms
+
+
+class TorchBackend:
+    """Pluggable device backend for QueryEngine, in PyTorch.
+
+    ``device=None`` means CUDA, and raises when no CUDA device is present;
+    pass ``device="cpu"`` to run the plain versions on the CPU. This slice
+    runs without the micro-batcher and without a mesh."""
+
+    _TILE_CACHE_MAX = 16
+
+    def __init__(self, device=None):
+        self.device = tst.resolve_device(device)
+        self.batcher = None
+        self._tile_cache: Dict = {}
+        self.tile_builds = 0    # observability: device tile (re)builds
+        self.tile_hits = 0      # observability: cache hits
+        self.fused_aggs = 0     # observability: fused group-sum queries
+        self.packed_dispatches = 0   # observability: packed-path calls
+
+    # -- engine hooks ------------------------------------------------------
+
+    def periodic_samples(self, series: Sequence[RawSeries],
+                         params: RangeParams, function: str, window_ms: int,
+                         func_args: Sequence[float] = (),
+                         offset_ms: int = 0) -> Optional[GridResult]:
+        """[S, T] grid for the rate family, or None (the engine's oracle
+        answers: other functions, histograms, empty selections)."""
+        func = function or "last_sample"
+        if func not in DEVICE_FUNCS or not series:
+            return None
+        if any(s.values.ndim != 1 for s in series):
+            return None
+        steps = params.steps
+        nsteps = steps.size
+        keys = [dict(s.labels) for s in series]
+        if nsteps == 0:
+            return GridResult(steps, keys,
+                              np.empty((len(series), 0), dtype=np.float64))
+        aligned = self._try_aligned(series, func, steps, params.step_ms,
+                                    window_ms, offset_ms)
+        if aligned is not None:
+            return GridResult(steps, keys, aligned)
+        out = self._general(series, func, steps, params.step_ms, window_ms,
+                            offset_ms)
+        return GridResult(steps, keys, out)
+
+    def fused_groupsum(self, series, func: str, steps: np.ndarray,
+                       window_ms: int, offset_ms: int,
+                       gids: np.ndarray, G: int):
+        """`sum/avg/count by (g)` of rate/increase/delta fused on the
+        device: the group-sum kernel consumes the cached aligned tiles and
+        only [T, G] group sums + counts leave the device. Returns (sums,
+        cnts) as [T, G] numpy, or None when ineligible (the engine falls
+        back to periodic_samples + grouping over the same selection)."""
+        if func not in DEVICE_FUNCS or not len(series):
+            return None
+        entry = self._tile_entry(series)
+        tiles, idx = entry.tiles, entry.idx
+        if tiles is None or len(idx) != len(series):
+            return None
+        # every window must resolve on the tiles' covered prefix: fused
+        # results can't splice a host-side tail scan per group
+        if entry.cov_min_ms is not None and steps.size and \
+                int(steps[-1] - offset_ms) >= entry.cov_min_ms:
+            return None
+        for s in series:
+            cl = self._prefix_len(s)
+            if cl < s.ts.size and steps.size and \
+                    int(steps[-1] - offset_ms) >= int(s.ts[cl]):
+                return None
+        gvec = np.asarray(gids)[np.asarray(idx)]
+        onehot = np.zeros((len(series), G), np.float32)
+        onehot[np.arange(len(series)), gvec] = 1.0
+        res = tst.groupsum_counters(tiles, func, steps, window_ms, onehot,
+                                    offset_ms)
+        if res is None:
+            return None
+        self.fused_aggs += 1
+        return res[0].cpu().numpy(), res[1].cpu().numpy()
+
+    # -- aligned path ------------------------------------------------------
+
+    @staticmethod
+    def _prefix_len(s) -> int:
+        return s.chunk_len if s.chunk_len >= 0 else s.ts.size
+
+    def _build_tile_entry(self, series) -> _TileEntry:
+        """Tiles over the series' immutable chunk prefixes; ``cov_min_ms``
+        is the first timestamp NOT covered (None = full coverage)."""
+        prefix = [
+            RawSeries(s.labels, s.ts[:self._prefix_len(s)],
+                      s.values[:self._prefix_len(s)], s.is_counter,
+                      s.bucket_les)
+            for s in series
+        ]
+        cov_min = None
+        for s in series:
+            cl = self._prefix_len(s)
+            if cl < s.ts.size:
+                tm = int(s.ts[cl])
+                cov_min = tm if cov_min is None else min(cov_min, tm)
+        tiles, idx = tst.build_aligned_tiles(prefix, device=self.device)
+        self.tile_builds += 1
+        return _TileEntry(tiles, idx, cov_min)
+
+    def _tile_entry(self, series) -> _TileEntry:
+        """Tile cache keyed like the reference's: store snapshot keys when
+        the selection carries them (pinned content: hits until a flush
+        publishes new chunks), else object identity (holding the series so
+        ids can't be recycled). Bounded FIFO."""
+        if all(s.snapshot_key is not None for s in series):
+            key = tuple(s.snapshot_key for s in series)
+            refs = None
+        else:
+            key = tuple(id(s) for s in series)
+            refs = list(series)
+        hit = self._tile_cache.get(key)
+        if hit is not None:
+            self.tile_hits += 1
+            return hit[0]
+        entry = self._build_tile_entry(series)
+        while len(self._tile_cache) >= self._TILE_CACHE_MAX:
+            self._tile_cache.pop(next(iter(self._tile_cache)))
+        self._tile_cache[key] = (entry, refs)
+        return entry
+
+    def _try_aligned(self, series, func: str, steps: np.ndarray,
+                     step_ms: int, window_ms: int,
+                     offset_ms: int) -> Optional[np.ndarray]:
+        """Aligned-tile path: regular-cadence series over cached tiles.
+        Tiles cover only published chunks; steps whose window reaches any
+        series' write-buffer tail are computed by the packed path over the
+        live data and spliced on."""
+        entry = self._tile_entry(series)
+        tiles, idx = entry.tiles, entry.idx
+        if tiles is None or len(idx) != len(series):
+            return None     # partial alignment: keep one result path
+        tail_min = entry.cov_min_ms
+        for s in series:
+            cl = self._prefix_len(s)
+            if cl < s.ts.size:
+                tm = int(s.ts[cl])
+                tail_min = tm if tail_min is None else min(tail_min, tm)
+        wends = steps - offset_ms
+        t_dev = (steps.size if tail_min is None
+                 else int(np.searchsorted(wends, tail_min, side="left")))
+        if t_dev == 0:
+            return None     # every window touches live data
+        res = tst.evaluate_counters_t(tiles, func, steps[:t_dev], window_ms,
+                                      offset_ms).T.cpu().numpy()
+        if len(idx) != res.shape[0]:
+            return None
+        # restore original series order (build may drop/reorder rows)
+        full = np.empty((len(series), steps.size), dtype=np.float64)
+        dev = np.empty((len(series), t_dev), dtype=np.float64)
+        dev[np.asarray(idx)] = res
+        full[:, :t_dev] = dev
+        if t_dev < steps.size:
+            full[:, t_dev:] = self._general(series, func, steps[t_dev:],
+                                            step_ms, window_ms, offset_ms)
+        return full
+
+    # -- packed path -------------------------------------------------------
+
+    def _general(self, series, func: str, steps: np.ndarray, step_ms: int,
+                 window_ms: int, offset_ms: int) -> np.ndarray:
+        """Packed path (any cadence) over padded [S, N] tiles. ``steps``
+        may be any contiguous slice of a uniform grid."""
+        from filodb_tpu_torch.query.engine import clip_series
+
+        nsteps = steps.size
+        w0e = int(steps[0] - offset_ms)
+        w0s = w0e - int(window_ms)
+        step = int(step_ms if nsteps > 1 else 1)
+        # pack only the span the grid can touch
+        series = clip_series(series, w0s, int(steps[-1] - offset_ms))
+        ts, vals, lens = pack_series(series, drop_nan=True)
+        return self._packed_single(func, ts, vals, lens, w0s, w0e, step,
+                                   nsteps)
+
+    def _packed_single(self, func: str, ts, vals, lens, w0s: int, w0e: int,
+                       step: int, nsteps: int) -> np.ndarray:
+        """One packed dispatch with pow2 bucketing of the series axis (and
+        of the step axis on the endpoint path): the boundary-extract
+        kernel when the span fits int31 ms, else the exact f64 endpoint
+        path."""
+        S, N = ts.shape
+        s_bucket = _next_pow2(S, 8)
+        if s_bucket != S:
+            ts, vals, lens = _pad_series_rows(ts, vals, lens, s_bucket)
+        self.packed_dispatches += 1
+        dev = self.device
+        ts_t = torch.as_tensor(ts, device=dev)
+        vals_t = torch.as_tensor(vals, device=dev)
+        lens_t = torch.as_tensor(lens, device=dev)
+        if _extract_span_ok(ts, lens, w0s, w0e, step, nsteps):
+            out = _extract_rate(func, ts_t, vals_t, lens_t, w0s, w0e, step,
+                                nsteps)
+            return out.cpu().numpy()[:S]
+        t_bucket = _next_pow2(nsteps, 8)
+        out = _window_endpoint_rate(func, ts_t, vals_t, lens_t, w0s, w0e,
+                                    step, t_bucket)
+        return out.cpu().numpy()[:S, :nsteps]

@@ -1,0 +1,221 @@
+"""Query result model: range vectors as dense grid batches.
+
+Replaces the reference's RangeVector / SerializedRangeVector
+(core/src/main/scala/filodb.core/query/RangeVector.scala:124,452) with a
+columnar, device-friendly representation: after windowing, every series in a
+result shares one step grid, so a whole result is ``[num_series, num_steps]``
+matrices + per-series label keys.  No per-row serialization is ever needed
+intra-process (the reference's Kryo path exists only because of the JVM actor
+boundary)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class RangeParams:
+    """start/step/end in **milliseconds** (query/TimeStepParams at the edge is
+    seconds; converted at the HTTP layer)."""
+    start_ms: int
+    step_ms: int
+    end_ms: int
+
+    @property
+    def steps(self) -> np.ndarray:
+        if self.step_ms <= 0:
+            return np.array([self.start_ms], dtype=np.int64)
+        return np.arange(self.start_ms, self.end_ms + 1, self.step_ms,
+                         dtype=np.int64)
+
+    @property
+    def num_steps(self) -> int:
+        if self.step_ms <= 0:
+            return 1
+        return (self.end_ms - self.start_ms) // self.step_ms + 1
+
+
+@dataclass
+class RawSeries:
+    """One series' raw samples (RawDataRangeVector equivalent).
+
+    ``snapshot_key`` identifies the immutable chunk-backed prefix of this
+    series in its store — (dataset, shard, part_id, num_chunks). Device tile
+    caches key on it: the prefix content is pinned by num_chunks (chunks are
+    append-only and immutable), so repeated queries over an unchanged store
+    snapshot reuse device tiles with zero rebuilds. ``chunk_len`` is the
+    length of that prefix; samples beyond it are the mutable write-buffer
+    tail (merged host-side / via the general path at query time)."""
+    labels: Mapping[str, str]
+    ts: np.ndarray          # int64 ms, sorted
+    values: np.ndarray      # f64 [n] or f64 [n, num_buckets] for histograms
+    is_counter: bool = False
+    bucket_les: Optional[np.ndarray] = None  # for histogram series
+    snapshot_key: Optional[Tuple] = None
+    chunk_len: int = -1     # -1: everything is immutable (no tail)
+    # histogram reset rows from the sectioned drop tables (row i = reset
+    # between rows i-1 and i); None = caller rescans buckets
+    hist_drop_rows: Optional[np.ndarray] = None
+
+
+@dataclass
+class GridResult:
+    """A periodic (windowed) result: shared step grid + per-series rows.
+
+    ``values`` is [num_series, num_steps] float64 (NaN = no sample — carries
+    the reference's NaN/staleness semantics through the pipeline).
+    For histogram results, ``hist_values`` is [num_series, num_steps, nb].
+
+    ``partial``/``warnings`` carry degraded-mode provenance (the
+    Thanos/M3 partial-response analogue): a result assembled while some
+    shard group was unreachable is flagged, and every aggregation /
+    concatenation / stitch step propagates the flag upward so the Prom
+    JSON edge can surface ``"partial": true`` + per-shard warnings."""
+    steps: np.ndarray                       # int64 [num_steps] ms
+    keys: List[Dict[str, str]]              # per-series labels
+    values: np.ndarray                      # f64 [S, T]
+    hist_values: Optional[np.ndarray] = None  # f64 [S, T, NB]
+    bucket_les: Optional[np.ndarray] = None
+    partial: bool = False                   # some shard group missing
+    warnings: List[str] = field(default_factory=list)
+
+    @property
+    def num_series(self) -> int:
+        return len(self.keys)
+
+    def is_hist(self) -> bool:
+        return self.hist_values is not None
+
+    def absorb_degraded(self, *parts: "GridResult") -> "GridResult":
+        """Fold children's partial flags/warnings into this result
+        (returns self for chaining)."""
+        for p in parts:
+            if isinstance(p, GridResult):
+                self.partial = self.partial or p.partial
+                self.warnings.extend(w for w in p.warnings
+                                     if w not in self.warnings)
+        return self
+
+    @staticmethod
+    def empty(steps: np.ndarray) -> "GridResult":
+        return GridResult(steps, [], np.zeros((0, steps.size)))
+
+
+@dataclass
+class ScalarResult:
+    """scalar(...) / literal results: one value per step."""
+    steps: np.ndarray
+    values: np.ndarray  # f64 [T]
+
+
+@dataclass
+class QueryStats:
+    """(core/query/QueryStats equivalent) threaded through execution."""
+    series_scanned: int = 0
+    samples_scanned: int = 0
+    result_bytes: int = 0
+    # partial-result notes surfaced in the Prometheus response's
+    # `warnings` array (e.g. a shard still bootstrapping on its adopter)
+    warnings: list = field(default_factory=list)
+    # True when a shard group was dropped from this result (breaker
+    # open / peer exhausted under allow_partial) — drives the response's
+    # top-level "partial": true
+    partial: bool = False
+
+    def add(self, other: "QueryStats") -> None:
+        self.series_scanned += other.series_scanned
+        self.samples_scanned += other.samples_scanned
+        self.result_bytes += other.result_bytes
+        self.warnings.extend(other.warnings)
+        self.partial = self.partial or other.partial
+
+
+class QueryError(Exception):
+    pass
+
+
+class StaleRoutingError(QueryError):
+    """A peer was asked for shards it no longer serves: the caller's
+    routing table lags a planned shard handoff (topology epoch moved).
+
+    Raised server-side by ``leaf_select``/the pushdown expect-shards
+    check; the entry node catches it, applies the responder's ``owners``
+    hint to its ShardMapper, invalidates plan/results caches, and
+    re-materializes against fresh routing instead of returning the
+    stale (silently incomplete) response to the client.
+
+    ``__str__`` renders a machine-parseable sentinel so the error
+    round-trips losslessly through BOTH peer planes (the JSON control
+    plane's ``error`` string and the gRPC response's error field);
+    :meth:`parse` recovers it on the caller."""
+
+    PREFIX = "stale_routing:"
+
+    def __init__(self, owners=None, epoch: int = 0, node: str = "",
+                 detail: str = ""):
+        # shard -> owning node, per the RESPONDER's mapper (it is the
+        # former owner and witnessed the handoff)
+        self.owners = {int(k): v for k, v in (owners or {}).items()}
+        self.epoch = int(epoch)
+        self.node = node
+        self.detail = detail
+        super().__init__(self._render())
+
+    def _render(self) -> str:
+        import json as _json
+        return self.PREFIX + _json.dumps(
+            {"owners": {str(k): v for k, v in self.owners.items()},
+             "epoch": self.epoch, "node": self.node,
+             "detail": self.detail}, sort_keys=True)
+
+    def __str__(self) -> str:
+        return self._render()
+
+    @classmethod
+    def parse(cls, s) -> "Optional[StaleRoutingError]":
+        """Recover a StaleRoutingError from an error string carrying
+        the sentinel (possibly wrapped, e.g. ``remote node n: ...``);
+        None when the string is not one."""
+        import json as _json
+        if not isinstance(s, str):
+            return None
+        i = s.find(cls.PREFIX)
+        if i < 0:
+            return None
+        try:
+            d = _json.loads(s[i + len(cls.PREFIX):])
+        except ValueError:
+            return None
+        return cls(owners=d.get("owners"), epoch=d.get("epoch", 0),
+                   node=d.get("node", ""), detail=d.get("detail", ""))
+
+
+class QueryLimitError(QueryError):
+    """A per-query guardrail tripped (ExecPlan.scala:46 enforceLimits —
+    the reference aborts plans exceeding sample/series budgets)."""
+
+
+@dataclass(frozen=True)
+class QueryLimits:
+    """Per-query guardrails, enforced at series-selection time
+    (core/query/QueryContext PlannerParams enforcedLimits). 0 = off."""
+    series_limit: int = 0
+    sample_limit: int = 0
+
+    def check(self, stats: "QueryStats") -> None:
+        if self.series_limit and stats.series_scanned > self.series_limit:
+            raise QueryLimitError(
+                f"query matched {stats.series_scanned} series, exceeding "
+                f"the limit of {self.series_limit}")
+        if self.sample_limit and stats.samples_scanned > self.sample_limit:
+            raise QueryLimitError(
+                f"query would scan more than {self.sample_limit} samples "
+                f"(scanned {stats.samples_scanned} so far)")
+
+
+@dataclass
+class QueryWarnings:
+    messages: List[str] = field(default_factory=list)
