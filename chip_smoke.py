@@ -8,7 +8,8 @@ Phases, none of whose failures is caught:
      kernels compiled from filodb_tpu_torch/csrc/ into build/kernels/;
   2. kernel parity: each kernel against its plain PyTorch version on the
      card (group-sum: every func and boundary-mode pair, and step == dt;
-     boundary extract: ragged rows with duplicates and empty windows);
+     boundary extract: ragged rows with duplicates and empty windows, and
+     rows too long for the shared-memory stage);
   3. device tiles at real size: 65,536 counter series x 2,880 slots (8 h at
      10 s, +/-2 s jitter) generated on the card; `sum by` of rate with a
      5 m window and 60 s step over T = 470 steps and 16 groups, at three
@@ -27,7 +28,11 @@ Phases, none of whose failures is caught:
 
 Tolerances: group-sum counts exact, sums |k - p| <= 1e-5 |p| + 1e-6 max|p|
 (f32 sums in another order than the plain version's f64 product); the
-boundary extract bit-exact; the engine within rtol 1e-5 of its f64 oracle.
+boundary extract bit-exact; the engine within rtol 1e-5 of its f64 oracle,
+plus, where a window's extrapolation branch is a knife edge on integer ms,
+the spread of that series' answers with the branch taken either way
+(check_engine_answer); the fused group answers also within rtol 1e-5 of an
+f64 oracle that decides the branch on integer ms as the kernel does.
 
 The last line of standard output is {"ok": true, "device": {...}}; the
 script exits non-zero, printing no result, when there is no CUDA device.
@@ -42,6 +47,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -57,6 +63,8 @@ N_FULL = 2_880
 T_FULL = 470
 G = 16
 S_ORACLE = 8_192
+S_ENGINE = 8_192
+KNIFE_MS = 8
 J_MS = 2_000
 
 # published device-memory rate and non-tensor f32 rate by card model
@@ -184,8 +192,7 @@ def phase_parity(gen, dev) -> None:
                         step, T)
                 got = kn.counter_groupsum(*args)
                 torch.cuda.synchronize()
-                eb = 11 * WINDOW * (plan["dspan"] * st + 1) < 2 ** 31
-                want = kn.counter_groupsum_reference(*args, eb)
+                want = kn.counter_groupsum_reference(*args)
                 check_groupsum(got, want,
                                f"group-sum {func} st={st} modes="
                                f"{hi_mode}/{lo_mode}")
@@ -203,15 +210,33 @@ def phase_parity(gen, dev) -> None:
     assert empty > 0 and dups > 0
     log(f"phase 2: boundary-extract parity ok (bit-exact; {empty} empty "
         f"windows, {dups} duplicate timestamps)")
+    # rows too long to stage in shared memory are searched in device memory
+    n_long = 16_384
+    assert n_long > kn.WX_SMEM_ROW_MAX
+    tr, pay = gen_ragged(256, n_long, 77, 61_000, 290_000, gen, dev)
+    got = kn.window_extract(tr, pay, 61_000, 290_000, 77)
+    torch.cuda.synchronize()
+    want = kn.window_extract_reference(tr, pay, 61_000, 290_000, 77)
+    check_extract(got, want, "boundary extract (rows in device memory)")
+    assert int((want[0] == 0).sum()) > 0
+    log(f"phase 2: boundary-extract parity ok (bit-exact) on 256 rows of "
+        f"up to {n_long} samples, past the {kn.WX_SMEM_ROW_MAX}-sample "
+        f"shared-memory stage")
 
 
-def _oracle_group_rate(ts: np.ndarray, vals: np.ndarray, gid: np.ndarray,
-                       w0e: int, T: int) -> np.ndarray:
-    """Straightforward f64 Prometheus rate per series and window (sorted
-    rows, searchsorted bounds, reset-corrected values), summed by group ->
-    [T, G]. The extrapolation branch is decided on integer ms (10*(cnt-1)*
-    gap <= 11*sampled), the rule the reference kernel documents."""
-    S = ts.shape[0]
+def _oracle_rates(ts: np.ndarray, vals: np.ndarray, w0e: int, T: int,
+                  knife_ms: Optional[int] = None) -> np.ndarray:
+    """Straightforward f64 Prometheus rate per series and window -> [S, T]
+    (sorted rows, searchsorted bounds, reset-corrected values; NaN under two
+    samples). The extrapolation branch ("gap < 1.1 x the average interval")
+    is decided on integer ms, 10*(cnt-1)*gap <= 11*sampled, the rule the
+    reference kernel documents.
+
+    With knife_ms, returns [4, S, T]: the rates with the branch as decided,
+    then taken the other way at the start edge, at the end edge, and at
+    both, wherever that edge's |10*(cnt-1)*gap - 11*sampled| <= knife_ms.
+    An f64 or f32 compare of the same test may fall on either side there."""
+    S, N = ts.shape
     prev = np.concatenate([np.full((S, 1), np.nan), vals[:, :-1]], axis=1)
     cv = vals + np.cumsum(np.where(vals < prev, prev, 0.0), axis=1)
     wend = w0e + np.arange(T, dtype=np.int64) * STEP
@@ -222,32 +247,45 @@ def _oracle_group_rate(ts: np.ndarray, vals: np.ndarray, gid: np.ndarray,
         lo[s] = np.searchsorted(ts[s], wstart, side="left")
         hi[s] = np.searchsorted(ts[s], wend, side="right") - 1
     rows = np.arange(S)[:, None]
-    cnt = (hi - lo + 1).astype(np.float64)
-    t1, t2 = ts[rows, lo], ts[rows, hi]
-    v1, v2 = cv[rows, lo], cv[rows, hi]
-    sampled = (t2 - t1) / 1000.0
-    delta = v2 - v1
+    lo_c, hi_c = np.clip(lo, 0, N - 1), np.clip(hi, 0, N - 1)
+    cnt = hi - lo + 1
+    t1, t2 = ts[rows, lo_c], ts[rows, hi_c]
+    v1, v2 = cv[rows, lo_c], cv[rows, hi_c]
     ds_ms = t1 - wstart[None, :]
     de_ms = wend[None, :] - t2
+    m_ds = 10 * (cnt - 1) * ds_ms - 11 * (t2 - t1)
+    m_de = 10 * (cnt - 1) * de_ms - 11 * (t2 - t1)
+    sampled = (t2 - t1) / 1000.0
+    delta = v2 - v1
+    out = []
     with np.errstate(all="ignore"):
         avg = sampled / (cnt - 1.0)
-        use_ds = 10 * (cnt - 1) * ds_ms <= 11 * (t2 - t1)
-        use_de = 10 * (cnt - 1) * de_ms <= 11 * (t2 - t1)
-        dstart = ds_ms / 1000.0
         dzero = np.where((delta > 0) & (v1 >= 0), sampled * v1 / delta,
                          np.inf)
-        zlt = dzero < dstart
-        dstart = np.where(zlt, dzero, dstart)
-        use_ds = np.where(zlt, dzero < 1.1 * avg, use_ds)
-        extrap = sampled + np.where(use_ds, dstart, avg / 2) \
-            + np.where(use_de, de_ms / 1000.0, avg / 2)
-        rate = delta * extrap / sampled / (WINDOW / 1000.0)
-    ok = cnt >= 2
-    out = np.zeros((T, G))
-    for g in range(G):
-        m = gid == g
-        out[:, g] = np.where(ok[m], rate[m], 0.0).sum(axis=0)
-    return out
+        zlt = dzero < ds_ms / 1000.0
+        dstart = np.where(zlt, dzero, ds_ms / 1000.0)
+        flips = ((False, False),) if knife_ms is None else \
+            ((False, False), (True, False), (False, True), (True, True))
+        for f_ds, f_de in flips:
+            use_ds = m_ds <= 0
+            use_de = m_de <= 0
+            if f_ds:
+                use_ds = use_ds ^ (np.abs(m_ds) <= knife_ms)
+            if f_de:
+                use_de = use_de ^ (np.abs(m_de) <= knife_ms)
+            use_ds = np.where(zlt, dzero < 1.1 * avg, use_ds)
+            extrap = sampled + np.where(use_ds, dstart, avg / 2) \
+                + np.where(use_de, de_ms / 1000.0, avg / 2)
+            rate = delta * extrap / sampled / (WINDOW / 1000.0)
+            out.append(np.where(cnt >= 2, rate, np.nan))
+    return out[0] if knife_ms is None else np.stack(out)
+
+
+def _group_sum(rates: np.ndarray, gid: np.ndarray) -> np.ndarray:
+    """[..., S, T] per-series rates -> [..., T, G] sums (NaN as 0)."""
+    r = np.nan_to_num(rates, nan=0.0)
+    return np.stack([r[..., gid == g, :].sum(axis=-2) for g in range(G)],
+                    axis=-1)
 
 
 def phase_real_size(gen, dev, bw: float, f32_rate: float) -> dict:
@@ -294,8 +332,8 @@ def phase_real_size(gen, dev, bw: float, f32_rate: float) -> dict:
                               plan["hi_mode"], plan["lo_mode"], v_p, base,
                               oh_sub, plan["kl0"], plan["w0e_rel"], WINDOW,
                               STEP, T_FULL)
-    want = _oracle_group_rate(ts_o, vals_o, gid[:S_ORACLE].cpu().numpy(),
-                              int(steps0[0]), T_FULL)
+    want = _group_sum(_oracle_rates(ts_o, vals_o, int(steps0[0]), T_FULL),
+                      gid[:S_ORACLE].cpu().numpy())
     got = sub[0].double().cpu().numpy()
     rel = float((np.abs(got - want) / np.maximum(np.abs(want), 1e-30))
                 .max())
@@ -307,12 +345,11 @@ def phase_real_size(gen, dev, bw: float, f32_rate: float) -> dict:
     args = ("rate", plan["st"], plan["dspan"], plan["hi_mode"],
             plan["lo_mode"], v_p, base, oh, plan["kl0"], plan["w0e_rel"],
             WINDOW, STEP, T_FULL)
-    eb = 11 * WINDOW * (plan["dspan"] * plan["st"] + 1) < 2 ** 31
     k_out = kn.counter_groupsum(*args)
-    p_out = kn.counter_groupsum_reference(*args, eb)
+    p_out = kn.counter_groupsum_reference(*args)
     err1 = check_groupsum(k_out, p_out, "group-sum at real size")
     ms1 = time_ms(lambda: kn.counter_groupsum(*args))
-    pms1 = time_ms(lambda: kn.counter_groupsum_reference(*args, eb),
+    pms1 = time_ms(lambda: kn.counter_groupsum_reference(*args),
                    reps=5, warm=1)
     n_s = v_p.shape[0]
     fams = 1 + (plan["hi_mode"] != kn.GS_CUR) + (plan["lo_mode"]
@@ -363,42 +400,20 @@ def phase_real_size(gen, dev, bw: float, f32_rate: float) -> dict:
     return {"counter_groupsum": b1, "window_extract": b2}
 
 
-def _knife_edges(ts: np.ndarray, start_ms: int, step_ms: int, T: int,
-                 slack: int = 8) -> np.ndarray:
-    """[S, T] windows whose extrapolation-branch test ("gap < 1.1 x the
-    average interval") sits on a knife edge: |10*(cnt-1)*gap - 11*sampled|
-    <= slack integer ms at either window edge. An exact tie (0) is decided
-    on integer ms by the fused kernel and in f64 by the oracle; a near tie
-    within a few f32 ulps is decided in f32 by the per-series evaluator.
-    Either may take the other side of the branch."""
-    wend = start_ms + np.arange(T, dtype=np.int64) * step_ms
-    wstart = wend - WINDOW
-    out = np.zeros((ts.shape[0], T), bool)
-    for s in range(ts.shape[0]):
-        lo = np.searchsorted(ts[s], wstart, side="left")
-        hi = np.searchsorted(ts[s], wend, side="right") - 1
-        ok = (hi > lo) & (hi < ts.shape[1]) & (lo < ts.shape[1])
-        lo_c = np.minimum(lo, ts.shape[1] - 1)
-        hi_c = np.clip(hi, 0, ts.shape[1] - 1)
-        smp = 11 * (ts[s, hi_c] - ts[s, lo_c])
-        k = 10 * (hi - lo)
-        out[s] = ok & ((np.abs(k * (ts[s, lo_c] - wstart) - smp) <= slack)
-                       | (np.abs(k * (wend - ts[s, hi_c]) - smp) <= slack))
-    return out
+ENGINE_TAIL = 30
+ENGINE_IRREGULAR = 1_024
 
 
-def phase_engine(rng: np.random.Generator, S: int) -> dict:
+def build_engine_shard(rng: np.random.Generator, S: int):
+    """A TimeSeriesShard with S flushed counter series x N_FULL samples, an
+    unflushed ENGINE_TAIL-sample tail each, and ENGINE_IRREGULAR flushed
+    series of irregular cadence -> (shard, ts, vals) with the counter
+    series' [S, N_FULL + ENGINE_TAIL] times and values."""
     from filodb_tpu_torch import state
     from filodb_tpu_torch.core.memstore import TimeSeriesShard
     from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS, DatasetRef
-    from filodb_tpu_torch.promql.parser import (TimeStepParams,
-                                                parse_query_range)
-    from filodb_tpu_torch.query import kernels as kn
-    from filodb_tpu_torch.query.backend import TorchBackend
-    from filodb_tpu_torch.query.engine import QueryEngine
 
-    N, TAIL, S_IRR = N_FULL, 30, 1_024
-    t0 = time.perf_counter()
+    N, TAIL = N_FULL, ENGINE_TAIL
     ts = (BASE + np.arange(N + TAIL)[None, :] * DT
           + rng.integers(-J_MS, J_MS + 1, (S, N + TAIL)))
     vals = np.cumsum(rng.uniform(0, 5, (S, N + TAIL)), axis=1)
@@ -410,7 +425,7 @@ def phase_engine(rng: np.random.Generator, S: int) -> dict:
     state.load_series(shard, [(lab[i], ts[i, :N], vals[i, :N])
                               for i in range(S)])
     irr = []
-    for i in range(S_IRR):
+    for i in range(ENGINE_IRREGULAR):
         t = np.unique(BASE + np.arange(N) * DT
                       + rng.integers(-6_000, 6_000, N))
         irr.append(({"_metric_": "irregular_total", "_ws_": "demo",
@@ -421,24 +436,113 @@ def phase_engine(rng: np.random.Generator, S: int) -> dict:
     # the tail last: a flush would encode it into chunks
     state.load_series(shard, [(lab[i], ts[i, N:], vals[i, N:])
                               for i in range(S)], flush=False)
+    return shard, ts, vals
+
+
+def engine_queries():
+    """(PromQL, start s, end s) of the engine phase, 60 s steps."""
+    start = BASE // 1000 + 600
+    flushed_end = (BASE + (N_FULL - 10) * DT) // 1000
+    tail_end = (BASE + (N_FULL + ENGINE_TAIL - 2) * DT) // 1000
+    return [
+        ("sum by (job) (rate(http_requests_total[5m]))", start, flushed_end),
+        ("avg by (job) (rate(http_requests_total[5m]))", start, flushed_end),
+        ("count by (job) (rate(http_requests_total[5m]))", start,
+         flushed_end),
+        ("rate(http_requests_total[5m])", start, tail_end),
+        ("rate(irregular_total[5m])", start, flushed_end),
+    ]
+
+
+def check_engine_answer(q: str, got, want, variants: np.ndarray) -> dict:
+    """Holds one engine answer against the engine's numpy oracle (`want`,
+    rtol 1e-5) and, for the counter metric's rates, against this script's
+    integer-rule oracle (`variants`, [4, S, T'] from _oracle_rates with
+    KNIFE_MS over the same grid, T' >= T). Raises on a mismatch.
+
+    Where a window's extrapolation branch is a knife edge, the engine's
+    oracle decides it by an f64 compare and may take the other side: there
+    the bound against `want` grows by the spread of that series' branch
+    variants (summed over the group for a group sum, over its count for an
+    average), and no more. The fused group-sum decides on integer ms, so
+    its group answers must match variant 0 at rtol 1e-5 with no allowance;
+    a per-series answer must match one of the four variants at rtol 1e-5,
+    and the engine's oracle one of them at rtol 1e-9."""
+    assert [dict(k) for k in got.keys] == [dict(k) for k in want.keys]
+    assert got.values.shape == want.values.shape
+    gv, wv = got.values, want.values
+    assert np.array_equal(np.isnan(gv), np.isnan(wv))
+    assert np.isfinite(gv).any()
+    nan = np.isnan(wv)
+    allow = np.zeros(wv.shape)
+    out = {"knife_cells": 0}
+    if "http_requests_total" in q and not q.startswith("count"):
+        var = variants[..., :gv.shape[1]]
+        spread = np.nan_to_num(np.nanmax(var, axis=0)
+                               - np.nanmin(var, axis=0), nan=0.0)
+        if " by (job) " in q:
+            gid = np.arange(var.shape[1]) % G
+            rows = [int(k["job"][3:]) for k in got.keys]
+            nom = _group_sum(var[0], gid)[:, rows].T
+            allow = _group_sum(spread, gid)[:, rows].T
+            if q.startswith("avg"):
+                n = _group_sum((~np.isnan(var[0])).astype(np.float64),
+                               gid)[:, rows].T
+                with np.errstate(all="ignore"):
+                    nom, allow = nom / n, allow / n
+            ierr = np.abs(gv - nom)
+            assert (nan | (ierr <= 1e-5 * np.abs(nom) + 1e-9)).all(), \
+                f"{q}: vs the integer-rule oracle, max abs err " \
+                f"{np.nanmax(ierr)}"
+            assert (nan | (np.abs(wv - nom) <= 1e-9 * np.abs(nom) + allow
+                           + 1e-9)).all(), f"{q}: the oracles disagree"
+        else:
+            idx = [int(k["instance"][1:]) for k in got.keys]
+            cand = var[:, idx]
+            allow = spread[idx]
+
+            def hits(x, rtol):
+                return (np.abs(x[None] - cand)
+                        <= rtol * np.abs(cand) + 1e-9).any(axis=0)
+            assert (nan | hits(gv, 1e-5)).all(), \
+                f"{q}: matches no branch variant of the integer-rule oracle"
+            assert (nan | hits(wv, 1e-9)).all(), f"{q}: the oracles disagree"
+        cells = (allow > 0) & ~nan
+        with np.errstate(all="ignore"):
+            rel_allow = allow / np.abs(wv)
+            rel_err = np.abs(gv - wv) / np.abs(wv)
+        out = {"knife_cells": int(cells.sum()),
+               "max_rel_allowance": float(rel_allow[cells].max())
+               if cells.any() else 0.0,
+               "max_rel_err_knife": float(rel_err[cells].max())
+               if cells.any() else 0.0}
+    err = np.abs(gv - wv)
+    ok = nan | (err <= 1e-5 * np.abs(wv) + allow + 1e-9)
+    assert ok.all(), f"{q}: max abs err {np.nanmax(err)}"
+    with np.errstate(all="ignore"):
+        out["max_rel_err"] = float(np.nanmax(err / np.abs(wv)))
+    return out
+
+
+def phase_engine(rng: np.random.Generator) -> dict:
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                parse_query_range)
+    from filodb_tpu_torch.query import kernels as kn
+    from filodb_tpu_torch.query.backend import TorchBackend
+    from filodb_tpu_torch.query.engine import QueryEngine
+
+    S = S_ENGINE
+    t0 = time.perf_counter()
+    shard, ts, vals = build_engine_shard(rng, S)
     ingest_s = time.perf_counter() - t0
-    log(f"phase 4: shard with {S} counter series x {N} samples (+{TAIL} "
-        f"unflushed) and {S_IRR} irregular series, ingest + flush "
-        f"{ingest_s:.1f} s")
+    log(f"phase 4: shard with {S} counter series x {N_FULL} samples "
+        f"(+{ENGINE_TAIL} unflushed) and {ENGINE_IRREGULAR} irregular "
+        f"series, ingest + flush {ingest_s:.1f} s")
 
     be = TorchBackend()
     oracle = QueryEngine([shard])
     engine = QueryEngine([shard], backend=be)
-    start = BASE // 1000 + 600
-    flushed_end = (BASE + (N - 10) * DT) // 1000
-    tail_end = (BASE + (N + TAIL - 2) * DT) // 1000
-    queries = [
-        ("sum by (job) (rate(http_requests_total[5m]))", flushed_end),
-        ("avg by (job) (rate(http_requests_total[5m]))", flushed_end),
-        ("count by (job) (rate(http_requests_total[5m]))", flushed_end),
-        ("rate(http_requests_total[5m])", tail_end),
-        ("rate(irregular_total[5m])", flushed_end),
-    ]
+    queries = engine_queries()
     # record every kernel call the main path makes, to hold it against
     # the plain version afterwards
     calls = {"counter_groupsum": [], "window_extract": []}
@@ -455,8 +559,9 @@ def phase_engine(rng: np.random.Generator, S: int) -> dict:
     kn.reset_launches()
     t1 = time.perf_counter()
     results = []
-    for q, end in queries:
-        plan = parse_query_range(q, TimeStepParams(start, 60, end))
+    for q, start, end in queries:
+        plan = parse_query_range(q, TimeStepParams(start, STEP // 1000,
+                                                   end))
         tq = time.perf_counter()
         got = engine.execute(plan)
         results.append((q, plan, got, time.perf_counter() - tq))
@@ -471,41 +576,19 @@ def phase_engine(rng: np.random.Generator, S: int) -> dict:
     for name, n in launches.items():
         assert n > 0, f"{name} was not launched on the main path"
     assert be.fused_aggs > 0
-    jobs = np.arange(S) % G
+    T_max = max(r[2].values.shape[1] for r in results)
+    variants = _oracle_rates(ts, vals, queries[0][1] * 1000, T_max,
+                             knife_ms=KNIFE_MS)
+    readings = {}
     for q, plan, got, secs in results:
-        want = oracle.execute(plan)
-        assert [dict(k) for k in got.keys] == [dict(k) for k in want.keys]
-        assert got.values.shape == want.values.shape
-        assert np.array_equal(np.isnan(got.values), np.isnan(want.values))
-        assert np.isfinite(got.values).any()
-        rtol = np.full(got.values.shape, 1e-5)
-        note = ""
-        if "http_requests_total" in q and not q.startswith("count"):
-            # a knife-edge extrapolation branch (see _knife_edges) may be
-            # decided the other way, which moves that series' rate by up
-            # to ~0.6 of a scrape interval over the window (< 3 %) and a
-            # 512-series group sum by < 1e-3
-            edges = _knife_edges(ts, start * 1000, 60_000,
-                                 got.values.shape[1])
-            if " by (job) " in q:
-                cells = np.stack([edges[jobs == int(k["job"][3:])]
-                                  .any(axis=0) for k in got.keys])
-                rtol[cells] = 1e-3
-            else:
-                cells = edges[[int(k["instance"][1:]) for k in got.keys]]
-                rtol[cells] = 3e-2
-            note = f" ({int(cells.sum())} cells on a knife edge)"
-        err = np.abs(got.values - want.values)
-        ok = np.isnan(want.values) | (err <= rtol * np.abs(want.values)
-                                      + 1e-9)
-        assert ok.all(), f"{q}: max abs err {np.nanmax(err)}"
+        r = check_engine_answer(q, got, oracle.execute(plan), variants)
+        readings[q] = r
         log(f"phase 4: {q} -> {got.values.shape} in {secs:.3f} s, agrees "
-            f"with the numpy oracle{note}")
+            f"with the numpy oracle: {json.dumps(r)}")
     errs = {}
     for a, kw in calls["counter_groupsum"]:
         got = originals["counter_groupsum"](*a, **kw)
-        eb = 11 * int(a[10]) * (a[2] * a[1] + 1) < 2 ** 31
-        want = kn.counter_groupsum_reference(*a, eb)
+        want = kn.counter_groupsum_reference(*a, **kw)
         e = check_groupsum(got, want, "group-sum on the main path")
         errs["counter_groupsum"] = max(errs.get("counter_groupsum", 0.0), e)
     for a, kw in calls["window_extract"]:
@@ -521,7 +604,6 @@ def phase_engine(rng: np.random.Generator, S: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--engine-series", type=int, default=8_192)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -552,7 +634,7 @@ def main() -> int:
     gen.manual_seed(args.seed)
     phase_parity(gen, dev)
     rows = phase_real_size(gen, dev, bw, f32_rate)
-    eng = phase_engine(np.random.default_rng(args.seed), args.engine_series)
+    eng = phase_engine(np.random.default_rng(args.seed))
     kernels = []
     for kname in ("counter_groupsum", "window_extract"):
         r = dict(rows[kname])

@@ -48,6 +48,10 @@ GS_BOTH = 0            # jitter straddles the grid phase: select per element
 GS_CUR = 1             # the nominal slot is always inside the window
 GS_ALT = 2             # the nominal slot is always outside: use kc0-1/kl0+1
 
+# longest row the boundary extract stages in shared memory (kSmemRowMax in
+# csrc/window_extract.cu); longer rows are searched in device memory
+WX_SMEM_ROW_MAX = 12_288
+
 _FUNC_CODE = {"rate": 0, "increase": 1, "delta": 2}
 
 # launches per kernel, counted by the wrappers (plain-version calls on CPU
@@ -189,16 +193,24 @@ def _rows(v_p: torch.Tensor, k0: int, st: int, T: int) -> torch.Tensor:
     return v_p[:, k % st, k // st, :]
 
 
+def exact_branch_fits(window: int, dspan: int, st: int) -> bool:
+    """Whether the extrapolation branch can be decided on integer ms: the
+    products 10*(cnt-1)*gap and 11*sampled must fit i32."""
+    return 11 * int(window) * (dspan * st + 1) < 2 ** 31
+
+
 def counter_groupsum_reference(func: str, st: int, dspan: int, hi_mode: int,
                                lo_mode: int, v_p: torch.Tensor,
                                base: torch.Tensor, onehot: torch.Tensor,
                                kl0: int, w0e_rel: int, window: int,
                                step: int, nsteps: int,
-                               exact_branch: bool
+                               exact_branch: Optional[bool] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the group-sum kernel: the same f32
     epilogue, element for element, then the group product summed in f64
     and rounded to f32."""
+    if exact_branch is None:
+        exact_branch = exact_branch_fits(window, dspan, st)
     f32 = torch.float32
     T = nsteps
     n_s = v_p.shape[0]
@@ -337,8 +349,7 @@ def counter_groupsum(func: str, st: int, dspan: int, hi_mode: int,
              "grid reaches outside the packed channel")
     _require(w0e_rel + (T - 1) * step < 2 ** 31, "grid exceeds int31 ms")
     if exact_branch is None:
-        # integer extrapolation-branch products must fit i32
-        exact_branch = 11 * int(window) * (dspan * st + 1) < 2 ** 31
+        exact_branch = exact_branch_fits(window, dspan, st)
     if _route(v_p, base, onehot) == "cpu":
         return counter_groupsum_reference(
             func, st, dspan, hi_mode, lo_mode, v_p, base, onehot, kl0,
