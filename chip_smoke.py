@@ -7,14 +7,19 @@ Phases, none of whose failures is caught:
   1. card and build: the card's name and power limit, then both CUDA
      kernels compiled from filodb_tpu_torch/csrc/ into build/kernels/;
   2. kernel parity: each kernel against its plain PyTorch version on the
-     card (group-sum: every func and boundary-mode pair, and step == dt;
+     card (group-sum: every func and boundary-mode pair, step == dt, and
+     the tiling's edges: G 1 and 300, one s-tile and a ragged last one, T
+     no multiple of the step chunk, st == 1 with both fallback families,
+     dspan == GS_DSPAN_MAX, each call run twice and compared bit for bit;
      boundary extract: ragged rows with duplicates and empty windows, and
      rows too long for the shared-memory stage);
   3. device tiles at real size: 65,536 counter series x 2,880 slots (8 h at
      10 s, +/-2 s jitter) generated on the card; `sum by` of rate with a
      5 m window and 60 s step over T = 470 steps and 16 groups, at three
      grid phases, held against a numpy f64 oracle on an 8,192-series
-     subset; the boundary extract at 65,536 x 512 samples x 128 windows;
+     subset; the group-sum timed there and at the shape phase 4 sends it
+     (8,192 series, T = 469); the boundary extract at 65,536 x 512 samples
+     x 128 windows;
   4. the engine end to end (the main path): a TimeSeriesShard with 8,192
      flushed counter series, an unflushed 30-sample tail and 1,024 series of
      irregular cadence, queried through parse_query_range +
@@ -23,8 +28,10 @@ Phases, none of whose failures is caught:
      read just after, and every kernel call it made is held against the
      plain version on the same inputs;
   5. the `kernels` line: launches, max error, kernel and plain times (CUDA
-     events over warmed launches) and the least time the card could take,
-     at the phase-3 shapes.
+     events over warmed launches; `device_ms` by CUDA-graph replay, without
+     the host's cost of a call) and the least time the card could take, at
+     the phase-3 shapes, and for the group-sum also at the engine shape
+     (`engine_shape_*`).
 
 Tolerances: group-sum counts exact, sums |k - p| <= 1e-5 |p| + 1e-6 max|p|
 (f32 sums in another order than the plain version's f64 product); the
@@ -98,6 +105,19 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time of one call of `fn`: `calls` calls captured in one CUDA
+    graph, the graph replayed `reps` times between CUDA events (the host's
+    cost of each call is left out)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    return time_ms(g.replay, reps=reps, warm=2) / calls
+
+
 def check_groupsum(got, want, what: str) -> float:
     """Counts exact; sums within 1e-5 |p| + 1e-6 max|p|. Returns the max
     absolute error of the sums."""
@@ -164,6 +184,54 @@ def gen_ragged(S: int, N: int, T: int, step: int, window: int,
 # phases
 # ---------------------------------------------------------------------------
 
+# (st, step, window, T, first step) of the group-sum edge cases: T that is
+# no multiple of the step chunk or batch, st == 1, dspan == GS_DSPAN_MAX
+EDGE_GRIDS = ((6, STEP, WINDOW, 150, BASE + 400_000),
+              (1, DT, WINDOW, 301, BASE + 400_000),
+              (1, DT, 480_000, 300, BASE + 600_000),
+              (6, STEP, 2_880_000, 101, BASE + 3_000_000))
+
+
+def groupsum_edge_cases(S: int, N: int, G_e: int, gen, dev) -> int:
+    """The group-sum kernel against its plain version on S series and G_e
+    groups over EDGE_GRIDS, each at the plan's modes and with both
+    fallback families forced; every call run twice and compared with
+    torch.equal (reruns must be bit-identical). Returns the case count."""
+    from filodb_tpu_torch.query import kernels as kn
+    from filodb_tpu_torch.query import tilestore as tst
+
+    ts, vals = gen_counters(S, N, gen, dev)
+    tiles = tst.AlignedTiles([{}] * S, BASE, DT,
+                             torch.ones((S, N), dtype=torch.bool, device=dev),
+                             ts, vals)
+    del ts, vals
+    n_s = -(-S // kn.GS_SS)
+    oh = torch.zeros((n_s * kn.GS_SS, G_e), dtype=torch.float32, device=dev)
+    oh[torch.arange(S, device=dev), torch.arange(S, device=dev) % G_e] = 1.0
+    base = tiles.t_fixed_base("cv")
+    n = 0
+    for st, step, window, T, first in EDGE_GRIDS:
+        steps = first + np.arange(T, dtype=np.int64) * step
+        plan = tst.groupsum_plan(tiles, "rate", steps, window)
+        assert plan is not None and plan["st"] == st
+        assert window != 480_000 or plan["dspan"] == kn.GS_DSPAN_MAX
+        v_p = tiles.t_perm_fixed_tiled("cv", st)
+        for modes in sorted({(plan["hi_mode"], plan["lo_mode"]),
+                             (kn.GS_BOTH, kn.GS_BOTH)}):
+            args = ("rate", st, plan["dspan"], *modes, v_p, base, oh,
+                    plan["kl0"], plan["w0e_rel"], window, step, T)
+            got = kn.counter_groupsum(*args)
+            again = kn.counter_groupsum(*args)
+            torch.cuda.synchronize()
+            what = (f"group-sum S={S} G={G_e} st={st} dspan={plan['dspan']} "
+                    f"T={T} modes={modes}")
+            check_groupsum(got, kn.counter_groupsum_reference(*args), what)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                f"{what}: rerun not bit-identical"
+            n += 1
+    return n
+
+
 def phase_parity(gen, dev) -> None:
     from filodb_tpu_torch.query import kernels as kn
     from filodb_tpu_torch.query import tilestore as tst
@@ -200,6 +268,12 @@ def phase_parity(gen, dev) -> None:
     del tiles
     log(f"phase 2: group-sum parity ok over {n_pair} (func, stride, mode "
         f"pair) cases at S={S}")
+    n_edge = 0
+    for S_e, G_e in ((100, 1), (700, 300)):
+        n_edge += groupsum_edge_cases(S_e, N, G_e, gen, dev)
+    log(f"phase 2: group-sum parity and bit-identical reruns ok over "
+        f"{n_edge} edge cases (G 1 and 300, S 100 and 700, st 1 and 6, "
+        f"dspan up to {kn.GS_DSPAN_MAX}, every family read)")
     tr, pay = gen_ragged(2_048, 300, 77, 61_000, 290_000, gen, dev)
     got = kn.window_extract(tr, pay, 61_000, 290_000, 77)
     torch.cuda.synchronize()
@@ -288,6 +362,79 @@ def _group_sum(rates: np.ndarray, gid: np.ndarray) -> np.ndarray:
                     axis=-1)
 
 
+def groupsum_bound(args, bw: float, f32_rate: float):
+    """(bytes, least ms, "bytes" or "operations") of one group-sum call:
+    each boundary row of the families its modes read once (kc and kl share
+    one run of T + dspan rows), base, one-hot and the outputs."""
+    from filodb_tpu_torch.query import kernels as kn
+
+    _, st, dspan, hi_mode, lo_mode, v_p, base, oh = args[:8]
+    T = args[-1]
+    n_s, G = v_p.shape[0], oh.shape[1]
+    fams = 1 + (hi_mode != kn.GS_CUR) + (lo_mode != kn.GS_CUR)
+    rows = (T + dspan) + T * (fams - 1)
+    nbytes = (rows * n_s * kn.GS_SS * 12 + base.numel() * 4
+              + oh.numel() * 4 + 2 * T * G * 4)
+    ops = T * n_s * kn.GS_SS * (40 + 4 * G)
+    by = "bytes" if nbytes / bw >= ops / f32_rate else "operations"
+    return nbytes, 1e3 * max(nbytes / bw, ops / f32_rate), by
+
+
+def time_groupsum(args, bw: float, f32_rate: float, what: str) -> dict:
+    """The group-sum kernel on `args` held against its plain version, then
+    timed beside it and its bound: `ms` by CUDA events over warmed
+    back-to-back calls (the host's cost of a call included where it
+    exceeds the kernel's), `device_ms` by graph_ms."""
+    from filodb_tpu_torch.query import kernels as kn
+
+    k_out = kn.counter_groupsum(*args)
+    p_out = kn.counter_groupsum_reference(*args)
+    err = check_groupsum(k_out, p_out, what)
+    del k_out, p_out
+    ms = time_ms(lambda: kn.counter_groupsum(*args))
+    dms = graph_ms(lambda: kn.counter_groupsum(*args))
+    pms = time_ms(lambda: kn.counter_groupsum_reference(*args), reps=5,
+                  warm=1)
+    nbytes, bound, by = groupsum_bound(args, bw, f32_rate)
+    _, st, dspan, hi_mode, lo_mode, v_p, _, oh = args[:8]
+    n_s, T = v_p.shape[0], args[-1]
+    lp = kn.groupsum_launch_plan(n_s, T, oh.shape[1], hi_mode, lo_mode,
+                                 torch.cuda.get_device_properties(0)
+                                 .multi_processor_count)
+    log(f"phase 3: {what} (n_s={n_s}, T={T}, st={st}, dspan={dspan}, "
+        f"modes={hi_mode}/{lo_mode}; launch {json.dumps(lp)}): kernel "
+        f"{ms:.4f} ms, device {dms:.4f} ms, plain {pms:.3f} ms, bound "
+        f"{bound:.4f} ms ({nbytes / 1e9:.4f} GB, {by}; device time "
+        f"{100 * bound / dms:.1f} % of it)")
+    return {"err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
+            "bound_ms": bound, "bound_by": by}
+
+
+def engine_shape_args(gen, dev):
+    """Group-sum arguments at the shape phase 4's first query sends the
+    kernel: S_ENGINE series (16 s-tiles) x N_FULL slots, 60 s steps over
+    the flushed range, 5 m window, G groups."""
+    from filodb_tpu_torch.query import tilestore as tst
+
+    q, start, end = engine_queries()[0]
+    T = (end - start) // (STEP // 1000) + 1
+    ts, vals = gen_counters(S_ENGINE, N_FULL, gen, dev)
+    tiles = tst.AlignedTiles([{}] * S_ENGINE, BASE, DT,
+                             torch.ones((S_ENGINE, N_FULL), dtype=torch.bool,
+                                        device=dev), ts, vals)
+    del ts, vals
+    steps = start * 1000 + np.arange(T, dtype=np.int64) * STEP
+    plan = tst.groupsum_plan(tiles, "rate", steps, WINDOW)
+    assert plan is not None
+    oh = torch.zeros((S_ENGINE, G), dtype=torch.float32, device=dev)
+    oh[torch.arange(S_ENGINE, device=dev),
+       torch.arange(S_ENGINE, device=dev) % G] = 1.0
+    return ("rate", plan["st"], plan["dspan"], plan["hi_mode"],
+            plan["lo_mode"], tiles.t_perm_fixed_tiled("cv", plan["st"]),
+            tiles.t_fixed_base("cv"), oh, plan["kl0"], plan["w0e_rel"],
+            WINDOW, STEP, T)
+
+
 def phase_real_size(gen, dev, bw: float, f32_rate: float) -> dict:
     from filodb_tpu_torch.query import kernels as kn
     from filodb_tpu_torch.query import tilestore as tst
@@ -345,29 +492,25 @@ def phase_real_size(gen, dev, bw: float, f32_rate: float) -> dict:
     args = ("rate", plan["st"], plan["dspan"], plan["hi_mode"],
             plan["lo_mode"], v_p, base, oh, plan["kl0"], plan["w0e_rel"],
             WINDOW, STEP, T_FULL)
-    k_out = kn.counter_groupsum(*args)
-    p_out = kn.counter_groupsum_reference(*args)
-    err1 = check_groupsum(k_out, p_out, "group-sum at real size")
-    ms1 = time_ms(lambda: kn.counter_groupsum(*args))
-    pms1 = time_ms(lambda: kn.counter_groupsum_reference(*args),
-                   reps=5, warm=1)
-    n_s = v_p.shape[0]
-    fams = 1 + (plan["hi_mode"] != kn.GS_CUR) + (plan["lo_mode"]
-                                                  != kn.GS_CUR)
-    rows = (T_FULL + plan["dspan"]) + T_FULL * (fams - 1)
-    bytes1 = (rows * n_s * kn.GS_SS * 12 + base.numel() * 4
-              + oh.numel() * 4 + 2 * T_FULL * G * 4)
-    ops1 = T_FULL * n_s * kn.GS_SS * (40 + 4 * G)
+    t1 = time_groupsum(args, bw, f32_rate, "group-sum at real size")
     b1 = {"name": "counter_groupsum", "route": "cuda",
           "source": "filodb_tpu_torch/csrc/counter_groupsum.cu",
           "replaces": "filodb_tpu/query/pallas_kernels.py:499",
-          "max_abs_err": err1, "ms": ms1, "plain_ms": pms1,
-          "bound_ms": 1e3 * max(bytes1 / bw, ops1 / f32_rate),
-          "bound_by": "bytes" if bytes1 / bw >= ops1 / f32_rate
-          else "operations", "library_ms": None}
-    log(f"phase 3: group-sum kernel {ms1:.4f} ms, plain {pms1:.3f} ms, "
-        f"bound {b1['bound_ms']:.4f} ms ({bytes1 / 1e9:.3f} GB)")
-    del tiles, v_p, base, oh, oh_sub, k_out, p_out
+          "max_abs_err": t1["err"], "ms": t1["ms"],
+          "device_ms": t1["device_ms"],
+          "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
+          "bound_by": t1["bound_by"], "library_ms": None}
+    del tiles, v_p, base, oh, oh_sub, args
+    torch.cuda.empty_cache()
+    # the same kernel at the shape the engine phase sends it
+    te = time_groupsum(engine_shape_args(gen, dev), bw, f32_rate,
+                       "group-sum at the engine shape")
+    b1["max_abs_err"] = max(b1["max_abs_err"], te["err"])
+    b1.update({"engine_shape_ms": te["ms"],
+               "engine_shape_device_ms": te["device_ms"],
+               "engine_shape_plain_ms": te["plain_ms"],
+               "engine_shape_bound_ms": te["bound_ms"],
+               "engine_shape_bound_by": te["bound_by"]})
     torch.cuda.empty_cache()
 
     # B2 at 65,536 series x 512 samples x 128 windows x 3 channels

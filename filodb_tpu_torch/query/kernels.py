@@ -43,6 +43,14 @@ GS_TT_WIDE = 512       # tail padding of the permuted slot axis ...
 GS_AL = 8              # ... sized like the reference layout
 GS_DSPAN_MAX = 48      # dispatcher cap on window/step rows
 
+# tiling of the group-sum kernel (csrc/counter_groupsum.cu: kTT, kGC,
+# kStagesMax, kSmemMax)
+GS_TT = 8              # steps per group-product batch
+GS_GC = 16             # groups staged in shared memory at a time
+GS_STAGES_MAX = 8      # stages of the boundary-row ring
+GS_SMEM_MAX = 232_448  # shared memory one block may use on sm_90
+GS_ROW_BYTES = 3 * GS_SS * 4   # one boundary row: ts, hi, lo of 512 series
+
 # boundary-family modes
 GS_BOTH = 0            # jitter straddles the grid phase: select per element
 GS_CUR = 1             # the nominal slot is always inside the window
@@ -152,7 +160,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "counter_groupsum":
         fn = lib.counter_groupsum_launch
-        fn.argtypes = [P] * 7 + [I] * 14 + [P]
+        fn.argtypes = [P] * 7 + [I] * 16 + [P]
     else:
         fn = lib.window_extract_launch
         fn.argtypes = [P] * 7 + [I] * 4 + [LL, LL, P]
@@ -309,6 +317,44 @@ def counter_groupsum_reference(func: str, st: int, dspan: int, hi_mode: int,
     return (loc2 @ oh).to(f32), (ok2 @ oh).to(f32)
 
 
+def groupsum_launch_plan(n_s: int, T: int, G: int, hi_mode: int,
+                         lo_mode: int, n_sm: int) -> Dict[str, int]:
+    """Tiling of one group-sum launch on a card with ``n_sm`` SMs.
+
+    The ring holds ``stages`` steps of ``fams`` boundary rows (kc, kl, and
+    kc-1 / kl+1 where the modes read them): as many stages as the block's
+    shared memory leaves, up to GS_STAGES_MAX, beside the warps' [32, 18]
+    rate tiles, ``nbuf`` buffers of their [16, gw] partial products (two
+    when G fits one staged chunk of GS_GC groups) and the staged weights
+    [SS, gw] (gw = 4*cw groups, cw a power of two). That makes one block per
+    SM, so each s-tile's T steps are cut into the fewest chunks that fill
+    the last wave of blocks to at least 90 % of the SMs (a chunk is at least
+    GS_TT steps). Returns fams, cw, nbuf, stages, smem (bytes), chunk and
+    n_chunks; block (c, si) takes steps [c*chunk, min(T, (c+1)*chunk))."""
+    fams = 2 + (hi_mode != GS_CUR) + (lo_mode != GS_CUR)
+    cw = 1
+    while 4 * cw < min(G, GS_GC):
+        cw *= 2
+    gw = 4 * cw
+    nbuf = 2 if G <= GS_GC else 1
+    warps = GS_SS // 32
+    fixed = (warps * 32 * (2 * GS_TT + 2) * 4
+             + nbuf * warps * 2 * GS_TT * gw * 4 + GS_SS * gw * 4)
+    per_stage = fams * GS_ROW_BYTES + 16          # rows + two mbarriers
+    stages = min(GS_STAGES_MAX, (GS_SMEM_MAX - fixed) // per_stage)
+    floor = min(T, GS_TT)
+    c = 1
+    while True:
+        chunk = max(-(-T // c), floor)
+        items = n_s * -(-T // chunk)
+        if chunk == floor or 10 * items >= 9 * n_sm * -(-items // n_sm):
+            break
+        c += 1
+    return {"fams": fams, "cw": cw, "nbuf": nbuf, "stages": stages,
+            "smem": fixed + stages * per_stage, "chunk": chunk,
+            "n_chunks": -(-T // chunk)}
+
+
 def counter_groupsum(func: str, st: int, dspan: int, hi_mode: int,
                      lo_mode: int, v_p: torch.Tensor, base: torch.Tensor,
                      onehot: torch.Tensor, kl0: int, w0e_rel: int,
@@ -356,9 +402,14 @@ def counter_groupsum(func: str, st: int, dspan: int, hi_mode: int,
             w0e_rel, window, step, T, bool(exact_branch))
     _require(v_p.is_contiguous() and base.is_contiguous()
              and onehot.is_contiguous(), "inputs must be contiguous")
+    # the bulk copies need 16-byte aligned rows; grid.y holds the s-tiles
+    _require(v_p.data_ptr() % 16 == 0, "v_p must be 16-byte aligned")
     _require(n_s <= 65535, "too many s-tiles for one launch")
     lib = build_kernels()["counter_groupsum"]
     dev = v_p.device
+    lp = groupsum_launch_plan(
+        n_s, T, G, hi_mode, lo_mode,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     part_sum = torch.empty((n_s, T, G), dtype=torch.float32, device=dev)
     part_cnt = torch.empty((n_s, T, G), dtype=torch.float32, device=dev)
     sums = torch.empty((T, G), dtype=torch.float32, device=dev)
@@ -369,7 +420,8 @@ def counter_groupsum(func: str, st: int, dspan: int, hi_mode: int,
             _ptr(v_p), _ptr(base), _ptr(onehot), _ptr(part_sum),
             _ptr(part_cnt), _ptr(sums), _ptr(cnts), n_s, st, g_perm, G, T,
             dspan, hi_mode, lo_mode, _FUNC_CODE[func], int(exact_branch),
-            int(kl0), int(w0e_rel), int(window), int(step), stream)
+            int(kl0), int(w0e_rel), int(window), int(step), lp["chunk"],
+            lp["stages"], stream)
     _check_rc("counter_groupsum", rc)
     LAUNCHES["counter_groupsum"] += 1
     return sums, cnts

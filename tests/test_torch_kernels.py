@@ -74,9 +74,14 @@ def _check(want, got):
 
 
 @pytest.mark.parametrize("func", ["rate", "increase", "delta"])
-@pytest.mark.parametrize("phase", [0, 3000, -3000])
-def test_groupsum_plain_matches_pallas(func, phase):
-    S, N, G = 100, 288, 5
+@pytest.mark.parametrize("phase, S, G", [
+    pytest.param(0, 100, 5, id="0"),
+    pytest.param(3000, 100, 5, id="3000"),
+    pytest.param(-3000, 100, 5, id="-3000"),
+    # a ragged last s-tile and more groups than one staged chunk
+    pytest.param(0, 700, 300, id="0-S700-G300")])
+def test_groupsum_plain_matches_pallas(func, phase, S, G):
+    N = 288
     v_p, base, pt = _packed(S, N, 6)
     steps = np.arange(BASE + 400_000 + phase, BASE + 2_400_000, 60_000,
                       dtype=np.int64)
@@ -104,19 +109,27 @@ def test_groupsum_plain_matches_pallas_every_mode_pair(hi_mode, lo_mode):
     _check(want, got)
 
 
-@pytest.mark.parametrize("func", ["rate", "increase"])
-def test_groupsum_plain_matches_pallas_st1(func):
+@pytest.mark.parametrize("func, S, G, window, T, modes", [
+    pytest.param("rate", 48, 3, 300_000, 160, None, id="rate"),
+    pytest.param("increase", 48, 3, 300_000, 160, None, id="increase"),
+    # the largest ring: dspan = GS_DSPAN_MAX with both fallback families
+    # read, a single s-tile, one group, T no multiple of 8
+    pytest.param("rate", 100, 1, 480_000, 157, (kn.GS_BOTH, kn.GS_BOTH),
+                 id="rate-dspan48-both")])
+def test_groupsum_plain_matches_pallas_st1(func, S, G, window, T, modes):
     """step == dt: every boundary family lies in one residue plane."""
-    S, N, G = 48, 400, 3
+    N = 400
     v_p, base, pt = _packed(S, N, 1)
-    steps = np.arange(BASE + 400_000, BASE + 2_000_000, 10_000,
-                      dtype=np.int64)
-    plan = ptst.groupsum_plan(pt, func, steps, 300_000)
+    steps = BASE + 600_000 + np.arange(T, dtype=np.int64) * 10_000
+    if modes is None:
+        steps = steps - 200_000
+    plan = ptst.groupsum_plan(pt, func, steps, window)
     assert plan is not None and plan["st"] == 1
-    want, got = _both(func, 1, plan["dspan"], plan["hi_mode"],
-                      plan["lo_mode"], v_p, base,
+    assert window != 480_000 or plan["dspan"] == kn.GS_DSPAN_MAX
+    hi_mode, lo_mode = modes or (plan["hi_mode"], plan["lo_mode"])
+    want, got = _both(func, 1, plan["dspan"], hi_mode, lo_mode, v_p, base,
                       _onehot(S, G, v_p.shape[0]), plan["kl0"],
-                      plan["w0e_rel"], 300_000, 10_000, steps.size)
+                      plan["w0e_rel"], window, 10_000, steps.size)
     _check(want, got)
 
 
@@ -134,6 +147,40 @@ def test_groupsum_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):      # stride does not match the layout
         kn.counter_groupsum("rate", 3, 5, 0, 0, vt, bt, oh, 40, 700_000,
                             300_000, 60_000, 10)
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 1])
+def test_groupsum_launch_plan_covers_every_step_once(n_sm):
+    for n_s in (1, 2, 16, 100, 128, 133, 300):
+        for T in (1, 7, 8, 150, 157, 469, 470, 2881):
+            lp = kn.groupsum_launch_plan(n_s, T, 16, kn.GS_BOTH, kn.GS_BOTH,
+                                         n_sm)
+            chunk, n_chunks = lp["chunk"], lp["n_chunks"]
+            hits = np.zeros(T, np.int64)
+            for c in range(n_chunks):
+                hits[c * chunk:min(T, (c + 1) * chunk)] += 1
+            assert (hits == 1).all(), (n_s, T, lp)
+            assert chunk >= min(T, kn.GS_TT)
+            blocks = n_s * n_chunks
+            # the last wave fills >= 90 % of the SMs unless the steps ran out
+            waves = -(-blocks // n_sm)
+            assert 10 * blocks >= 9 * waves * n_sm or chunk == min(T, kn.GS_TT)
+
+
+def test_groupsum_launch_plan_fits_shared_memory():
+    """The block's shared memory depends on the boundary families read and
+    on G (up to GS_GC groups staged at once), not on st or dspan: kl rows
+    are streamed, never held for dspan steps."""
+    for hi_mode in (kn.GS_BOTH, kn.GS_CUR, kn.GS_ALT):
+        for lo_mode in (kn.GS_BOTH, kn.GS_CUR, kn.GS_ALT):
+            for G in list(range(1, 70)) + [255, 256, 300, 4096]:
+                lp = kn.groupsum_launch_plan(128, 470, G, hi_mode, lo_mode,
+                                             132)
+                assert lp["smem"] <= kn.GS_SMEM_MAX, (hi_mode, lo_mode, G)
+                assert 2 <= lp["stages"] <= kn.GS_STAGES_MAX
+                assert 4 * lp["cw"] >= min(G, kn.GS_GC)
+                assert lp["fams"] == 2 + (hi_mode != kn.GS_CUR) \
+                    + (lo_mode != kn.GS_CUR)
 
 
 def _ragged(seed):
