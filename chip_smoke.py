@@ -27,9 +27,18 @@ Phases, none of whose failures is caught:
      engine's numpy oracle; kernel launch counts are reset just before and
      read just after, and every kernel call it made is held against the
      plain version on the same inputs;
-  5. the `kernels` line: launches, max error, kernel and plain times (CUDA
-     events over warmed launches; `device_ms` by CUDA-graph replay, without
-     the host's cost of a call) and the least time the card could take, at
+  5. every range function the backend serves on the device
+     (DEVICE_FUNCS) through the engine over the phase-4 shard, which also
+     holds S_ENGINE integer gauges (`queue_depth`) with an unflushed tail:
+     each answer held against the engine's numpy oracle, each route
+     asserted by the backend's counters (aligned tiles, tiles plus the
+     packed tail, packed endpoint or gather, boundary extract); then each
+     family's device function timed alone at the full-width shape beside
+     its byte bound and peak device memory (the `functions` line);
+  6. the `kernels` line: launches (phase 4, and phase 5 as
+     `launches_phase5`), max error, kernel and plain times (CUDA events
+     over warmed launches; `device_ms` by CUDA-graph replay, without the
+     host's cost of a call) and the least time the card could take, at
      the phase-3 shapes, and for the group-sum also at the engine shape
      (`engine_shape_*`).
 
@@ -39,7 +48,12 @@ boundary extract bit-exact; the engine within rtol 1e-5 of its f64 oracle,
 plus, where a window's extrapolation branch is a knife edge on integer ms,
 the spread of that series' answers with the branch taken either way
 (check_engine_answer); the fused group answers also within rtol 1e-5 of an
-f64 oracle that decides the branch on integer ms as the kernel does.
+f64 oracle that decides the branch on integer ms as the kernel does. Phase
+5: the rate family as phase 4; every other answer within rtol 1e-9, atol
+1e-9 of the oracle (z_score rtol 5e-6, the reference's own bound), plus,
+for the prefix-sum family on the packed path, an absolute bound derived
+per row from its prefix magnitude and the window's count
+(packed_prefix_bound), logged beside the error.
 
 The last line of standard output is {"ok": true, "device": {...}}; the
 script exits non-zero, printing no result, when there is no CUDA device.
@@ -48,6 +62,7 @@ script exits non-zero, printing no result, when there is no CUDA device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import math
 import os
@@ -549,9 +564,11 @@ ENGINE_IRREGULAR = 1_024
 
 def build_engine_shard(rng: np.random.Generator, S: int):
     """A TimeSeriesShard with S flushed counter series x N_FULL samples, an
-    unflushed ENGINE_TAIL-sample tail each, and ENGINE_IRREGULAR flushed
-    series of irregular cadence -> (shard, ts, vals) with the counter
-    series' [S, N_FULL + ENGINE_TAIL] times and values."""
+    unflushed ENGINE_TAIL-sample tail each, ENGINE_IRREGULAR flushed
+    series of irregular cadence, and S gauge series (gauge_rows, tails
+    unflushed too) -> (shard, ts, vals, irr) with the counter series'
+    [S, N_FULL + ENGINE_TAIL] times and values and the irregular series'
+    (labels, ts, values) rows."""
     from filodb_tpu_torch import state
     from filodb_tpu_torch.core.memstore import TimeSeriesShard
     from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS, DatasetRef
@@ -576,17 +593,52 @@ def build_engine_shard(rng: np.random.Generator, S: int):
                      "instance": f"k{i}"}, t,
                     np.cumsum(rng.uniform(0, 3, t.size))))
     state.load_series(shard, irr)
-    # the tail last: a flush would encode it into chunks
+    g_flushed, g_tail = gauge_rows(
+        np.random.default_rng(int(rng.integers(2**62))), S)
+    state.load_series(shard, g_flushed, schema="gauge")
+    # the tails last: a flush would encode them into chunks
     state.load_series(shard, [(lab[i], ts[i, N:], vals[i, N:])
                               for i in range(S)], flush=False)
-    return shard, ts, vals
+    state.load_series(shard, g_tail, schema="gauge", flush=False)
+    return shard, ts, vals, irr
+
+
+GAUGE = "queue_depth"
+GAUGE_PARTS = 32        # label part="p0" selects one gauge series in 32
+
+
+def gauge_rows(rng: np.random.Generator, S: int):
+    """S integer gauges (a queue depth: a random walk about 1,000 with
+    steps of up to 15, 30 % repeats, and drops) x N_FULL flushed samples
+    at DT +/- J_MS integer-ms jitter, one series in 8 missing 5 % of its
+    scrapes, plus an ENGINE_TAIL-sample tail -> (flushed, tail) rows."""
+    N, TAIL = N_FULL, ENGINE_TAIL
+    ts = (BASE + np.arange(N + TAIL)[None, :] * DT
+          + rng.integers(-J_MS, J_MS + 1, (S, N + TAIL)))
+    d = np.where(rng.random((S, N + TAIL)) < 0.3, 0,
+                 rng.integers(-15, 16, (S, N + TAIL)))
+    vals = (1000 + np.cumsum(d, axis=1)).astype(np.float64)
+    flushed, tail = [], []
+    for i in range(S):
+        lab = {"_metric_": GAUGE, "_ws_": "demo", "_ns_": "App-0",
+               "job": f"job{i % G}", "instance": f"g{i}",
+               "part": f"p{i % GAUGE_PARTS}"}
+        keep = rng.random(N) > 0.05 if i % 8 == 0 else slice(None)
+        flushed.append((lab, ts[i, :N][keep], vals[i, :N][keep]))
+        tail.append((lab, ts[i, N:], vals[i, N:]))
+    return flushed, tail
+
+
+def engine_grid():
+    """(start, end on the flushed chunks, end in the unflushed tail), in
+    seconds, of the engine phases' 60 s step grids."""
+    return (BASE // 1000 + 600, (BASE + (N_FULL - 10) * DT) // 1000,
+            (BASE + (N_FULL + ENGINE_TAIL - 2) * DT) // 1000)
 
 
 def engine_queries():
     """(PromQL, start s, end s) of the engine phase, 60 s steps."""
-    start = BASE // 1000 + 600
-    flushed_end = (BASE + (N_FULL - 10) * DT) // 1000
-    tail_end = (BASE + (N_FULL + ENGINE_TAIL - 2) * DT) // 1000
+    start, flushed_end, tail_end = engine_grid()
     return [
         ("sum by (job) (rate(http_requests_total[5m]))", start, flushed_end),
         ("avg by (job) (rate(http_requests_total[5m]))", start, flushed_end),
@@ -676,29 +728,18 @@ def phase_engine(rng: np.random.Generator) -> dict:
 
     S = S_ENGINE
     t0 = time.perf_counter()
-    shard, ts, vals = build_engine_shard(rng, S)
+    shard, ts, vals, irr = build_engine_shard(rng, S)
     ingest_s = time.perf_counter() - t0
     log(f"phase 4: shard with {S} counter series x {N_FULL} samples "
-        f"(+{ENGINE_TAIL} unflushed) and {ENGINE_IRREGULAR} irregular "
-        f"series, ingest + flush {ingest_s:.1f} s")
+        f"(+{ENGINE_TAIL} unflushed), {ENGINE_IRREGULAR} irregular series "
+        f"and {S} gauge series (+{ENGINE_TAIL} unflushed), ingest + flush "
+        f"{ingest_s:.1f} s")
 
     be = TorchBackend()
     oracle = QueryEngine([shard])
     engine = QueryEngine([shard], backend=be)
     queries = engine_queries()
-    # record every kernel call the main path makes, to hold it against
-    # the plain version afterwards
-    calls = {"counter_groupsum": [], "window_extract": []}
-    originals = {name: getattr(kn, name) for name in calls}
-
-    def recorder(name):
-        def call(*a, **kw):
-            calls[name].append((a, kw))
-            return originals[name](*a, **kw)
-        return call
-
-    for name in calls:
-        setattr(kn, name, recorder(name))
+    calls, originals = record_kernel_calls()
     kn.reset_launches()
     t1 = time.perf_counter()
     results = []
@@ -711,8 +752,7 @@ def phase_engine(rng: np.random.Generator) -> dict:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t1
     launches = dict(kn.LAUNCHES)
-    for name in calls:
-        setattr(kn, name, originals[name])
+    restore_kernels(originals)
     log(f"phase 4: main path {main_s:.2f} s, kernel launches {launches}, "
         f"fused aggregations {be.fused_aggs}, packed dispatches "
         f"{be.packed_dispatches}, tile builds {be.tile_builds}")
@@ -728,20 +768,441 @@ def phase_engine(rng: np.random.Generator) -> dict:
         readings[q] = r
         log(f"phase 4: {q} -> {got.values.shape} in {secs:.3f} s, agrees "
             f"with the numpy oracle: {json.dumps(r)}")
+    errs = check_kernel_calls(calls, originals, "the main path")
+    log(f"phase 4: main-path kernel calls held against the plain versions: "
+        f"{ {k: len(v) for k, v in calls.items()} }")
+    return {"launches": launches, "errs": errs, "ingest_s": ingest_s,
+            "shard": shard, "backend": be, "irr": irr}
+
+
+def record_kernel_calls():
+    """Wrap both kernel wrappers so that every call is recorded (to hold it
+    against the plain version afterwards) -> (calls, originals)."""
+    from filodb_tpu_torch.query import kernels as kn
+
+    calls = {"counter_groupsum": [], "window_extract": []}
+    originals = {name: getattr(kn, name) for name in calls}
+
+    def recorder(name):
+        def call(*a, **kw):
+            calls[name].append((a, kw))
+            return originals[name](*a, **kw)
+        return call
+
+    for name in calls:
+        setattr(kn, name, recorder(name))
+    return calls, originals
+
+
+def restore_kernels(originals) -> None:
+    from filodb_tpu_torch.query import kernels as kn
+
+    for name, fn in originals.items():
+        setattr(kn, name, fn)
+
+
+def check_kernel_calls(calls, originals, what: str) -> dict:
+    """Rerun each recorded kernel call and hold it against the plain
+    version on the same inputs -> max error per kernel."""
+    from filodb_tpu_torch.query import kernels as kn
+
     errs = {}
     for a, kw in calls["counter_groupsum"]:
         got = originals["counter_groupsum"](*a, **kw)
         want = kn.counter_groupsum_reference(*a, **kw)
-        e = check_groupsum(got, want, "group-sum on the main path")
+        e = check_groupsum(got, want, f"group-sum on {what}")
         errs["counter_groupsum"] = max(errs.get("counter_groupsum", 0.0), e)
     for a, kw in calls["window_extract"]:
         got = originals["window_extract"](*a, **kw)
         want = kn.window_extract_reference(*a, **kw)
         errs["window_extract"] = check_extract(got, want,
-                                               "extract on the main path")
-    log(f"phase 4: main-path kernel calls held against the plain versions: "
-        f"{ {k: len(v) for k, v in calls.items()} }")
-    return {"launches": launches, "errs": errs, "ingest_s": ingest_s}
+                                               f"extract on {what}")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 5: every device function through the engine
+# ---------------------------------------------------------------------------
+
+# the prefix-sum family on the packed path (_window_endpoint): differences
+# of long f64 prefix sums, the variance unshifted
+PACKED_PREFIX = ("sum_over_time", "avg_over_time", "stddev_over_time",
+                 "stdvar_over_time", "z_score", "rate_over_delta",
+                 "increase_over_delta")
+# the aligned functions phase 5 runs besides its four named full-width ones
+ALIGNED_REST = ("sum_over_time", "count_over_time", "stdvar_over_time",
+                "z_score", "resets", "timestamp", "last_sample",
+                "first_over_time", "present_over_time", "absent_over_time",
+                "rate_over_delta", "increase_over_delta")
+
+
+def function_queries():
+    """Phase 5's queries as (func, PromQL, end s, route, oracle PromQL):
+    every function of DEVICE_FUNCS through the engine on the phase-4 grid.
+
+    route: "aligned" (the tiles alone), "aligned+tail" (the tiles, then the
+    packed path for the steps that reach the unflushed tail), "packed"
+    (_window_endpoint or _window_gather), "extract" (the boundary-extract
+    kernel). Where an oracle query is named, the numpy oracle answers the
+    gauges with part="p0" (one series in GAUGE_PARTS) and the device's
+    full-width answer is held against it on those rows: the oracle's
+    order statistics loop over every window in Python (min_over_time
+    about 2 ms and quantile_over_time about 40 ms a series)."""
+    _, fe, te = engine_grid()
+    g = GAUGE
+    sub = f'{g}{{part="p0"}}'
+    q = [("last_over_time", f"last_over_time({g}[5m])", fe, "aligned", None),
+         ("avg_over_time", f"avg_over_time({g}[5m])", te, "aligned+tail",
+          None),
+         ("stddev_over_time", f"stddev_over_time({g}[5m])", fe, "aligned",
+          None),
+         ("changes", f"changes({g}[5m])", fe, "aligned", None),
+         ("irate", "irate(http_requests_total[5m])", fe, "packed", None),
+         ("quantile_over_time", f"quantile_over_time(0.9, {g}[5m])", fe,
+          "packed", f"quantile_over_time(0.9, {sub}[5m])"),
+         ("max_over_time", f"sum by (job) (max_over_time({g}[5m]))", fe,
+          "packed", None)]
+    q += [(f, f"{f}({g}[5m])", fe, "aligned", None) for f in ALIGNED_REST]
+    q += [("idelta", f"idelta({g}[5m])", fe, "packed", None),
+          ("min_over_time", f"min_over_time({g}[5m])", fe, "packed",
+           f"min_over_time({sub}[5m])"),
+          ("max_over_time", "max_over_time(irregular_total[5m])", fe,
+           "packed", None),
+          ("quantile_over_time",
+           'quantile_over_time(0.5, irregular_total{job="job0"}[5m])', fe,
+           "packed", None)]
+    q += [(f, f"{f}(irregular_total[5m])", fe, "extract", None)
+          for f in ("rate", "increase", "delta")]
+    q += [(f, f"{f}(irregular_total[5m])", fe, "packed", None)
+          for f in PACKED_PREFIX]
+    return q
+
+
+def _ulp(x):
+    return np.spacing(np.abs(np.asarray(x, np.float64)))
+
+
+def packed_prefix_bound(func: str, got, want, rows, cnt, mean, var):
+    """Per-cell absolute bound on |device - oracle| of a prefix-sum function
+    on the packed path, from each row's prefix magnitude and the window's
+    count. A prefix of n terms added in any order is off by at most
+    (n - 1) u sum|v| (u = 2^-53), so a window sum of the device and of the
+    oracle differ by at most Ds = 4 (n - 1) u sum|v|, and Ds2 likewise
+    with sum v^2 for the squares. Then avg: Ds/cnt; stdvar: (Ds2 + 2|mean|
+    Ds + Ds^2/cnt)/cnt + 4 ulp(s2/cnt) (the unshifted E[x^2] - mean^2);
+    stddev: that over (sd_dev + sd_oracle); z_score: (Ds/cnt + |z| *
+    stdvar's bound / sd) / sd; each plus a few ulps of the result."""
+    u = 2.0 ** -53
+    n = np.array([max(v.size - 1, 0) for _, v in rows], float)[:, None]
+    ds = 4 * n * u * np.array([np.abs(v).sum() for _, v in rows])[:, None]
+    ds2 = 4 * n * u * np.array([(v * v).sum() for _, v in rows])[:, None]
+    with np.errstate(all="ignore"):
+        if func in ("sum_over_time", "increase_over_delta"):
+            return ds + _ulp(want)
+        if func == "rate_over_delta":
+            return ds / (WINDOW / 1000.0) + 2 * _ulp(want)
+        if func == "avg_over_time":
+            return ds / cnt + 2 * _ulp(want)
+        bvar = ((ds2 + 2 * np.abs(mean) * ds + ds * ds / cnt) / cnt
+                + 4 * _ulp(var + mean * mean))
+        if func == "stdvar_over_time":
+            return bvar
+        if func == "stddev_over_time":
+            return np.where(got + want == 0, 0.0,
+                            bvar / (got + want)) + 2 * _ulp(want)
+        sd = np.sqrt(var)
+        return ((ds / cnt + np.abs(want) * (bvar / sd + 2 * _ulp(sd))) / sd
+                + 4 * _ulp(want))
+
+
+def check_function_answer(func: str, q: str, got, want, allow=None) -> dict:
+    """One phase-5 answer against the engine's numpy oracle: the same
+    series (rows of `got` not in `want` are dropped when the oracle ran on
+    a subset), NaN in the same cells, and |got - want| <= rtol |want| +
+    1e-9 (+ `allow`, the packed prefix-sum bound), rtol 1e-9 (z_score
+    5e-6, the reference's own bound)."""
+    gk = [tuple(sorted(k.items())) for k in got.keys]
+    wk = [tuple(sorted(k.items())) for k in want.keys]
+    rows = {k: i for i, k in enumerate(gk)}
+    assert set(wk) <= set(rows), f"{q}: series differ"
+    assert len(wk) == len(gk) or len(wk) < len(gk) // 2
+    gv = got.values[[rows[k] for k in wk]]
+    wv = want.values
+    assert gv.shape == wv.shape, f"{q}: {gv.shape} vs {wv.shape}"
+    assert np.array_equal(np.isnan(gv), np.isnan(wv)), f"{q}: NaN cells"
+    assert func == "absent_over_time" or np.isfinite(gv).any(), q
+    rtol = 5e-6 if func == "z_score" else 1e-9
+    err = np.abs(gv - wv)
+    lim = rtol * np.abs(wv) + 1e-9
+    if allow is not None:
+        lim = lim + allow
+    ok = np.isnan(wv) | (err <= lim)
+    assert ok.all(), f"{q}: max abs err {np.nanmax(err)}"
+    out = {"rows": int(gv.shape[0]), "max_abs_err": float(np.nanmax(err))
+           if np.isfinite(wv).any() else 0.0}
+    if allow is not None:
+        fin = np.isfinite(wv)
+        out["max_bound"] = float(allow[fin].max())
+        out["max_err_over_bound"] = float((err[fin] / allow[fin]).max())
+    return out
+
+
+# families timed at the full-width shape: (family, func, device function,
+# JAX counterpart by file:line)
+FAMILIES = (
+    ("aligned endpoint", "last_over_time", "evaluate_aligned",
+     "filodb_tpu/query/tilestore.py:695"),
+    ("aligned prefix sum", "avg_over_time", "evaluate_aligned",
+     "filodb_tpu/query/tilestore.py:695"),
+    ("packed endpoint", "irate", "_window_endpoint",
+     "filodb_tpu/query/tpu.py:288"),
+    ("packed gather", "max_over_time", "_window_gather",
+     "filodb_tpu/query/tpu.py:394"),
+    ("packed gather", "quantile_over_time", "_window_gather",
+     "filodb_tpu/query/tpu.py:394"),
+)
+
+
+class DeviceSpans:
+    """Wraps the backend's device functions: each call's span between CUDA
+    events (what the card runs for it, launch gaps included) is added to
+    the running query's device time, and the args of the widest call (most
+    output cells) of each (function, func) of FAMILIES are kept for
+    timing."""
+
+    NAMES = (("tst", "evaluate_aligned"), ("tst", "evaluate_counters_t"),
+             ("pb", "_window_endpoint"), ("pb", "_window_gather"),
+             ("pb", "_extract_rate"))
+
+    def __init__(self):
+        from filodb_tpu_torch.query import backend as pb
+        from filodb_tpu_torch.query import tilestore as tst
+
+        self.mods = {"tst": tst, "pb": pb}
+        self.originals = {}
+        self.events = []
+        self.widest = {}
+        self.timed = {(name, func) for _, func, name, _ in FAMILIES}
+        for mod, name in self.NAMES:
+            fn = getattr(self.mods[mod], name)
+            self.originals[(mod, name)] = fn
+            setattr(self.mods[mod], name, self._wrap(name, fn))
+
+    @staticmethod
+    def _cells(name, a):
+        if name == "evaluate_aligned":
+            return len(a[0].keys) * a[2].size
+        if name == "_window_gather":
+            return a[2].shape[0] * a[8]
+        if name == "_window_endpoint":
+            return a[1].shape[0] * a[7]
+        return 0
+
+    def _wrap(self, name, fn):
+        def call(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            self.events.append((e0, e1))
+            func = a[1] if name == "evaluate_aligned" else a[0]
+            key = (name, func)
+            n = self._cells(name, a) if key in self.timed else 0
+            if n and n > self.widest.get(key, (0,))[0]:
+                self.widest[key] = (n, a, kw)
+            return out
+        return call
+
+    def take_ms(self) -> float:
+        """Device ms of the calls since the last take (synchronises)."""
+        torch.cuda.synchronize()
+        ms = sum(e0.elapsed_time(e1) for e0, e1 in self.events)
+        self.events = []
+        return ms
+
+    def restore(self) -> None:
+        for (mod, name), fn in self.originals.items():
+            setattr(self.mods[mod], name, fn)
+
+
+def family_bound(name: str, a, bw: float):
+    """(bytes, least ms) of one device-function call: what it must read
+    at least, each byte once, plus its [S, T] f64 output.
+      evaluate_aligned: per series and step the boundary slots it selects:
+        an endpoint function one sample (value + timestamp, 16 B), a
+        prefix-sum function the prefix value, prefix count and timestamp
+        at both window edges (48 B);
+      _window_endpoint (irate): every timestamp of every row once, and the
+        two last samples' values of each window, each value once;
+      _window_gather: every sample (timestamp + value) once."""
+    if name == "evaluate_aligned":
+        tiles, func, steps = a[0], a[1], a[2]
+        cells = len(tiles.keys) * steps.size
+        per = 16 if func == "last_over_time" else 48
+        nbytes = cells * (per + 8)
+    else:
+        off = 2 if name == "_window_gather" else 1
+        lens = a[off + 2]
+        T = a[off + 6]
+        cells = lens.shape[0] * T
+        n = int(lens.sum())
+        if name == "_window_gather":
+            nbytes = n * 16 + cells * 8
+        else:
+            nbytes = n * 8 + min(2 * cells, n) * 8 + cells * 8
+    return nbytes, 1e3 * nbytes / bw
+
+
+def function_stats(engine, rows_q: str):
+    """Oracle count, mean and variance of every window of `rows_q`'s
+    selection, by series key."""
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                parse_query_range)
+    start, fe, _ = engine_grid()
+    out = {}
+    for f in ("count_over_time", "avg_over_time", "stdvar_over_time"):
+        r = engine.execute(parse_query_range(
+            f"{f}({rows_q}[5m])", TimeStepParams(start, STEP // 1000, fe)))
+        out[f] = (r.keys, r.values)
+    return out
+
+
+def phase5_answers(shard, irr, be, spans=None) -> dict:
+    """Phase 5's queries through QueryEngine(backend=be), each held against
+    the engine's numpy oracle, its route asserted by the backend's
+    counters -> per-query readings. Runs on the CPU too (spans=None)."""
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                parse_query_range)
+    from filodb_tpu_torch.query.backend import DEVICE_FUNCS
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query import kernels as kn
+
+    queries = function_queries()
+    covered = {f for f, *_ in queries}
+    assert covered == set(DEVICE_FUNCS), sorted(set(DEVICE_FUNCS) ^ covered)
+    oracle = QueryEngine([shard])
+    engine = QueryEngine([shard], backend=be)
+    start = engine_grid()[0]
+    stats = function_stats(oracle, "irregular_total")
+    irr_rows = {lab["instance"]: (t, v) for lab, t, v in irr}
+    readings = []
+    for func, q, end, route, oq in queries:
+        tp = TimeStepParams(start, STEP // 1000, end)
+        before = (be.aligned_evals, be.packed_dispatches,
+                  kn.LAUNCHES["window_extract"])
+        t0 = time.perf_counter()
+        got = engine.execute(parse_query_range(q, tp))
+        wall = time.perf_counter() - t0
+        dev_ms = spans.take_ms() if spans is not None else None
+        d_al = be.aligned_evals - before[0]
+        d_pk = be.packed_dispatches - before[1]
+        d_wx = kn.LAUNCHES["window_extract"] - before[2]
+        want_route = {"aligned": (1, 0), "aligned+tail": (1, 1),
+                      "packed": (0, 1), "extract": (0, 1)}[route]
+        assert (d_al, d_pk) == want_route, (q, route, d_al, d_pk)
+        if route == "extract" and spans is not None:
+            assert d_wx == 1, (q, d_wx)
+        t1 = time.perf_counter()
+        want = oracle.execute(parse_query_range(oq or q, tp))
+        oracle_s = time.perf_counter() - t1
+        if route == "extract":
+            r = check_engine_answer(q, got, want, None)
+        elif "irregular_total" in q and func in PACKED_PREFIX:
+            keys = [k["instance"] for k in got.keys]
+            st = {f: dict(zip((k["instance"] for k in ks), v))
+                  for f, (ks, v) in stats.items()}
+            cnt, mean, var = (np.stack([st[f][k] for k in keys]) for f in
+                              ("count_over_time", "avg_over_time",
+                               "stdvar_over_time"))
+            allow = packed_prefix_bound(func, got.values, want.values,
+                                        [irr_rows[k] for k in keys], cnt,
+                                        mean, var)
+            r = check_function_answer(func, q, got, want, allow)
+        else:
+            r = check_function_answer(func, q, got, want)
+        r.update({"q": q, "route": route, "wall_ms": 1e3 * wall,
+                  "oracle_s": oracle_s})
+        if dev_ms is not None:
+            r["device_ms"] = dev_ms
+            r["host_share"] = max(0.0, 1.0 - dev_ms / (1e3 * wall))
+        readings.append(r)
+        log(f"phase 5: {q} -> {got.values.shape} by {route}: "
+            f"{json.dumps({k: v for k, v in r.items() if k != 'q'})}")
+    return {"readings": readings}
+
+
+def phase_functions(eng: dict, bw: float) -> dict:
+    """Phase 5: every function of DEVICE_FUNCS through the engine on the
+    card over the phase-4 shard (the phase-4 backend and its tiles stay
+    resident), then each family's device function timed alone at the
+    full-width shape."""
+    from filodb_tpu_torch.query import backend as pb
+    from filodb_tpu_torch.query import kernels as kn
+    from filodb_tpu_torch.query import tilestore as tst
+    from filodb_tpu_torch.query.backend import TorchBackend
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    be = TorchBackend()
+    spans = DeviceSpans()
+    calls, originals = record_kernel_calls()
+    kn.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = phase5_answers(eng["shard"], eng["irr"], be, spans)
+    finally:
+        spans.restore()
+        restore_kernels(originals)
+    launches = dict(kn.LAUNCHES)
+    log(f"phase 5: {len(out['readings'])} queries in "
+        f"{time.perf_counter() - t0:.1f} s; kernel launches {launches}; "
+        f"aligned evals {be.aligned_evals}, packed dispatches "
+        f"{be.packed_dispatches}, tile builds {be.tile_builds}, hits "
+        f"{be.tile_hits}")
+    assert launches["window_extract"] > 0, "window_extract not launched"
+    errs = check_kernel_calls(calls, originals, "phase 5")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 5: device memory peak {peak / 2**30:.2f} GiB "
+        f"({base_mem / 2**30:.2f} GiB resident before, the phase-4 tiles "
+        f"among it)")
+    # each family's device function alone, on its widest call's inputs
+    mods = {"evaluate_aligned": tst, "_window_endpoint": pb,
+            "_window_gather": pb}
+    fams = []
+    for family, func, name, jax_src in FAMILIES:
+        _, a, kw = spans.widest[(name, func)]
+        fn = getattr(mods[name], name)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: fn(*a, **kw), reps=10, warm=2)
+        fpeak = torch.cuda.max_memory_allocated()
+        nbytes, bound = family_bound(name, a, bw)
+        src = inspect.getsourcefile(fn)
+        line = inspect.getsourcelines(fn)[1]
+        if name == "evaluate_aligned":
+            shape = [len(a[0].keys), int(a[2].size), a[0].num_slots]
+        else:
+            ts = a[2] if name == "_window_gather" else a[1]
+            shape = list(ts.shape) + [a[8] if name == "_window_gather"
+                                      else a[7]]
+            if name == "_window_gather":
+                shape.append(a[1])
+        fams.append({"family": family, "func": func, "jax": jax_src,
+                     "port": f"{os.path.relpath(src, REPO)}:{line}",
+                     "shape": shape, "ms": ms, "bound_ms": bound,
+                     "bound_bytes": nbytes, "share": bound / ms,
+                     "peak_gib": fpeak / 2**30,
+                     "extra_gib": (fpeak - before) / 2**30})
+        log(f"phase 5: {family} ({func}, {name} {shape}): {ms:.3f} ms, "
+            f"byte bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB, "
+            f"{100 * bound / ms:.2f} %), peak {fpeak / 2**30:.2f} GiB "
+            f"(+{(fpeak - before) / 2**30:.2f})")
+    del spans
+    return {"functions": fams, "queries": out["readings"],
+            "launches": launches, "errs": errs, "peak_gib": peak / 2**30}
 
 
 def main() -> int:
@@ -778,13 +1239,19 @@ def main() -> int:
     phase_parity(gen, dev)
     rows = phase_real_size(gen, dev, bw, f32_rate)
     eng = phase_engine(np.random.default_rng(args.seed))
+    fns = phase_functions(eng, bw)
     kernels = []
     for kname in ("counter_groupsum", "window_extract"):
         r = dict(rows[kname])
         r["launches"] = eng["launches"][kname]
-        r["max_abs_err"] = max(r["max_abs_err"], eng["errs"][kname])
+        r["launches_phase5"] = fns["launches"][kname]
+        r["max_abs_err"] = max(r["max_abs_err"], eng["errs"][kname],
+                               fns["errs"].get(kname, 0.0))
         kernels.append(r)
     print(smi, flush=True)
+    print(json.dumps({"functions": fns["functions"],
+                      "queries": fns["queries"],
+                      "phase5_peak_gib": fns["peak_gib"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,18 +2,23 @@
 ``filodb_tpu.query.tpu``).
 
 ``TorchBackend`` is the engine's device hook. It has the two methods the
-engine calls, ``periodic_samples`` and ``fused_groupsum``, and serves the
-rate family (rate/increase/delta):
+engine calls, ``periodic_samples`` and ``fused_groupsum``, and serves every
+function of DEVICE_FUNCS by the reference's routes:
 
   * regular-cadence series ride cached aligned tiles
-    (``query/tilestore.py``): per-series rates from the counter evaluators,
-    grouped sums from the fused group-sum kernel;
-  * steps whose windows reach the unflushed write-buffer tail, and series
-    of irregular cadence, take the packed path: ragged series padded into
-    [S, N] tiles, the boundary-extract kernel, then the f64 extrapolation.
+    (``query/tilestore.py``): the rate family by the counter evaluators
+    (grouped sums by the fused group-sum kernel), the other functions of
+    ``ALIGNED_FUNCS`` by ``evaluate_aligned``;
+  * steps whose windows reach the unflushed write-buffer tail, series of
+    irregular cadence, and the functions no aligned tile can answer take
+    the packed path: ragged series padded into [S, N] tiles, then the
+    boundary-extract kernel and the f64 extrapolation (rate family), the
+    order-statistic gather (min/max/quantile_over_time) or the endpoint
+    and prefix-sum family (everything else).
 
-Every other function returns None, and the engine's numpy oracle answers
-it. Entry points run on CUDA unless the caller passes ``device="cpu"``.
+Other functions (deriv, predict_linear, holt_winters, mad_over_time, ...)
+return None, and the engine's numpy oracle answers them. Entry points run
+on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,15 @@ I64 = torch.int64
 _TS_PAD = np.int64(1) << 60
 
 # functions this backend serves on the device; the rest go to the oracle
-DEVICE_FUNCS = frozenset({"rate", "increase", "delta"})
+DEVICE_FUNCS = frozenset({
+    "rate", "increase", "delta", "irate", "idelta",
+    "sum_over_time", "count_over_time", "avg_over_time",
+    "stddev_over_time", "stdvar_over_time", "z_score",
+    "min_over_time", "max_over_time", "last_sample", "last_over_time",
+    "first_over_time", "changes", "resets", "timestamp",
+    "rate_over_delta", "increase_over_delta", "quantile_over_time",
+    "present_over_time", "absent_over_time",
+})
 
 _ENDPOINT_RATE = {"rate": (True, True), "increase": (True, False),
                   "delta": (False, False)}
@@ -179,28 +192,190 @@ def _bounds(ts: torch.Tensor, w0s: int, w0e: int, step: int, nsteps: int):
     return lo, hi
 
 
-def _window_endpoint_rate(func: str, ts, vals, lens, w0s: int, w0e: int,
-                          step: int, nsteps: int) -> torch.Tensor:
-    """Rate family over padded [S, N] i64/f64 tiles -> [S, T] f64 (the
-    exact path for grids too wide for int31 relative times)."""
+def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(arr, 1, idx)
+
+
+def _prefix(x: torch.Tensor) -> torch.Tensor:
+    """[S, N] -> [S, N+1] exclusive prefix sums."""
+    return torch.cat([torch.zeros((x.shape[0], 1), dtype=x.dtype,
+                                  device=x.device),
+                      torch.cumsum(x, dim=1)], dim=1)
+
+
+def _window_endpoint(func: str, ts, vals, lens, w0s: int, w0e: int,
+                     step: int, nsteps: int) -> torch.Tensor:
+    """Endpoint + prefix-sum family over padded [S, N] i64/f64 tiles on a
+    uniform window grid (wstart[t] = w0s + t*step, wend[t] = w0e + t*step)
+    -> [S, T] f64."""
     S, N = ts.shape
-    t = torch.arange(nsteps, dtype=I64, device=ts.device)
-    wstart = (w0s + t * step)[None, :]
-    wend = (w0e + t * step)[None, :]
+    dev = ts.device
+    t = torch.arange(nsteps, dtype=I64, device=dev)
+    ws2 = (w0s + t * step)[None, :]
+    we2 = (w0e + t * step)[None, :]
     lo, hi = _bounds(ts, w0s, w0e, step, nsteps)
     counts = hi - lo + 1
     has = counts >= 1
     lo_c = torch.clamp(lo, 0, N - 1)
     hi_c = torch.clamp(hi, 0, N - 1)
-    counter, is_rate = _ENDPOINT_RATE[func]
-    v = vals + _correction(vals, lens) if counter else vals
-    out = _extrapolated_rate(wstart, wend, counts,
-                             torch.gather(ts, 1, lo_c),
-                             torch.gather(v, 1, lo_c),
-                             torch.gather(ts, 1, hi_c),
-                             torch.gather(v, 1, hi_c), counter, is_rate)
-    return torch.where(has, out, torch.full((), float("nan"), dtype=F64,
-                                            device=ts.device))
+    nan = torch.full((), float("nan"), dtype=F64, device=dev)
+    zero = torch.zeros((), dtype=F64, device=dev)
+    one = torch.ones((), dtype=F64, device=dev)
+
+    if func in _ENDPOINT_RATE:
+        counter, is_rate = _ENDPOINT_RATE[func]
+        v = vals + _correction(vals, lens) if counter else vals
+        out = _extrapolated_rate(ws2, we2, counts,
+                                 _take(ts, lo_c), _take(v, lo_c),
+                                 _take(ts, hi_c), _take(v, hi_c),
+                                 counter, is_rate)
+        return torch.where(has, out, nan)
+
+    if func in ("irate", "idelta"):
+        ok = counts >= 2
+        hi2 = torch.clamp(hi, 1, N - 1)
+        v2 = _take(vals, hi2)
+        v1 = _take(vals, hi2 - 1)
+        dv = v2 - v1
+        if func == "irate":
+            dv = torch.where(dv < 0, v2, dv)
+            dt = (_take(ts, hi2) - _take(ts, hi2 - 1)).to(F64) / 1000.0
+            res = dv / torch.where(dt == 0, nan, dt)
+        else:
+            res = dv
+        return torch.where(ok, res, nan)
+
+    if func in ("last_sample", "last_over_time"):
+        return torch.where(has, _take(vals, hi_c), nan)
+    if func == "first_over_time":
+        return torch.where(has, _take(vals, lo_c), nan)
+    if func == "timestamp":
+        return torch.where(has, _take(ts, hi_c).to(F64) / 1000.0, nan)
+    if func == "present_over_time":
+        return torch.where(has, one, nan)
+    if func == "absent_over_time":
+        return torch.where(has, nan, one)
+
+    if func in ("changes", "resets"):
+        prev = torch.cat([vals[:, :1], vals[:, :-1]], dim=1)
+        idx = torch.arange(N, device=dev)
+        valid = (idx[None, :] < lens[:, None]) & (idx[None, :] > 0)
+        if func == "changes":
+            ev = (vals != prev) & valid
+        else:
+            ev = (vals < prev) & valid
+        cs = _prefix(ev.to(F64))
+        lo1 = torch.clamp(lo + 1, 0, N)
+        out = _take(cs, torch.clamp(hi + 1, 0, N)) - _take(cs, lo1)
+        return torch.where(has, out, nan)
+
+    # prefix-sum family
+    hi1 = torch.clamp(hi + 1, 0, N)
+    lo0 = torch.clamp(lo, 0, N)
+    cs = _prefix(vals)
+    s = _take(cs, hi1) - _take(cs, lo0)
+    cnt = counts.to(F64)
+    if func in ("sum_over_time", "increase_over_delta"):
+        out = s
+    elif func == "rate_over_delta":
+        out = s / (we2 - ws2) * 1000.0
+    elif func == "count_over_time":
+        out = cnt
+    elif func == "avg_over_time":
+        out = s / cnt
+    else:
+        # E[x^2] - mean^2, as the reference's packed path computes it
+        # (unshifted: see ROADMAP C on its cancellation at large offsets)
+        cs2 = _prefix(vals * vals)
+        s2 = _take(cs2, hi1) - _take(cs2, lo0)
+        mean = s / cnt
+        var = torch.maximum(s2 / cnt - mean * mean, zero)
+        if func == "stdvar_over_time":
+            out = var
+        elif func == "stddev_over_time":
+            out = torch.sqrt(var)
+        elif func == "z_score":
+            out = (_take(vals, hi_c) - mean) / torch.sqrt(var)
+        else:
+            raise ValueError(f"unhandled device func {func}")
+    return torch.where(has, out, nan)
+
+
+# Budget for the [S, T, W] intermediates of one _window_gather chunk, and
+# the most bytes per [S, T, W] element alive at once (the i64 window index,
+# the mask, the gathered f64 values, the masked f64 copy, and for quantile
+# the sorted f64 values with their i64 indices plus the sort's scratch).
+GATHER_BUDGET_BYTES = 2 << 30
+_GATHER_ELT_BYTES = 64
+
+
+def _gather_rows(func: str, w_bound: int, ts, vals, lens, w0s: int,
+                 w0e: int, step: int, nsteps: int, scalar: float
+                 ) -> torch.Tensor:
+    """_window_gather on one chunk of rows."""
+    S, N = ts.shape
+    dev = ts.device
+    nan = torch.full((), float("nan"), dtype=F64, device=dev)
+    inf = torch.full((), float("inf"), dtype=F64, device=dev)
+    lo, hi = _bounds(ts, w0s, w0e, step, nsteps)   # [S, T]
+    has = hi >= lo
+    offs = torch.arange(w_bound, device=dev)
+    gidx = lo[:, :, None] + offs[None, None, :]    # [S, T, W]
+    in_win = (gidx <= hi[:, :, None]) & (gidx < lens[:, None, None])
+    gidx.clamp_(0, N - 1)
+    g = _take(vals, gidx.reshape(S, -1)).reshape(gidx.shape)
+    del gidx
+    if func == "min_over_time":
+        out = torch.amin(torch.where(in_win, g, inf), dim=2)
+        out = torch.where(torch.isinf(out), nan, out)
+    elif func == "max_over_time":
+        out = torch.amax(torch.where(in_win, g, -inf), dim=2)
+        out = torch.where(torch.isinf(out), nan, out)
+    elif func == "quantile_over_time":
+        q = min(max(scalar, 0.0), 1.0)
+        big = torch.where(in_win, g, inf)
+        del g
+        srt = torch.sort(big, dim=2).values        # valid values first
+        del big
+        cnt = in_win.sum(dim=2)                    # [S, T]
+        rank = q * (cnt - 1).to(F64)
+        lo_r = torch.floor(rank).to(I64)
+        hi_r = torch.ceil(rank).to(I64)
+        frac = rank - lo_r
+        v_lo = torch.gather(srt, 2, torch.clamp(lo_r, 0, w_bound - 1)
+                            [..., None])[..., 0]
+        v_hi = torch.gather(srt, 2, torch.clamp(hi_r, 0, w_bound - 1)
+                            [..., None])[..., 0]
+        out = v_lo + (v_hi - v_lo) * frac
+        out = torch.where(cnt > 0, out, nan)
+        if scalar > 1:
+            out = torch.full_like(out, float("inf"))
+        if scalar < 0:
+            out = torch.full_like(out, float("-inf"))
+    else:
+        raise ValueError(f"unhandled gather func {func}")
+    return torch.where(has, out, nan)
+
+
+def _window_gather(func: str, w_bound: int, ts, vals, lens, w0s: int,
+                   w0e: int, step: int, nsteps: int, scalar: float
+                   ) -> torch.Tensor:
+    """Order-statistic family (min/max/quantile_over_time; ``scalar`` is
+    quantile's q): gather [S, T, W] window tiles, reduce over W -> [S, T]
+    f64. W (``w_bound``) bounds the samples per window. Every op is row-local, so the series axis is cut
+    into chunks whose intermediates fit GATHER_BUDGET_BYTES: the answers
+    are those of one pass."""
+    S = ts.shape[0]
+    rows = max(1, GATHER_BUDGET_BYTES
+               // (nsteps * w_bound * _GATHER_ELT_BYTES))
+    return torch.cat([
+        _gather_rows(func, w_bound, ts[i:i + rows], vals[i:i + rows],
+                     lens[i:i + rows], w0s, w0e, step, nsteps, scalar)
+        for i in range(0, S, rows)], dim=0)
+
+
+_GATHER_FUNCS = frozenset({"min_over_time", "max_over_time",
+                           "quantile_over_time"})
 
 
 def _extract_rate(func: str, ts, vals, lens, w0s: int, w0e: int,
@@ -245,14 +420,16 @@ def _extract_span_ok(ts: np.ndarray, lens: np.ndarray, w0s: int, w0e: int,
 
 
 class _TileEntry:
-    """One tile-cache entry: device tiles over an immutable prefix, plus
-    the coverage bound (first ms NOT in the tiles; None = all)."""
+    """One tile-cache entry: device tiles over an immutable prefix, whether
+    that prefix holds a NaN stale marker, and the coverage bound (first ms
+    NOT in the tiles; None = all)."""
 
-    __slots__ = ("tiles", "idx", "cov_min_ms")
+    __slots__ = ("tiles", "idx", "prefix_has_nan", "cov_min_ms")
 
-    def __init__(self, tiles, idx, cov_min_ms):
+    def __init__(self, tiles, idx, prefix_has_nan, cov_min_ms):
         self.tiles = tiles
         self.idx = idx
+        self.prefix_has_nan = prefix_has_nan
         self.cov_min_ms = cov_min_ms
 
 
@@ -273,6 +450,7 @@ class TorchBackend:
         self.tile_hits = 0      # observability: cache hits
         self.fused_aggs = 0     # observability: fused group-sum queries
         self.packed_dispatches = 0   # observability: packed-path calls
+        self.aligned_evals = 0  # observability: evaluate_aligned calls
 
     # -- engine hooks ------------------------------------------------------
 
@@ -280,8 +458,8 @@ class TorchBackend:
                          params: RangeParams, function: str, window_ms: int,
                          func_args: Sequence[float] = (),
                          offset_ms: int = 0) -> Optional[GridResult]:
-        """[S, T] grid for the rate family, or None (the engine's oracle
-        answers: other functions, histograms, empty selections)."""
+        """[S, T] grid of a DEVICE_FUNCS function, or None (the engine's
+        oracle answers: other functions, histograms, empty selections)."""
         func = function or "last_sample"
         if func not in DEVICE_FUNCS or not series:
             return None
@@ -298,7 +476,7 @@ class TorchBackend:
         if aligned is not None:
             return GridResult(steps, keys, aligned)
         out = self._general(series, func, steps, params.step_ms, window_ms,
-                            offset_ms)
+                            offset_ms, func_args)
         return GridResult(steps, keys, out)
 
     def fused_groupsum(self, series, func: str, steps: np.ndarray,
@@ -309,7 +487,7 @@ class TorchBackend:
         only [T, G] group sums + counts leave the device. Returns (sums,
         cnts) as [T, G] numpy, or None when ineligible (the engine falls
         back to periodic_samples + grouping over the same selection)."""
-        if func not in DEVICE_FUNCS or not len(series):
+        if func not in ("rate", "increase", "delta") or not len(series):
             return None
         entry = self._tile_entry(series)
         tiles, idx = entry.tiles, entry.idx
@@ -358,7 +536,8 @@ class TorchBackend:
                 cov_min = tm if cov_min is None else min(cov_min, tm)
         tiles, idx = tst.build_aligned_tiles(prefix, device=self.device)
         self.tile_builds += 1
-        return _TileEntry(tiles, idx, cov_min)
+        prefix_has_nan = any(np.isnan(p.values).any() for p in prefix)
+        return _TileEntry(tiles, idx, prefix_has_nan, cov_min)
 
     def _tile_entry(self, series) -> _TileEntry:
         """Tile cache keyed like the reference's: store snapshot keys when
@@ -384,12 +563,23 @@ class TorchBackend:
     def _try_aligned(self, series, func: str, steps: np.ndarray,
                      step_ms: int, window_ms: int,
                      offset_ms: int) -> Optional[np.ndarray]:
-        """Aligned-tile path: regular-cadence series over cached tiles.
-        Tiles cover only published chunks; steps whose window reaches any
-        series' write-buffer tail are computed by the packed path over the
-        live data and spliced on."""
+        """Aligned-tile path: regular-cadence series over cached tiles
+        (the counter family by evaluate_counters_t, every other function
+        of ALIGNED_FUNCS by evaluate_aligned). Tiles cover only published
+        chunks; steps whose window reaches any series' write-buffer tail
+        are computed by the packed path over the live data and spliced
+        on."""
+        if func not in tst.ALIGNED_FUNCS:
+            return None
         entry = self._tile_entry(series)
         tiles, idx = entry.tiles, entry.idx
+        if func == "last_sample":
+            # stale markers must stay visible to the step; the immutable
+            # prefix's flag is cached with the tiles, only tails re-scan
+            if entry.prefix_has_nan or any(
+                    np.isnan(s.values[self._prefix_len(s):]).any()
+                    for s in series):
+                return None
         if tiles is None or len(idx) != len(series):
             return None     # partial alignment: keep one result path
         tail_min = entry.cov_min_ms
@@ -403,8 +593,14 @@ class TorchBackend:
                  else int(np.searchsorted(wends, tail_min, side="left")))
         if t_dev == 0:
             return None     # every window touches live data
-        res = tst.evaluate_counters_t(tiles, func, steps[:t_dev], window_ms,
-                                      offset_ms).T.cpu().numpy()
+        if func in ("rate", "increase", "delta"):
+            res = tst.evaluate_counters_t(tiles, func, steps[:t_dev],
+                                          window_ms, offset_ms).T
+        else:
+            self.aligned_evals += 1
+            res = tst.evaluate_aligned(tiles, func, steps[:t_dev], window_ms,
+                                       offset_ms)
+        res = res.cpu().numpy()
         if len(idx) != res.shape[0]:
             return None
         # restore original series order (build may drop/reorder rows)
@@ -420,7 +616,7 @@ class TorchBackend:
     # -- packed path -------------------------------------------------------
 
     def _general(self, series, func: str, steps: np.ndarray, step_ms: int,
-                 window_ms: int, offset_ms: int) -> np.ndarray:
+                 window_ms: int, offset_ms: int, func_args=()) -> np.ndarray:
         """Packed path (any cadence) over padded [S, N] tiles. ``steps``
         may be any contiguous slice of a uniform grid."""
         from filodb_tpu_torch.query.engine import clip_series
@@ -431,16 +627,24 @@ class TorchBackend:
         step = int(step_ms if nsteps > 1 else 1)
         # pack only the span the grid can touch
         series = clip_series(series, w0s, int(steps[-1] - offset_ms))
-        ts, vals, lens = pack_series(series, drop_nan=True)
+        # the instant selector keeps NaNs: a stale marker makes its step
+        # stale
+        ts, vals, lens = pack_series(series,
+                                     drop_nan=func != "last_sample")
+        scalar = float(func_args[0]) if func_args else 0.0
+        w_bound = (_window_sample_bound(series, window_ms, ts.shape[1])
+                   if func in _GATHER_FUNCS else 0)
         return self._packed_single(func, ts, vals, lens, w0s, w0e, step,
-                                   nsteps)
+                                   nsteps, scalar, w_bound)
 
     def _packed_single(self, func: str, ts, vals, lens, w0s: int, w0e: int,
-                       step: int, nsteps: int) -> np.ndarray:
+                       step: int, nsteps: int, scalar: float,
+                       w_bound: int) -> np.ndarray:
         """One packed dispatch with pow2 bucketing of the series axis (and
-        of the step axis on the endpoint path): the boundary-extract
-        kernel when the span fits int31 ms, else the exact f64 endpoint
-        path."""
+        of the step axis off the boundary-extract path): the order
+        statistics by _window_gather; the rate family by the
+        boundary-extract kernel when the span fits int31 ms; everything
+        else (and the rate family past int31 ms) by _window_endpoint."""
         S, N = ts.shape
         s_bucket = _next_pow2(S, 8)
         if s_bucket != S:
@@ -450,11 +654,16 @@ class TorchBackend:
         ts_t = torch.as_tensor(ts, device=dev)
         vals_t = torch.as_tensor(vals, device=dev)
         lens_t = torch.as_tensor(lens, device=dev)
-        if _extract_span_ok(ts, lens, w0s, w0e, step, nsteps):
+        if func in _ENDPOINT_RATE and _extract_span_ok(ts, lens, w0s, w0e,
+                                                       step, nsteps):
             out = _extract_rate(func, ts_t, vals_t, lens_t, w0s, w0e, step,
                                 nsteps)
             return out.cpu().numpy()[:S]
         t_bucket = _next_pow2(nsteps, 8)
-        out = _window_endpoint_rate(func, ts_t, vals_t, lens_t, w0s, w0e,
-                                    step, t_bucket)
+        if func in _GATHER_FUNCS:
+            out = _window_gather(func, w_bound, ts_t, vals_t, lens_t, w0s,
+                                 w0e, step, t_bucket, scalar)
+        else:
+            out = _window_endpoint(func, ts_t, vals_t, lens_t, w0s, w0e,
+                                   step, t_bucket)
         return out.cpu().numpy()[:S, :nsteps]

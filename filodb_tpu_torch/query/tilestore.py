@@ -1,4 +1,4 @@
-"""Aligned device tiles and the counter evaluators, in PyTorch (counterpart
+"""Aligned device tiles and their evaluators, in PyTorch (counterpart
 of ``filodb_tpu.query.tilestore``).
 
 Each series of a cohort sharing one scrape cadence ``dt`` is a row of a
@@ -13,6 +13,8 @@ rows instead of per-series gathers:
   * query time: boundary slots from closed-form arithmetic, 2-candidate
     jitter resolution and the Prometheus extrapolation epilogue.
 
+``evaluate_aligned`` serves every other function of ``ALIGNED_FUNCS``
+(endpoint selections and prefix-sum windows over row-major tiles).
 ``groupsum_counters`` feeds the hand-written group-sum kernel
 (``query/kernels.counter_groupsum``). Series that do not fit a shared
 cadence take the packed path of ``query/backend.py``.
@@ -40,6 +42,18 @@ _SENT_LO = -(2 ** 31)           # "no sample at or before this slot"
 _SENT_HI = 2 ** 31 - 1          # "no sample at or after this slot"
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
+
+# functions servable from aligned tiles (everything endpoint- or
+# prefix-sum-expressible; order statistics take the packed gather path)
+ALIGNED_FUNCS = frozenset({
+    "rate", "increase", "delta",
+    "sum_over_time", "count_over_time", "avg_over_time",
+    "stddev_over_time", "stdvar_over_time", "z_score",
+    "changes", "resets", "timestamp",
+    "last_sample", "last_over_time", "first_over_time",
+    "present_over_time", "absent_over_time",
+    "rate_over_delta", "increase_over_delta",
+})
 
 
 def resolve_device(device=None) -> torch.device:
@@ -124,15 +138,43 @@ class AlignedTiles:
             c = v
         elif name == "ones":
             c = valid.to(F64)
+        elif name == "vc2":
+            # squared deviation from a per-series shift (the series mean):
+            # windowed variance from prefix sums of (x-c)^2 avoids the
+            # catastrophic cancellation of the E[x^2]-mean^2 form
+            d = torch.where(valid, v - self.vshift[:, None], zero)
+            c = d * d
         elif name == "cv":                      # counter-reset corrected
             prev = self.ff("v")[:, :-1]
             prev = torch.cat([_nan_col(prev), prev], dim=1)
             drop = valid & (v < prev) & ~torch.isnan(prev)
             c = v + torch.cumsum(torch.where(drop, prev, zero), dim=1)
             c = torch.where(valid, c, zero)
+        elif name in ("ev_change", "ev_reset"):
+            # event vs the previous valid sample, attributed to the later
+            # one (changes()/resets() semantics)
+            prev = self.ff("v")[:, :-1]
+            prev = torch.cat([_nan_col(prev), prev], dim=1)
+            if name == "ev_change":
+                ev = valid & (v != prev) & ~torch.isnan(prev)
+            else:
+                ev = valid & (v < prev) & ~torch.isnan(prev)
+            c = ev.to(F64)
         else:
             raise KeyError(name)
         self._channels[name] = c
+        return c
+
+    @property
+    def vshift(self) -> torch.Tensor:
+        """Per-series shift for stable variance: mean of valid samples."""
+        c = self._channels.get("_vshift")
+        if c is None:
+            okf = self.valid & torch.isfinite(self.vals)
+            cnt = torch.clamp(okf.sum(dim=1), min=1)
+            c = torch.where(okf, self.vals, torch.zeros(
+                (), dtype=F64, device=self.device)).sum(dim=1) / cnt
+            self._channels["_vshift"] = c
         return c
 
     def ff(self, name: str) -> torch.Tensor:
@@ -514,6 +556,187 @@ def build_aligned_tiles(series: Sequence[RawSeries], device=None,
         keys.append(dict(series[i].labels))
     return (AlignedTiles(keys, base, dt, valid, ts_true, vals_g,
                          device=device), aligned_idx)
+
+
+# ---------------------------------------------------------------------------
+# Aligned evaluator over row-major tiles -> [S, T] (shared-column takes)
+# ---------------------------------------------------------------------------
+
+def _take(arr: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """[S, N] x [T] shared columns -> [S, T]."""
+    return torch.index_select(arr, 1, cols)
+
+
+def _select_last(arrs, names, num_slots: int, k_hi, wend):
+    """Channel values at the LAST sample with ts <= wend_t, per series:
+    2-candidate select between slot K_hi's forward fill and K_hi-1's."""
+    N = num_slots
+    kc = torch.clamp(k_hi, 0, N - 1)
+    kp = torch.clamp(k_hi - 1, 0, N - 1)
+    none = (k_hi < 0)[None, :]
+    nan = torch.full((), float("nan"), dtype=F64, device=k_hi.device)
+    use1 = _take(arrs["ff_ts"], kc) <= wend.to(F64)[None, :]   # NaN: False
+    out = []
+    for n in names:
+        a = arrs["ff_" + n]
+        v = torch.where(use1, _take(a, kc), _take(a, kp))
+        out.append(torch.where(none, nan, v))
+    return out
+
+
+def _select_first(arrs, names, num_slots: int, k_lo, wstart):
+    """Channel values at the FIRST sample with ts >= wstart_t."""
+    N = num_slots
+    kc = torch.clamp(k_lo, 0, N - 1)
+    kn_ = torch.clamp(k_lo + 1, 0, N - 1)
+    none = (k_lo > N - 1)[None, :]
+    nan = torch.full((), float("nan"), dtype=F64, device=k_lo.device)
+    use1 = _take(arrs["bf_ts"], kc) >= wstart.to(F64)[None, :]
+    out = []
+    for n in names:
+        a = arrs["bf_" + n]
+        v = torch.where(use1, _take(a, kc), _take(a, kn_))
+        out.append(torch.where(none, nan, v))
+    return out
+
+
+def _window_sum(arrs, name: str, num_slots: int, k_lo, k_hi, wstart, wend):
+    """Exact sum of a channel over samples with ts in [wstart_t, wend_t]:
+    prefix difference over slots [K_lo, K_hi] minus edge-slot samples that
+    jitter outside the window."""
+    N = num_slots
+    ps = arrs["ps_" + name]
+    ch = arrs["ch_" + name]
+    zero = torch.zeros((), dtype=F64, device=k_lo.device)
+    hi_i = torch.clamp(k_hi, -1, N - 1) + 1
+    lo_i = torch.clamp(k_lo, 0, N)
+    s = _take(ps, hi_i) - _take(ps, lo_i)
+    khx = torch.clamp(k_hi, 0, N - 1)
+    k_hi_ok = ((k_hi >= 0) & (k_hi <= N - 1))[None, :]
+    over = k_hi_ok & (_take(arrs["ts"], khx) > wend.to(F64)[None, :])
+    s = s - torch.where(over, _take(ch, khx), zero)
+    klx = torch.clamp(k_lo, 0, N - 1)
+    k_lo_ok = ((k_lo >= 0) & (k_lo <= N - 1))[None, :]
+    under = k_lo_ok & (_take(arrs["ts"], klx) < wstart.to(F64)[None, :])
+    return s - torch.where(under, _take(ch, klx), zero)
+
+
+# channels each function needs: (ff/bf endpoint channels, prefix channels)
+_ENDPOINT_CH = {
+    "last_sample": ["v"], "last_over_time": ["v"],
+    "first_over_time": ["v"], "timestamp": ["ts"],
+    "changes": ["ev_change"], "resets": ["ev_reset"], "z_score": ["v"],
+}
+_PREFIX_CH = {
+    "sum_over_time": ["v"], "avg_over_time": ["v"],
+    "rate_over_delta": ["v"], "increase_over_delta": ["v"],
+    "stddev_over_time": ["v", "vc2"], "stdvar_over_time": ["v", "vc2"],
+    "z_score": ["v", "vc2"], "changes": ["ev_change"],
+    "resets": ["ev_reset"],
+}
+
+
+def _tiles_arrays(tiles: AlignedTiles, func: str) -> Dict[str, torch.Tensor]:
+    """Collect (and lazily pack) the device arrays `func` needs."""
+    arrs: Dict[str, torch.Tensor] = {
+        "ts": tiles.ts,
+        "ps_ones": tiles.prefix("ones"),
+        "ch_ones": tiles.channel("ones"),
+    }
+    ep = _ENDPOINT_CH.get(func, ())
+    if ep:
+        arrs["ff_ts"] = tiles.ff("ts")
+        arrs["bf_ts"] = tiles.bf("ts")
+    for n in ep:
+        if func in ("changes", "resets", "first_over_time"):
+            arrs["bf_" + n] = tiles.bf(n)
+        else:
+            arrs["ff_" + n] = tiles.ff(n)
+    for n in _PREFIX_CH.get(func, ()):
+        arrs["ps_" + n] = tiles.prefix(n)
+        arrs["ch_" + n] = tiles.channel(n)
+    if "vc2" in _PREFIX_CH.get(func, ()):
+        arrs["vshift"] = tiles.vshift
+    return arrs
+
+
+def _eval_core(func: str, nsteps: int, arrs: Dict[str, torch.Tensor],
+               num_slots: int, base: int, dt: int, w0s: int, w0e: int,
+               step: int) -> torch.Tensor:
+    """One windowed range function over row-major aligned tiles -> [S, T]
+    f64 (the reference's jitted evaluation body, as eager tensor ops). The
+    rate family is evaluate_counters_t's."""
+    dev = arrs["ts"].device
+    wend, wstart, k_hi, k_lo = _slot_bounds(nsteps, base, dt, w0s, w0e,
+                                            step, dev)
+    N = num_slots
+    counts = _window_sum(arrs, "ones", N, k_lo, k_hi, wstart, wend)
+    has = counts >= 0.5
+    nan = torch.full((), float("nan"), dtype=F64, device=dev)
+    one = torch.ones((), dtype=F64, device=dev)
+    zero = torch.zeros((), dtype=F64, device=dev)
+
+    if func in ("last_sample", "last_over_time"):
+        (v2,) = _select_last(arrs, ["v"], N, k_hi, wend)
+        return torch.where(has, v2, nan)
+    if func == "first_over_time":
+        (v1,) = _select_first(arrs, ["v"], N, k_lo, wstart)
+        return torch.where(has, v1, nan)
+    if func == "timestamp":
+        (t2,) = _select_last(arrs, ["ts"], N, k_hi, wend)
+        return torch.where(has, t2 / 1000.0, nan)
+    if func == "present_over_time":
+        return torch.where(has, one, nan)
+    if func == "absent_over_time":
+        return torch.where(has, nan, one)
+
+    if func in ("changes", "resets"):
+        ch = "ev_change" if func == "changes" else "ev_reset"
+        total = _window_sum(arrs, ch, N, k_lo, k_hi, wstart, wend)
+        (ev_first,) = _select_first(arrs, [ch], N, k_lo, wstart)
+        out = total - torch.where(torch.isnan(ev_first), zero, ev_first)
+        return torch.where(has, out, nan)
+
+    if func == "count_over_time":
+        return torch.where(has, counts, nan)
+    s = _window_sum(arrs, "v", N, k_lo, k_hi, wstart, wend)
+    if func in ("sum_over_time", "increase_over_delta"):
+        out = s
+    elif func == "rate_over_delta":
+        out = s / (wend - wstart).to(F64)[None, :] * 1000.0
+    elif func == "avg_over_time":
+        out = s / counts
+    else:
+        s2 = _window_sum(arrs, "vc2", N, k_lo, k_hi, wstart, wend)
+        mean = s / counts
+        dmean = mean - arrs["vshift"][:, None]
+        var = torch.maximum(s2 / counts - dmean * dmean, zero)
+        if func == "stdvar_over_time":
+            out = var
+        elif func == "stddev_over_time":
+            out = torch.sqrt(var)
+        elif func == "z_score":
+            (v2,) = _select_last(arrs, ["v"], N, k_hi, wend)
+            out = (v2 - mean) / torch.sqrt(var)
+        else:
+            raise ValueError(f"aligned path cannot evaluate {func}")
+    return torch.where(has, out, nan)
+
+
+def evaluate_aligned(tiles: AlignedTiles, func: str, steps: np.ndarray,
+                     window_ms: int, offset_ms: int = 0) -> torch.Tensor:
+    """One windowed range function of ALIGNED_FUNCS, other than the rate
+    family, over aligned tiles -> [S, T] f64 tensor on the tiles' device.
+    Numerics match the oracle (rangefn) modulo prefix-sum rounding."""
+    if func not in ALIGNED_FUNCS or func in ("rate", "increase", "delta"):
+        raise ValueError(f"evaluate_aligned cannot evaluate {func}")
+    nsteps = steps.size
+    w0e = int(steps[0] - offset_ms)
+    w0s = w0e - int(window_ms)
+    step = int(steps[1] - steps[0]) if nsteps > 1 else 1
+    return _eval_core(func, nsteps, _tiles_arrays(tiles, func),
+                      tiles.num_slots, tiles.base_ms, tiles.dt_ms, w0s, w0e,
+                      step)
 
 
 # ---------------------------------------------------------------------------
