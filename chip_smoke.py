@@ -743,12 +743,23 @@ def phase_engine(rng: np.random.Generator) -> dict:
     kn.reset_launches()
     t1 = time.perf_counter()
     results = []
+    split = None
     for q, start, end in queries:
         plan = parse_query_range(q, TimeStepParams(start, STEP // 1000,
                                                    end))
+        timer = HostSplit() if split is None else None
         tq = time.perf_counter()
-        got = engine.execute(plan)
-        results.append((q, plan, got, time.perf_counter() - tq))
+        try:
+            got = engine.execute(plan)
+        finally:
+            if timer is not None:
+                timer.restore()
+        secs = time.perf_counter() - tq
+        if timer is not None:
+            split = timer.split(secs)
+            log(f"phase 4: host split of the first query ({q}): "
+                f"{json.dumps(split)}")
+        results.append((q, plan, got, secs))
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t1
     launches = dict(kn.LAUNCHES)
@@ -772,7 +783,58 @@ def phase_engine(rng: np.random.Generator) -> dict:
     log(f"phase 4: main-path kernel calls held against the plain versions: "
         f"{ {k: len(v) for k, v in calls.items()} }")
     return {"launches": launches, "errs": errs, "ingest_s": ingest_s,
-            "shard": shard, "backend": be, "irr": irr}
+            "shard": shard, "backend": be, "irr": irr, "ts": ts,
+            "vals": vals, "first_query_split": split}
+
+
+class HostSplit:
+    """Wall seconds spent in the first engine query's stages, by
+    time.perf_counter around the calls (the calls themselves unchanged):
+    series selection and chunk decode (engine.select_raw_series), row
+    alignment (tilestore._align_rows), tile assembly and host-to-device
+    copies (tilestore.build_aligned_tiles less the alignment), and the
+    group-sum (tilestore.groupsum_counters: the lazily packed group-sum
+    channels and the kernel, synchronised)."""
+
+    TARGETS = (("engine", "select_raw_series", "select_decode_s", False),
+               ("tst", "_align_rows", "align_rows_s", False),
+               ("tst", "build_aligned_tiles", "build_tiles_s", False),
+               ("tst", "groupsum_counters", "groupsum_device_s", True))
+
+    def __init__(self):
+        from filodb_tpu_torch.query import engine as engine_mod
+        from filodb_tpu_torch.query import tilestore as tst
+
+        self.mods = {"engine": engine_mod, "tst": tst}
+        self.secs = {label: 0.0 for *_, label, _ in self.TARGETS}
+        self.originals = []
+        for mod, name, label, sync in self.TARGETS:
+            fn = getattr(self.mods[mod], name)
+            self.originals.append((mod, name, fn))
+            setattr(self.mods[mod], name, self._wrap(fn, label, sync))
+
+    def _wrap(self, fn, label, sync):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                self.secs[label] += time.perf_counter() - t0
+        return call
+
+    def restore(self) -> None:
+        for mod, name, fn in self.originals:
+            setattr(self.mods[mod], name, fn)
+
+    def split(self, total_s: float) -> dict:
+        s = dict(self.secs)
+        s["tile_assembly_h2d_s"] = s["build_tiles_s"] - s["align_rows_s"]
+        s["other_host_s"] = (total_s - s["select_decode_s"]
+                             - s["build_tiles_s"] - s["groupsum_device_s"])
+        s["total_s"] = total_s
+        return s
 
 
 def record_kernel_calls():
@@ -1140,12 +1202,11 @@ def phase_functions(eng: dict, bw: float) -> dict:
     from filodb_tpu_torch.query import backend as pb
     from filodb_tpu_torch.query import kernels as kn
     from filodb_tpu_torch.query import tilestore as tst
-    from filodb_tpu_torch.query.backend import TorchBackend
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
-    be = TorchBackend()
+    be = eng["backend"]
     spans = DeviceSpans()
     calls, originals = record_kernel_calls()
     kn.reset_launches()
@@ -1205,6 +1266,538 @@ def phase_functions(eng: dict, bw: float) -> dict:
             "launches": launches, "errs": errs, "peak_gib": peak / 2**30}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the serving fast path
+# ---------------------------------------------------------------------------
+
+BURST = 8               # queries released together by a barrier
+BURST_ROUNDS = 1        # bursts of each key with the batcher on (cut
+                        # from 2 to keep phase 6 near 90 s)
+CLIENTS = 16            # free-running engine clients
+CLIENT_S = 8.0          # seconds each client run lasts
+WAIT_S = 300.0          # bound on every wait of phase 6
+REBUILD_QUERIES = 4     # concurrent queries sent while a rebuild runs
+
+# (key, metric, func) of the bursts: the aligned counter batch, the aligned
+# batch, the packed gather and prefix-sum batches, and the packed rate
+# (a batch of many on _window_endpoint against the extract kernel alone)
+BURST_KEYS = (("aligned counter", "http_requests_total", "rate"),
+              ("aligned", GAUGE, "avg_over_time"),
+              ("packed gather", "irregular_total", "max_over_time"),
+              ("packed prefix sum", "irregular_total", "sum_over_time"),
+              ("packed rate", "irregular_total", "rate"))
+
+
+def run_threads(n: int, target) -> None:
+    """target(i) on n threads; every thread joined (WAIT_S at most), the
+    first exception of any re-raised."""
+    import threading
+
+    errs = []
+
+    def body(i):
+        try:
+            target(i)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+    ths = [threading.Thread(target=body, args=(i,)) for i in range(n)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(WAIT_S)
+    assert not any(t.is_alive() for t in ths), "a serving thread hung"
+    if errs:
+        raise errs[0]
+
+
+def select_metric(shard, metric: str):
+    """The metric's whole series as the engine selects them (the parsed
+    filters, full reads with snapshot keys), so the tile cache keys match
+    the engine's."""
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                parse_query_range)
+    from filodb_tpu_torch.query.engine import select_raw_series
+
+    start, _, end = engine_grid()
+    plan = parse_query_range(f"rate({metric}[5m])",
+                             TimeStepParams(start, STEP // 1000, end))
+    return select_raw_series([shard], plan.raw.filters,
+                             start * 1000 - WINDOW, end * 1000, full=True)
+
+
+def burst_params(nsteps: int, ks):
+    """Grids shifted by k x STEP: the dashboard-refresh shape."""
+    from filodb_tpu_torch.query.model import RangeParams
+
+    start = engine_grid()[0] * 1000
+    return [RangeParams(start + k * STEP, STEP,
+                        start + (k + nsteps - 1) * STEP) for k in ks]
+
+
+def burst(be, series, func: str, params):
+    """One periodic_samples per grid on its own thread, all released by a
+    barrier at the backend -> (answers, latencies s)."""
+    import threading
+
+    outs = [None] * len(params)
+    lat = [0.0] * len(params)
+    barrier = threading.Barrier(len(params))
+
+    def one(i):
+        barrier.wait(WAIT_S)
+        t0 = time.perf_counter()
+        outs[i] = be.periodic_samples(series, params[i], func,
+                                      WINDOW).values
+        lat[i] = time.perf_counter() - t0
+    run_threads(len(params), one)
+    return outs, lat
+
+
+class BatchCapture:
+    """Records the widest batch the backend dispatches (its run function,
+    arguments and members), to time it again against its members one by
+    one."""
+
+    NAMES = ("_aligned_run", "_packed_run")
+
+    def __init__(self, be):
+        self.be = be
+        self.best = None
+        for name in self.NAMES:
+            setattr(be, name, self._wrap(getattr(be, name)))
+
+    def _wrap(self, run):
+        def call(*a):
+            members = a[-1]
+            if len(members) >= 2 and (self.best is None
+                                      or len(members) > len(self.best[2])):
+                self.best = (run, a[:-1], list(members))
+            return run(*a)
+        return call
+
+    def restore(self) -> None:
+        for name in self.NAMES:
+            delattr(self.be, name)
+
+    def dispatch_ms(self) -> dict:
+        """One batched dispatch of the B members against B single
+        dispatches, each with its copies to the host, between CUDA
+        events."""
+        run, args, members = self.best
+        n = len(members)
+
+        def batched():
+            res = run(*args, members)
+            for i in range(n):
+                res.get(i)
+
+        def singles():
+            for m in members:
+                run(*args, [m]).get(0)
+        out = {"members": n,
+               "batched_ms": time_ms(batched, reps=2, warm=1),
+               "singles_ms": time_ms(singles, reps=2, warm=1)}
+        out["saving"] = 1.0 - out["batched_ms"] / out["singles_ms"]
+        return out
+
+
+def rate_variants(ts, vals, start_ms: int, T: int):
+    return _oracle_rates(ts, vals, start_ms, T, knife_ms=KNIFE_MS)
+
+
+def check_rates(keys, got: np.ndarray, variants, grouped: bool) -> float:
+    """The counter metric's rates against the integer-rule oracle's branch
+    variants ([4, S, T'], T' >= T): a per-series cell within rtol 1e-5 of
+    one variant; a group sum within rtol 1e-5 of the group sum of variant
+    0 plus the group sum of the variants' spread (each member may take
+    either side of a knife edge). NaN cells must coincide. Returns the
+    largest relative error: a per-series cell's against its nearest
+    variant, a group sum's against variant 0's."""
+    var = variants[..., :got.shape[1]]
+    if grouped:
+        gid = np.arange(var.shape[1]) % G
+        rows = [int(k["job"][3:]) for k in keys]
+        spread = np.nan_to_num(np.nanmax(var, axis=0)
+                               - np.nanmin(var, axis=0), nan=0.0)
+        nom = _group_sum(var[0], gid)[:, rows].T
+        allow = _group_sum(spread, gid)[:, rows].T
+        nan = np.isnan(got)
+        assert not nan.any(), "group sums with NaN"
+        assert (np.abs(got - nom) <= 1e-5 * np.abs(nom) + allow
+                + 1e-9).all(), "group sums disagree with the oracle"
+        want = nom
+    else:
+        idx = [int(k["instance"][1:]) for k in keys]
+        cand = var[:, idx]
+        nan = np.isnan(cand[0])
+        assert np.array_equal(np.isnan(got), nan), "NaN cells differ"
+        hit = (np.abs(got[None] - cand) <= 1e-5 * np.abs(cand)
+               + 1e-9).any(axis=0)
+        assert (nan | hit).all(), "rates match no branch of the oracle"
+        with np.errstate(all="ignore"):
+            return float(np.nanmax(np.nanmin(
+                np.abs(got[None] - cand) / np.abs(cand), axis=0)))
+    with np.errstate(all="ignore"):
+        return float(np.nanmax(np.abs(got - want) / np.abs(want)))
+
+
+def check_rows(func: str, series, got: np.ndarray, params, stride: int
+               ) -> float:
+    """Rows 0, stride, 2 stride, ... of a packed or gauge answer against
+    the numpy oracle (rangefn): rtol 1e-9, atol 1e-9; the packed rate
+    rtol 1e-5 as phase 5; the packed sum within packed_prefix_bound.
+    Returns the largest absolute error."""
+    from filodb_tpu_torch.query import rangefn as rf
+
+    rows = list(range(0, len(series), stride))
+    want = np.vstack([rf.evaluate(func, series[r].ts, series[r].values,
+                                  params.start_ms, params.step_ms,
+                                  params.end_ms, WINDOW) for r in rows])
+    g = got[rows]
+    assert np.array_equal(np.isnan(g), np.isnan(want)), f"{func}: NaN cells"
+    assert np.isfinite(g).any(), func
+    err = np.abs(g - want)
+    rtol = 1e-5 if func == "rate" else 1e-9
+    lim = rtol * np.abs(want) + 1e-9
+    if func == "sum_over_time":
+        lim = lim + packed_prefix_bound(
+            func, g, want, [(series[r].ts, series[r].values) for r in rows],
+            None, None, None)
+    assert (np.isnan(want) | (err <= lim)).all(), \
+        f"{func}: max abs err {np.nanmax(err)}"
+    return float(np.nanmax(err))
+
+
+def serving_bursts(be, sel, ts, vals) -> dict:
+    """Each BURST_KEYS key: BURST queries behind a barrier, with the
+    batcher off (MicroBatcher(enabled=False)) and then on (BURST_ROUNDS
+    bursts); batched answers held bit for bit to the unbatched ones (the
+    packed rate: the difference between its two routes measured), the
+    first member of each against the oracle -> (readings, the widest
+    batch of each key, to be timed later)."""
+    from filodb_tpu_torch.query.batcher import MicroBatcher
+
+    start, flushed_end, _ = engine_grid()
+    nsteps = (flushed_end - start) // (STEP // 1000) + 1 - BURST
+    params = burst_params(nsteps, range(BURST))
+    out, caps = {}, {}
+    for name, metric, func in BURST_KEYS:
+        series = sel[metric]
+        be.batcher = MicroBatcher(enabled=False)
+        ref, ref_lat = burst(be, series, func, params)
+        b = MicroBatcher()
+        be.batcher = b
+        cap = BatchCapture(be)
+        rounds = []
+        try:
+            for _ in range(BURST_ROUNDS):
+                rounds.append(burst(be, series, func, params))
+        finally:
+            cap.restore()
+            b.executor.stop(WAIT_S)
+        snap = b.stats.snapshot()
+        assert snap["occupancy_max"] >= 2, (name, snap)
+        assert snap["batches"] < snap["queries"], (name, snap)
+        diff_abs = diff_rel = 0.0
+        for outs, _ in rounds:
+            for k in range(BURST):
+                same = np.array_equal(outs[k], ref[k], equal_nan=True)
+                if name != "packed rate":
+                    assert same, f"{name}: member {k} not bit-identical"
+                    continue
+                assert np.array_equal(np.isnan(outs[k]), np.isnan(ref[k]))
+                with np.errstate(all="ignore"):
+                    d = np.abs(outs[k] - ref[k])
+                    diff_abs = max(diff_abs, float(np.nanmax(d)))
+                    diff_rel = max(diff_rel, float(np.nanmax(
+                        d / np.abs(ref[k]))))
+        if func == "rate" and metric == "http_requests_total":
+            v = rate_variants(ts, vals, params[0].start_ms, nsteps)
+            keys = [s.labels for s in series]
+            errs = [check_rates(keys, x[0], v, False)
+                    for x in (ref, rounds[0][0])]
+        else:
+            stride = 8
+            errs = [check_rows(func, series, x[0], params[0], stride)
+                    for x in (ref, rounds[0][0])]
+        r = {"key": name, "func": func, "series": len(series),
+             "steps": nsteps, "batcher": snap,
+             "unbatched_latency_ms": [1e3 * x for x in ref_lat],
+             "batched_latency_ms": [1e3 * x for x in rounds[-1][1]],
+             "oracle_err": errs}
+        if name == "packed rate":
+            r.update({"routes_bit_identical": diff_abs == 0.0,
+                      "routes_max_abs_diff": diff_abs,
+                      "routes_max_rel_diff": diff_rel})
+        out[name] = r
+        caps[name] = cap
+        log(f"phase 6: burst {name} ({func}, {len(series)} series x "
+            f"{nsteps} steps): {json.dumps(r)}")
+    return out, caps
+
+
+def client_run(shard, be, seconds: float) -> dict:
+    """CLIENTS threads, each with its own QueryEngine, cycling through
+    the per-series rate (into the tail), avg_over_time on the gauges,
+    max_over_time on the irregular series and sum by (job) of the rate,
+    on grids that end up to BURST - 1 steps early, for `seconds`."""
+    import threading
+
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                parse_query_range)
+    from filodb_tpu_torch.query.engine import QueryEngine
+
+    start, fe, te = engine_grid()
+    qs = (("rate(http_requests_total[5m])", te),
+          (f"avg_over_time({GAUGE}[5m])", fe),
+          ("max_over_time(irregular_total[5m])", fe),
+          ("sum by (job) (rate(http_requests_total[5m]))", fe))
+    s = STEP // 1000
+    plans = [[parse_query_range(q, TimeStepParams(start - j * s, s,
+                                                  end - j * s))
+              for q, end in qs] for j in range(BURST)]
+    lat = []
+    lock = threading.Lock()
+    t0 = time.perf_counter()
+    deadline = t0 + seconds
+
+    def client(k):
+        eng = QueryEngine([shard], backend=be)
+        i = k
+        while time.perf_counter() < deadline:
+            tq = time.perf_counter()
+            got = eng.execute(plans[k % BURST][i % len(qs)])
+            dt = time.perf_counter() - tq
+            assert np.isfinite(got.values).any()
+            with lock:
+                lat.append(dt)
+            i += 1
+    run_threads(CLIENTS, client)
+    wall = time.perf_counter() - t0
+    ms = 1e3 * np.asarray(lat)
+    return {"clients": CLIENTS, "queries": len(lat), "wall_s": wall,
+            "qps": len(lat) / wall, "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "max_ms": float(ms.max())}
+
+
+def serving_clients(shard, be) -> dict:
+    from filodb_tpu_torch.query.batcher import MicroBatcher
+
+    out = {}
+    for mode in ("on", "off"):
+        b = MicroBatcher(enabled=mode == "on")
+        be.batcher = b
+        try:
+            r = client_run(shard, be, CLIENT_S)
+        finally:
+            b.executor.stop(WAIT_S)
+        r["batcher"] = b.stats.snapshot()
+        out[mode] = r
+        log(f"phase 6: {CLIENTS} clients, batcher {mode}: {json.dumps(r)}")
+    return out
+
+
+class BuildLog:
+    """Records each tile build of the backend: the thread it ran on and
+    its seconds."""
+
+    def __init__(self, be):
+        import threading
+
+        self.be = be
+        self.builds = []
+        build = be._build_tile_entry
+
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return build(*a, **kw)
+            finally:
+                self.builds.append((threading.current_thread().name,
+                                    time.perf_counter() - t0))
+        be._build_tile_entry = call
+
+    def restore(self) -> None:
+        del self.be._build_tile_entry
+
+
+def ingest_tail(shard, sel, ts, vals, rng):
+    """A fresh ENGINE_TAIL-sample tail for every counter series, then
+    flush_all -> (ts, vals) extended by it, flush seconds."""
+    from filodb_tpu_torch import state
+
+    S, n0 = ts.shape
+    t_new = (BASE + (n0 + np.arange(ENGINE_TAIL))[None, :] * DT
+             + rng.integers(-J_MS, J_MS + 1, (S, ENGINE_TAIL)))
+    v_new = vals[:, -1:] + np.cumsum(rng.uniform(0, 5, (S, ENGINE_TAIL)),
+                                     axis=1)
+    rows = []
+    for s in sel:
+        i = int(s.labels["instance"][1:])
+        rows.append((dict(s.labels), t_new[i], v_new[i]))
+    state.load_series(shard, rows, flush=False)
+    t0 = time.perf_counter()
+    shard.flush_all()
+    return (np.concatenate([ts, t_new], axis=1),
+            np.concatenate([vals, v_new], axis=1), time.perf_counter() - t0)
+
+
+def serving_flush(shard, be, ts, vals, rng) -> dict:
+    """Across a flush: the first grouped and per-series queries served
+    from the previous snapshot's tiles while the rebuild runs on the
+    executor, queries sent during the rebuild, the rebuild landed (the
+    fresh key cached, one build more), the queries again; then the same
+    first query after another flush without a batcher (the inline
+    rebuild)."""
+    import threading
+
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                parse_query_range)
+    from filodb_tpu_torch.query import qos
+    from filodb_tpu_torch.query.batcher import MicroBatcher
+    from filodb_tpu_torch.query.engine import QueryEngine
+
+    metric = "http_requests_total"
+    start = engine_grid()[0]
+    s = STEP // 1000
+    b = MicroBatcher()
+    be.batcher = b
+    logb = BuildLog(be)
+    out = {}
+    try:
+        old_key = tuple(x.snapshot_key for x in select_metric(shard, metric))
+        assert old_key in be._tile_cache, "phase-4 tiles not cached"
+        ts, vals, flush_s = ingest_tail(shard, select_metric(shard, metric),
+                                        ts, vals, rng)
+        out["flush_s"] = flush_s
+        end = (BASE + (ts.shape[1] - 2) * DT) // 1000
+        T = (end - start) // s + 1
+        variants = rate_variants(ts, vals, start * 1000, T)
+        engine = QueryEngine([shard], backend=be)
+
+        def query(q, shift=0, eng=engine):
+            plan = parse_query_range(q, TimeStepParams(start - shift * s, s,
+                                                       end - shift * s))
+            t0 = time.perf_counter()
+            got = eng.execute(plan)
+            return got, time.perf_counter() - t0
+
+        grouped = f"sum by (job) (rate({metric}[5m]))"
+        per = f"rate({metric}[5m])"
+        before = (be.tile_builds, be.tile_hits, be.fused_aggs,
+                  be.packed_dispatches)
+        g1, g1_s = query(grouped)
+        p1, p1_s = query(per)
+        me = threading.current_thread().name
+        assert not [n for n, _ in logb.builds if n == me], \
+            "a tile build ran inline on a query thread"
+        assert be.tile_hits >= before[1] + 2, "no stale serve"
+        assert be.fused_aggs == before[2], "fused group sum on stale tiles"
+        refreshing = len(be._tile_refreshing)
+        out["stale"] = {"grouped_ms": 1e3 * g1_s, "per_series_ms": 1e3 * p1_s,
+                        "rebuilds_pending": refreshing,
+                        "packed_dispatches": be.packed_dispatches - before[3],
+                        "grouped_rel_err": check_rates(g1.keys, g1.values,
+                                                       variants, True),
+                        "per_series_rel_err": check_rates(
+                            p1.keys, p1.values, variants, False)}
+        # concurrent queries while the rebuild holds the executor: they
+        # queue behind it
+        res = [None] * REBUILD_QUERIES
+
+        def during(i):
+            res[i] = query(per, shift=i,
+                           eng=QueryEngine([shard], backend=be))
+        busy = len(be._tile_refreshing) > 0
+        run_threads(REBUILD_QUERIES, during)
+        check_rates(res[0][0].keys, res[0][0].values, variants, False)
+        out["during_rebuild"] = {"rebuild_running_at_start": busy,
+                                 "latency_ms": [1e3 * r[1] for r in res]}
+        done = threading.Event()
+        b.executor.submit(done.set, priority=qos.PRIORITY_BEST_EFFORT)
+        assert done.wait(WAIT_S), "the rebuild did not finish"
+        fresh_key = tuple(x.snapshot_key
+                          for x in select_metric(shard, metric))
+        assert fresh_key != old_key and fresh_key in be._tile_cache, \
+            "the rebuild did not land"
+        assert be.tile_builds == before[0] + 1, \
+            (be.tile_builds, before[0])
+        assert be._tile_refreshing == set()
+        rebuilds = [(n, sec) for n, sec in logb.builds]
+        assert len(rebuilds) == 1 and rebuilds[0][0] != me, rebuilds
+        out["rebuild"] = {"thread": rebuilds[0][0], "s": rebuilds[0][1]}
+        fused = be.fused_aggs
+        g2, g2_s = query(grouped)
+        p2, p2_s = query(per)
+        assert be.fused_aggs == fused + 1, "fused group sum after the rebuild"
+        assert be.tile_builds == before[0] + 1
+        out["landed"] = {"grouped_ms": 1e3 * g2_s,
+                         "per_series_ms": 1e3 * p2_s,
+                         "grouped_rel_err": check_rates(g2.keys, g2.values,
+                                                        variants, True),
+                         "per_series_rel_err": check_rates(
+                             p2.keys, p2.values, variants, False)}
+        # the same first query after a flush without a batcher: inline
+        be.batcher = None
+        ts, vals, flush2_s = ingest_tail(shard, select_metric(shard, metric),
+                                         ts, vals, rng)
+        end = (BASE + (ts.shape[1] - 2) * DT) // 1000
+        variants = rate_variants(ts, vals, start * 1000,
+                                 (end - start) // s + 1)
+        n_builds = len(logb.builds)
+        p3, p3_s = query(per)
+        assert len(logb.builds) == n_builds + 1 \
+            and logb.builds[-1][0] == me, "no inline rebuild"
+        out["inline_rebuild"] = {"flush_s": flush2_s,
+                                 "per_series_ms": 1e3 * p3_s,
+                                 "build_s": logb.builds[-1][1],
+                                 "per_series_rel_err": check_rates(
+                                     p3.keys, p3.values, variants, False)}
+    finally:
+        logb.restore()
+        b.executor.stop(WAIT_S)
+        be.batcher = MicroBatcher(device=be.device)
+    log(f"phase 6: across a flush: {json.dumps(out)}")
+    return out
+
+
+def phase_serving(eng: dict) -> dict:
+    """Phase 6 on the phase-4 shard and backend (its tiles, and phase 5's
+    gauge tiles, resident): bursts, clients, then a flush. Runs last: it
+    flushes the shard. Kernel launch counts are set to 0 before and read
+    after, and every kernel call is held against its plain version."""
+    from filodb_tpu_torch.query import kernels as kn
+
+    be, shard = eng["backend"], eng["shard"]
+    sel = {m: select_metric(shard, m)
+           for m in ("http_requests_total", GAUGE, "irregular_total")}
+    rng = np.random.default_rng(7)
+    calls, originals = record_kernel_calls()
+    kn.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        bursts, caps = serving_bursts(be, sel, eng["ts"], eng["vals"])
+        clients = serving_clients(shard, be)
+        flush = serving_flush(shard, be, eng["ts"], eng["vals"], rng)
+    finally:
+        restore_kernels(originals)
+    launches = dict(kn.LAUNCHES)
+    secs = time.perf_counter() - t0
+    log(f"phase 6: {secs:.1f} s; kernel launches {launches}")
+    for name, n in launches.items():
+        assert n > 0, f"{name} was not launched in phase 6"
+    errs = check_kernel_calls(calls, originals, "phase 6")
+    for name, cap in caps.items():
+        bursts[name]["dispatch"] = cap.dispatch_ms()
+        log(f"phase 6: {name}: one batched dispatch against its members "
+            f"one by one: {json.dumps(bursts[name]['dispatch'])}")
+    return {"launches": launches, "errs": errs,
+            "serving": {"bursts": bursts, "clients": clients,
+                        "flush": flush, "seconds": secs,
+                        "first_query_host_split": eng["first_query_split"]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=42)
@@ -1240,19 +1833,25 @@ def main() -> int:
     rows = phase_real_size(gen, dev, bw, f32_rate)
     eng = phase_engine(np.random.default_rng(args.seed))
     fns = phase_functions(eng, bw)
+    srv = phase_serving(eng)
+    eng["backend"].batcher.executor.stop(WAIT_S)
     kernels = []
     for kname in ("counter_groupsum", "window_extract"):
         r = dict(rows[kname])
         r["launches"] = eng["launches"][kname]
         r["launches_phase5"] = fns["launches"][kname]
+        r["launches_phase6"] = srv["launches"][kname]
         r["max_abs_err"] = max(r["max_abs_err"], eng["errs"][kname],
-                               fns["errs"].get(kname, 0.0))
+                               fns["errs"].get(kname, 0.0),
+                               srv["errs"].get(kname, 0.0))
         kernels.append(r)
     print(smi, flush=True)
     print(json.dumps({"functions": fns["functions"],
                       "queries": fns["queries"],
                       "phase5_peak_gib": fns["peak_gib"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"serving": dict(srv["serving"], card=smi)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

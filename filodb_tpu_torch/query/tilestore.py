@@ -25,6 +25,7 @@ tables have no counterpart here: each evaluator is called directly.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -857,9 +858,12 @@ def _tiles_arrays_fast(tiles: AlignedTiles, func: str
     }
 
 
-def _wdur_s(w0s: int, w0e: int, device) -> torch.Tensor:
+def _wdur_s(w0s, w0e, device) -> torch.Tensor:
     """Window length in seconds as an f32 scalar: f32(window) / 1000."""
-    return torch.tensor(float(w0e - w0s), dtype=F32, device=device) / 1000.0
+    d = w0e - w0s
+    if not isinstance(d, torch.Tensor):
+        d = torch.tensor(d, dtype=I64, device=device)
+    return d.to(F32) / 1000.0
 
 
 def _eval_counter_fast(func: str, nsteps: int, arrs: Dict[str, torch.Tensor],
@@ -958,14 +962,29 @@ def _eval_counter_slide(func: str, nsteps: int, st: int,
     f32. Same numerics as ``_eval_counter_fast``, but every boundary row
     read is one contiguous slice of the stride-permuted [st, G, S]
     channel. The dispatcher (_slide_eligible) guarantees every index is in
-    bounds, so the clip/sentinel masks of the gather path vanish."""
+    bounds, so the clip/sentinel masks of the gather path vanish.
+
+    Under ``torch.func.vmap`` (evaluate_counters_t_batch) ``w0s``/``w0e``
+    are 0-d tensors: the first boundary slots are then tensors too, and
+    the same rows are taken by index, since a slice cannot start at a
+    batched offset."""
     T = nsteps
     dev = arrs["tsr_p"].device
-    k_c0 = int(np.floor((w0e - base + dt / 2.0) / dt))
-    k_l0 = int(np.ceil((w0s - base - dt / 2.0) / dt))
+    if isinstance(w0e, torch.Tensor):
+        k_c0 = torch.floor(((w0e - base).to(F64) + dt / 2.0) / dt).to(I64)
+        k_l0 = torch.ceil(((w0s - base).to(F64) - dt / 2.0) / dt).to(I64)
+        counts = (k_c0 + 1 - k_l0).to(I32)
+        t_idx = torch.arange(T, dtype=I64, device=dev)
 
-    def rows(perm, k0):
-        return perm[k0 % st, k0 // st:k0 // st + T]
+        def rows(perm, k0):
+            return perm[k0 % st].index_select(0, k0 // st + t_idx)
+    else:
+        k_c0 = int(np.floor((w0e - base + dt / 2.0) / dt))
+        k_l0 = int(np.ceil((w0s - base - dt / 2.0) / dt))
+        counts = torch.full((), k_c0 + 1 - k_l0, dtype=I32, device=dev)
+
+        def rows(perm, k0):
+            return perm[k0 % st, k0 // st:k0 // st + T]
 
     ts_kc = rows(arrs["tsr_p"], k_c0)
     ts_kp = rows(arrs["tsr_p"], k_c0 - 1)
@@ -979,7 +998,6 @@ def _eval_counter_slide(func: str, nsteps: int, st: int,
     t = torch.arange(T, dtype=I64, device=dev)
     wend_r = (w0e - base + t * step).to(I32)[:, None]
     wstart_r = (w0s - base + t * step).to(I32)[:, None]
-    counts = torch.full((), k_c0 + 1 - k_l0, dtype=I32, device=dev)
     over = ts_kc > wend_r
     under = tsb_kcl < wstart_r
     counts = counts - over.to(I32) - under.to(I32)
@@ -1148,3 +1166,84 @@ def groupsum_counters(tiles: AlignedTiles, func: str, steps: np.ndarray,
         plan["func"], plan["st"], plan["dspan"], plan["hi_mode"],
         plan["lo_mode"], v_p, base, oh.contiguous(), plan["kl0"],
         plan["w0e_rel"], plan["window"], plan["step"], plan["nsteps"])
+
+
+# ---------------------------------------------------------------------------
+# Micro-batched (multi-grid) evaluation
+# ---------------------------------------------------------------------------
+#
+# The micro-batcher (query/batcher.py) stacks concurrent queries that share
+# (tiles, func, nsteps, step, window) but differ in grid position (w0s,
+# w0e): the dashboard-refresh shape. Each batched evaluator below is the
+# SAME body as its scalar dispatch under torch.func.vmap over the (w0s,
+# w0e) scalars only, so member i of a batch is bit for bit the scalar
+# path's output: the batch axis adds a leading dim and every op stays
+# row-local. The reference pads the batch to a coarse power-of-two width
+# to bound its XLA compiles; eager PyTorch compiles nothing, so exactly B
+# members run.
+
+def counters_batch_family(tiles: AlignedTiles, func: str,
+                          steps: np.ndarray, window_ms: int,
+                          offset_ms: int = 0) -> Tuple:
+    """Hashable dispatch-family key of one counter query: two queries may
+    share a batched evaluation only when their families match (the family
+    fixes which evaluator the scalar path would pick)."""
+    nsteps = steps.size
+    w0e = int(steps[0] - offset_ms)
+    w0s = w0e - int(window_ms)
+    step = int(steps[1] - steps[0]) if nsteps > 1 else 1
+    el = _slide_eligible(tiles, nsteps, w0s, w0e,
+                         int(steps[-1] - offset_ms), step)
+    if el is not None:
+        return ("slide", el[0])
+    lo_rel = w0s - tiles.base_ms
+    hi_rel = int(steps[-1] - offset_ms) - tiles.base_ms
+    fits_i32 = (_SENT_LO < lo_rel and hi_rel < _SENT_HI
+                and tiles.num_slots * tiles.dt_ms + tiles.dt_ms < _SENT_HI)
+    return ("fast",) if fits_i32 else ("t",)
+
+
+def _vmap_grids(body, w0s_list: Sequence[int], w0e_list: Sequence[int],
+                step: int, device) -> torch.Tensor:
+    """``body(w0s, w0e, step)`` for every member grid, as one batched
+    evaluation with a leading [B] axis."""
+    w0s_v = torch.tensor(list(w0s_list), dtype=I64, device=device)
+    w0e_v = torch.tensor(list(w0e_list), dtype=I64, device=device)
+    return torch.func.vmap(lambda s, e: body(s, e, step))(w0s_v, w0e_v)
+
+
+def evaluate_counters_t_batch(tiles: AlignedTiles, func: str,
+                              family: Tuple, nsteps: int, step: int,
+                              w0s_list: Sequence[int],
+                              w0e_list: Sequence[int]) -> torch.Tensor:
+    """B counter grids over shared tiles in one batched evaluation ->
+    [B, T, S] tensor. All members share ``family``
+    (counters_batch_family)."""
+    assert func in ("rate", "increase", "delta")
+    args = (tiles.num_slots, tiles.base_ms, tiles.dt_ms)
+    kind = family[0]
+    if kind == "slide":
+        st = family[1]
+        body = functools.partial(_eval_counter_slide, func, nsteps, st,
+                                  _tiles_arrays_slide(tiles, func, st),
+                                  *args)
+    elif kind == "fast":
+        body = functools.partial(_eval_counter_fast, func, nsteps,
+                                  _tiles_arrays_fast(tiles, func), *args)
+    else:
+        body = functools.partial(_eval_counter_t, func, nsteps,
+                                  _tiles_arrays_t(tiles, func), *args)
+    return _vmap_grids(body, w0s_list, w0e_list, step, tiles.device)
+
+
+def evaluate_aligned_batch(tiles: AlignedTiles, func: str, nsteps: int,
+                           step: int, w0s_list: Sequence[int],
+                           w0e_list: Sequence[int]) -> torch.Tensor:
+    """B aligned grids of a non-counter function over shared tiles in one
+    batched evaluation -> [B, S, T] tensor."""
+    if func not in ALIGNED_FUNCS or func in ("rate", "increase", "delta"):
+        raise ValueError(f"evaluate_aligned_batch cannot evaluate {func}")
+    body = functools.partial(_eval_core, func, nsteps,
+                              _tiles_arrays(tiles, func), tiles.num_slots,
+                              tiles.base_ms, tiles.dt_ms)
+    return _vmap_grids(body, w0s_list, w0e_list, step, tiles.device)

@@ -25,6 +25,13 @@ def _modules():
     return sorted(out)
 
 
+def test_the_walk_covers_the_serving_modules():
+    mods = _modules()
+    for m in ("filodb_tpu_torch.query.qos", "filodb_tpu_torch.query.batcher",
+              "filodb_tpu_torch.query.backend"):
+        assert m in mods
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"
