@@ -1274,7 +1274,8 @@ BURST = 8               # queries released together by a barrier
 BURST_ROUNDS = 1        # bursts of each key with the batcher on (cut
                         # from 2 to keep phase 6 near 90 s)
 CLIENTS = 16            # free-running engine clients
-CLIENT_S = 8.0          # seconds each client run lasts
+CLIENT_WARM = 1         # first queries of each client, left out (warm-up)
+CLIENT_QUERIES = 10     # queries of each client that are measured
 WAIT_S = 300.0          # bound on every wait of phase 6
 REBUILD_QUERIES = 4     # concurrent queries sent while a rebuild runs
 
@@ -1536,11 +1537,15 @@ def serving_bursts(be, sel, ts, vals) -> dict:
     return out, caps
 
 
-def client_run(shard, be, seconds: float) -> dict:
+def client_run(shard, be) -> dict:
     """CLIENTS threads, each with its own QueryEngine, cycling through
     the per-series rate (into the tail), avg_over_time on the gauges,
     max_over_time on the irregular series and sum by (job) of the rate,
-    on grids that end up to BURST - 1 steps early, for `seconds`."""
+    on grids that end up to BURST - 1 steps early: CLIENT_WARM queries
+    each, left out, then CLIENT_QUERIES measured. Latencies are those of
+    the measured queries; queries/s counts the measured queries that end
+    in the steady window, from the last client's end of warm-up to the
+    first client's last query, over its length."""
     import threading
 
     from filodb_tpu_torch.promql.parser import (TimeStepParams,
@@ -1556,27 +1561,30 @@ def client_run(shard, be, seconds: float) -> dict:
     plans = [[parse_query_range(q, TimeStepParams(start - j * s, s,
                                                   end - j * s))
               for q, end in qs] for j in range(BURST)]
-    lat = []
-    lock = threading.Lock()
+    spans = [[] for _ in range(CLIENTS)]    # per client: (start, end) s
     t0 = time.perf_counter()
-    deadline = t0 + seconds
 
     def client(k):
         eng = QueryEngine([shard], backend=be)
-        i = k
-        while time.perf_counter() < deadline:
+        for i in range(k, k + CLIENT_WARM + CLIENT_QUERIES):
             tq = time.perf_counter()
             got = eng.execute(plans[k % BURST][i % len(qs)])
-            dt = time.perf_counter() - tq
+            spans[k].append((tq, time.perf_counter()))
             assert np.isfinite(got.values).any()
-            with lock:
-                lat.append(dt)
-            i += 1
     run_threads(CLIENTS, client)
     wall = time.perf_counter() - t0
-    ms = 1e3 * np.asarray(lat)
-    return {"clients": CLIENTS, "queries": len(lat), "wall_s": wall,
-            "qps": len(lat) / wall, "p50_ms": float(np.percentile(ms, 50)),
+    measured = [q for c in spans for q in c[CLIENT_WARM:]]
+    w0 = max(c[CLIENT_WARM - 1][1] for c in spans)
+    w1 = min(c[-1][1] for c in spans)
+    assert w1 > w0, "no steady window: a client ended before another " \
+        "finished its warm-up"
+    done = sum(1 for _, e in measured if w0 < e <= w1)
+    ms = 1e3 * np.asarray([e - b for b, e in measured])
+    return {"clients": CLIENTS, "warmup_queries": CLIENTS * CLIENT_WARM,
+            "queries": len(measured), "wall_s": wall,
+            "window_s": w1 - w0, "window_queries": done,
+            "qps": done / (w1 - w0),
+            "p50_ms": float(np.percentile(ms, 50)),
             "p99_ms": float(np.percentile(ms, 99)),
             "max_ms": float(ms.max())}
 
@@ -1589,7 +1597,7 @@ def serving_clients(shard, be) -> dict:
         b = MicroBatcher(enabled=mode == "on")
         be.batcher = b
         try:
-            r = client_run(shard, be, CLIENT_S)
+            r = client_run(shard, be)
         finally:
             b.executor.stop(WAIT_S)
         r["batcher"] = b.stats.snapshot()

@@ -668,8 +668,11 @@ class TorchBackend:
                           None if use_snap else list(series), cov_min)
 
     def _insert_tile_entry(self, key, ident, entry: _TileEntry) -> None:
+        # a key already cached (two threads built it at once) is replaced
+        # in place: evicting for it would drop a live entry
         with self._tile_lock:
-            while len(self._tile_cache) >= self._TILE_CACHE_MAX:
+            while key not in self._tile_cache \
+                    and len(self._tile_cache) >= self._TILE_CACHE_MAX:
                 old_key = next(iter(self._tile_cache))
                 old = self._tile_cache.pop(old_key)
                 if self._tile_ident.get(old.ident_key) == old_key:

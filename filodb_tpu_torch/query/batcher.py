@@ -14,7 +14,7 @@ offsets).
     the same time, the open batch is queued to the device executor and
     later arrivals join it until the executor picks it up: the
     executor's busy time is the gather window. When the executor is
-    idle, a residual window (``gather_window_s``, 1 ms) holds the batch
+    idle, a residual window (``GATHER_WINDOW_S``, 1 ms) holds the batch
     open. A lone request runs the single-query path inline.
   * :class:`DeviceExecutor` — one thread that owns device submission on
     CUDA. Every thread of the process submits its work on the same
@@ -48,6 +48,9 @@ import torch
 from filodb_tpu_torch.query import qos
 
 _log = logging.getLogger(__name__)
+
+GATHER_WINDOW_S = 1e-3  # residual gather window at an idle executor
+MAX_BATCH = 8           # members of one batch at most
 
 
 class DeviceExecutor:
@@ -201,13 +204,8 @@ class MicroBatcher:
     ``use_executor=None`` takes the executor thread on CUDA (``device``
     None means CUDA, as for the backend) and runs inline on the CPU."""
 
-    def __init__(self, gather_window_s: float = 1e-3,
-                 max_batch: int = 8, enabled: bool = True,
-                 executor: Optional[DeviceExecutor] = None,
-                 use_executor: Optional[bool] = None,
-                 device=None):
-        self.gather_window_s = float(gather_window_s)
-        self.max_batch = int(max_batch)
+    def __init__(self, enabled: bool = True,
+                 use_executor: Optional[bool] = None, device=None):
         self.enabled = bool(enabled)
         self._lock = threading.Lock()
         self._pending: Dict[object, _Pending] = {}
@@ -216,7 +214,7 @@ class MicroBatcher:
             use_executor = device is None \
                 or torch.device(device).type == "cuda"
         self.use_executor = bool(use_executor)
-        self.executor = executor or DeviceExecutor()
+        self.executor = DeviceExecutor()
         self.stats = BatchStats()
 
     # -- concurrency tracking --------------------------------------------
@@ -244,7 +242,7 @@ class MicroBatcher:
         with self._lock:
             p = self._pending.get(key)
             if p is not None and not p.closed \
-                    and len(p.members) < self.max_batch:
+                    and len(p.members) < MAX_BATCH:
                 idx = len(p.members)
                 p.members.append(member)
                 # a higher-class join promotes the OPEN batch's class (an
@@ -274,7 +272,7 @@ class MicroBatcher:
         # interactive threads overtake it.
         yields = 3 if prio < qos.PRIORITY_BEST_EFFORT else 12
         for _ in range(yields):
-            if len(p.members) >= self.max_batch:
+            if len(p.members) >= MAX_BATCH:
                 break
             time.sleep(0)
         return self._execute(key, p, run_batch, queued=False)
@@ -287,12 +285,12 @@ class MicroBatcher:
         """Close and run one batch; on the executor thread when
         ``queued`` (the leader parks on the future), inline otherwise."""
         wait_ns = 0
-        if queued and self.gather_window_s > 0 and self.executor.idle():
+        if queued and self.executor.idle():
             # idle executor: hold the batch open for the residual gather
             # window so a concurrent same-key arrival can still pair
-            rem_s = self.gather_window_s \
+            rem_s = GATHER_WINDOW_S \
                 - (time.perf_counter_ns() - p.opened_ns) / 1e9
-            if rem_s > 0 and len(p.members) < self.max_batch:
+            if rem_s > 0 and len(p.members) < MAX_BATCH:
                 t0 = time.perf_counter_ns()
                 time.sleep(rem_s)
                 wait_ns = time.perf_counter_ns() - t0

@@ -112,7 +112,7 @@ def test_batched_equals_unbatched_bit_for_bit(func, regular, window_ms,
     ref_backend = _backend(enabled=False)
     refs = {k: ref_backend.periodic_samples(
         series, _params(k), func, window_ms).values for k in range(8)}
-    backend = _backend(use_executor=use_executor, max_batch=8)
+    backend = _backend(use_executor=use_executor)
     try:
         for _ in range(3):      # repeat: batch composition varies per run
             outs = _run_concurrent(backend, series, func, window_ms)
@@ -130,7 +130,7 @@ def test_batched_queries_actually_batch():
     """With the executor-queued mode and a barrier start, most of the 8
     concurrent same-shape queries share dispatches."""
     series = _series()
-    backend = _backend(use_executor=True, max_batch=8)
+    backend = _backend(use_executor=True)
     try:
         for _ in range(3):
             _run_concurrent(backend, series, "rate", 300_000)
