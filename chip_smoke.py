@@ -35,12 +35,21 @@ Phases, none of whose failures is caught:
      packed tail, packed endpoint or gather, boundary extract); then each
      family's device function timed alone at the full-width shape beside
      its byte bound and peak device memory (the `functions` line);
-  6. the `kernels` line: launches (phase 4, and phase 5 as
-     `launches_phase5`), max error, kernel and plain times (CUDA events
-     over warmed launches; `device_ms` by CUDA-graph replay, without the
-     host's cost of a call) and the least time the card could take, at
-     the phase-3 shapes, and for the group-sum also at the engine shape
-     (`engine_shape_*`).
+  6. the serving fast path on the phase-4 shard (bursts behind a barrier,
+     engine clients, a flush with its stale serve and rebuild: the
+     `serving` line);
+  7. the standalone server (`filodb_tpu_torch.standalone.server`) on the
+     card, holding phase 4's data routed over 4 shards as the reference
+     routes it, plus seed_dev_data(): PromQL over HTTP (the default
+     sample limit's 422, each query held against the numpy oracle with
+     the kernels it launched, again from the results cache and with
+     &cache=false), /metrics, 8 HTTP clients (the `server` line);
+  then the `kernels` line: launches (phase 4, and phases 5-7 as
+  `launches_phase5` to `launches_phase7`), max error, kernel and plain
+  times (CUDA events over warmed launches; `device_ms` by CUDA-graph
+  replay, without the host's cost of a call) and the least time the card
+  could take, at the phase-3 shapes, and for the group-sum also at the
+  engine shape (`engine_shape_*`).
 
 Tolerances: group-sum counts exact, sums |k - p| <= 1e-5 |p| + 1e-6 max|p|
 (f32 sums in another order than the plain version's f64 product); the
@@ -53,7 +62,9 @@ f64 oracle that decides the branch on integer ms as the kernel does. Phase
 1e-9 of the oracle (z_score rtol 5e-6, the reference's own bound), plus,
 for the prefix-sum family on the packed path, an absolute bound derived
 per row from its prefix magnitude and the window's count
-(packed_prefix_bound), logged beside the error.
+(packed_prefix_bound), logged beside the error. Phase 7: every answer
+parsed from its Prometheus JSON and held as phases 4-5 hold theirs; the
+cached and uncached repeats equal to the first answer.
 
 The last line of standard output is {"ok": true, "device": {...}}; the
 script exits non-zero, printing no result, when there is no CUDA device.
@@ -562,17 +573,13 @@ ENGINE_TAIL = 30
 ENGINE_IRREGULAR = 1_024
 
 
-def build_engine_shard(rng: np.random.Generator, S: int):
-    """A TimeSeriesShard with S flushed counter series x N_FULL samples, an
-    unflushed ENGINE_TAIL-sample tail each, ENGINE_IRREGULAR flushed
-    series of irregular cadence, and S gauge series (gauge_rows, tails
-    unflushed too) -> (shard, ts, vals, irr) with the counter series'
-    [S, N_FULL + ENGINE_TAIL] times and values and the irregular series'
-    (labels, ts, values) rows."""
-    from filodb_tpu_torch import state
-    from filodb_tpu_torch.core.memstore import TimeSeriesShard
-    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS, DatasetRef
-
+def engine_rows(rng: np.random.Generator, S: int) -> dict:
+    """The engine phases' data as (labels, ts, values) rows: S counter
+    series x N_FULL flushed samples and an ENGINE_TAIL-sample tail each,
+    ENGINE_IRREGULAR series of irregular cadence, and S gauge series
+    (gauge_rows, with tails) -> {"counters", "counter_tails", "irregular",
+    "gauges", "gauge_tails", "ts", "vals"}, the last two the counter
+    series' [S, N_FULL + ENGINE_TAIL] times and values."""
     N, TAIL = N_FULL, ENGINE_TAIL
     ts = (BASE + np.arange(N + TAIL)[None, :] * DT
           + rng.integers(-J_MS, J_MS + 1, (S, N + TAIL)))
@@ -581,9 +588,6 @@ def build_engine_shard(rng: np.random.Generator, S: int):
     lab = [{"_metric_": "http_requests_total", "_ws_": "demo",
             "_ns_": "App-0", "job": f"job{i % G}", "instance": f"i{i}"}
            for i in range(S)]
-    shard = TimeSeriesShard(DatasetRef("timeseries"), DEFAULT_SCHEMAS, 0)
-    state.load_series(shard, [(lab[i], ts[i, :N], vals[i, :N])
-                              for i in range(S)])
     irr = []
     for i in range(ENGINE_IRREGULAR):
         t = np.unique(BASE + np.arange(N) * DT
@@ -592,15 +596,36 @@ def build_engine_shard(rng: np.random.Generator, S: int):
                      "_ns_": "App-0", "job": f"job{i % G}",
                      "instance": f"k{i}"}, t,
                     np.cumsum(rng.uniform(0, 3, t.size))))
-    state.load_series(shard, irr)
     g_flushed, g_tail = gauge_rows(
         np.random.default_rng(int(rng.integers(2**62))), S)
-    state.load_series(shard, g_flushed, schema="gauge")
-    # the tails last: a flush would encode them into chunks
-    state.load_series(shard, [(lab[i], ts[i, N:], vals[i, N:])
-                              for i in range(S)], flush=False)
-    state.load_series(shard, g_tail, schema="gauge", flush=False)
-    return shard, ts, vals, irr
+    return {"counters": [(lab[i], ts[i, :N], vals[i, :N])
+                         for i in range(S)],
+            "counter_tails": [(lab[i], ts[i, N:], vals[i, N:])
+                              for i in range(S)],
+            "irregular": irr, "gauges": g_flushed, "gauge_tails": g_tail,
+            "ts": ts, "vals": vals}
+
+
+# (rows, schema, flush) in loading order: the tails last, since a flush
+# would encode them into chunks
+LOAD_ORDER = (("counters", "prom-counter", True),
+              ("irregular", "prom-counter", True),
+              ("gauges", "gauge", True),
+              ("counter_tails", "prom-counter", False),
+              ("gauge_tails", "gauge", False))
+
+
+def build_engine_shard(rng: np.random.Generator, S: int):
+    """A TimeSeriesShard holding engine_rows(rng, S) -> (shard, rows)."""
+    from filodb_tpu_torch import state
+    from filodb_tpu_torch.core.memstore import TimeSeriesShard
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS, DatasetRef
+
+    rows = engine_rows(rng, S)
+    shard = TimeSeriesShard(DatasetRef("timeseries"), DEFAULT_SCHEMAS, 0)
+    for key, schema, flush in LOAD_ORDER:
+        state.load_series(shard, rows[key], schema=schema, flush=flush)
+    return shard, rows
 
 
 GAUGE = "queue_depth"
@@ -728,7 +753,8 @@ def phase_engine(rng: np.random.Generator) -> dict:
 
     S = S_ENGINE
     t0 = time.perf_counter()
-    shard, ts, vals, irr = build_engine_shard(rng, S)
+    shard, rows = build_engine_shard(rng, S)
+    ts, vals, irr = rows["ts"], rows["vals"], rows["irregular"]
     ingest_s = time.perf_counter() - t0
     log(f"phase 4: shard with {S} counter series x {N_FULL} samples "
         f"(+{ENGINE_TAIL} unflushed), {ENGINE_IRREGULAR} irregular series "
@@ -784,7 +810,7 @@ def phase_engine(rng: np.random.Generator) -> dict:
         f"{ {k: len(v) for k, v in calls.items()} }")
     return {"launches": launches, "errs": errs, "ingest_s": ingest_s,
             "shard": shard, "backend": be, "irr": irr, "ts": ts,
-            "vals": vals, "first_query_split": split}
+            "vals": vals, "rows": rows, "first_query_split": split}
 
 
 class HostSplit:
@@ -1275,7 +1301,8 @@ BURST_ROUNDS = 1        # bursts of each key with the batcher on (cut
                         # from 2 to keep phase 6 near 90 s)
 CLIENTS = 16            # free-running engine clients
 CLIENT_WARM = 1         # first queries of each client, left out (warm-up)
-CLIENT_QUERIES = 10     # queries of each client that are measured
+CLIENT_QUERIES = 3      # queries of each client that are measured (cut
+                        # from 10 to make room for phase 7)
 WAIT_S = 300.0          # bound on every wait of phase 6
 REBUILD_QUERIES = 4     # concurrent queries sent while a rebuild runs
 
@@ -1806,6 +1833,376 @@ def phase_serving(eng: dict) -> dict:
                         "first_query_host_split": eng["first_query_split"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the standalone server and its Prometheus HTTP API
+# ---------------------------------------------------------------------------
+
+SERVER_CLIENTS = 8          # HTTP client threads
+SERVER_CLIENT_QUERIES = 3   # queries of each client, over phase 6's mix
+# the server's config: the reference's defaults but for these keys, each
+# with its reason
+SERVER_CONFIG = {
+    "num-shards": 4, "port": 0,
+    # one query scans 23.6 M samples here: the default 1,000,000 answers
+    # 422 (asserted first, on an HTTP edge at the default over the same
+    # shards)
+    "query-sample-limit": 0,
+    # a per-series answer at 8,192 series holds a slot 8-10 s (its JSON
+    # encode), longer than the default 5 s wait: 8 clients on 4 slots got
+    # 429 at the default
+    "admission-wait-s": 120.0,
+}
+
+
+def server_queries():
+    """(PromQL, start s, end s) of phase 7's range queries: phase 4's five,
+    then avg_over_time on the gauges and max_over_time on the irregular
+    series."""
+    start, fe, te = engine_grid()
+    return engine_queries() + [(f"avg_over_time({GAUGE}[5m])", start, te),
+                               ("max_over_time(irregular_total[5m])", start,
+                                fe)]
+
+
+def http_get(port: int, path: str, params: dict):
+    """GET over a real socket -> (HTTP code, body bytes, wall ms)."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}"
+    if params:
+        url += "?" + urllib.parse.urlencode(params)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=WAIT_S) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, 1e3 * (time.perf_counter() - t0)
+
+
+def http_json(port: int, path: str, params: dict):
+    """A 200 answer's JSON -> (payload, wall ms, body bytes); any other
+    code raises."""
+    code, body, ms = http_get(port, path, params)
+    assert code == 200, f"{path} {params}: HTTP {code}: {body[:500]!r}"
+    out = json.loads(body)
+    assert out["status"] == "success", out
+    return out, ms, len(body)
+
+
+def grid_from_json(payload: dict, start: int, end: int, step: int):
+    """A Prometheus matrix (or vector) answer -> (keys, [S, T] values)
+    on the grid, NaN where the answer omits a step; `__name__` back to
+    the engine's `_metric_`."""
+    from types import SimpleNamespace
+
+    steps = np.arange(start * 1000, end * 1000 + 1, step * 1000)
+    res = payload["data"]["result"]
+    keys, vals = [], np.full((len(res), steps.size), np.nan)
+    for i, e in enumerate(res):
+        keys.append({("_metric_" if k == "__name__" else k): v
+                     for k, v in e["metric"].items()})
+        pts = e["values"] if "values" in e else [e["value"]]
+        t = np.asarray([p[0] for p in pts], np.float64)
+        idx = np.rint((t * 1000 - steps[0]) / (step * 1000)).astype(np.int64)
+        vals[i, idx] = np.asarray([p[1] for p in pts]).astype(np.float64)
+    return SimpleNamespace(keys=keys, values=vals)
+
+
+def json_order(grid):
+    """An engine answer as the HTTP API lays it out: series without a
+    value dropped, the rest ordered by their encoded labels."""
+    from types import SimpleNamespace
+
+    from filodb_tpu_torch.http import prom_json
+
+    keep = [i for i in range(len(grid.keys))
+            if not np.isnan(grid.values[i]).all()]
+    keep.sort(key=lambda i: prom_json._entry_order(
+        {"metric": prom_json._metric(grid.keys[i])}))
+    return SimpleNamespace(keys=[dict(grid.keys[i]) for i in keep],
+                           values=grid.values[keep])
+
+
+def scrape(port: int) -> dict:
+    """/metrics -> {series text: value} of the unlabelled and labelled
+    samples."""
+    code, body, _ = http_get(port, "/metrics", {})
+    assert code == 200
+    out = {}
+    for line in body.decode().splitlines():
+        if line and not line.startswith("#"):
+            name, _, val = line.rpartition(" ")
+            out[name] = float(val)
+    return out
+
+
+class EngineTime:
+    """Seconds spent in QueryEngine.execute since the last take (the
+    server's handler thread runs the engine; one query at a time)."""
+
+    def __init__(self):
+        from filodb_tpu_torch.query.engine import QueryEngine
+
+        self.cls, self.orig, self.s = QueryEngine, QueryEngine.execute, 0.0
+        orig = self.orig
+
+        def call(eng, plan):
+            t0 = time.perf_counter()
+            try:
+                return orig(eng, plan)
+            finally:
+                self.s += time.perf_counter() - t0
+        QueryEngine.execute = call
+
+    def take(self) -> float:
+        s, self.s = self.s, 0.0
+        return s
+
+    def restore(self) -> None:
+        self.cls.execute = self.orig
+
+
+def same_answer(a, b) -> bool:
+    return a.keys == b.keys and np.array_equal(a.values, b.values,
+                                               equal_nan=True)
+
+
+def server_queries_http(srv, rows, engine_time) -> list:
+    """Phase 7's range queries and one instant query over HTTP. Each range
+    query goes three times in a row: first (the kernels it launched
+    counted), again as it was (the results cache answers: a full hit where
+    the grid ends at or below every shard's ingest watermark), and with
+    &cache=false (the engine and the device again); all three answers
+    alike. Then each first answer is held against the numpy oracle as
+    phases 4-5 hold theirs -> readings."""
+    from filodb_tpu_torch.promql.parser import (TimeStepParams, parse_query,
+                                                parse_query_range)
+    from filodb_tpu_torch.query import kernels as kn
+    from filodb_tpu_torch.query.engine import QueryEngine
+
+    step = STEP // 1000
+    path = "/promql/timeseries/api/v1/query_range"
+    start, fe, _ = engine_grid()
+    answers = []
+    for q, s, e in server_queries():
+        params = {"query": q, "start": s, "end": e, "step": step}
+        before = dict(kn.LAUNCHES)
+        engine_time.take()
+        payload, ms, nbytes = http_json(srv.port, path, params)
+        engine_s = engine_time.take()
+        r = {"q": q, "first_ms": ms, "bytes": nbytes,
+             "launches": {k: kn.LAUNCHES[k] - before[k] for k in before},
+             "engine_ms": 1e3 * engine_s,
+             "handler_outside_engine_ms": ms - 1e3 * engine_s,
+             "timings": payload["stats"]["timings"]}
+        got = grid_from_json(payload, s, e, step)
+        del payload
+        cached, r["cached_ms"], _ = http_json(srv.port, path, params)
+        r["cached_state"] = cached["stats"]["timings"]["resultCache"]
+        assert r["cached_state"] == "hit" if e <= fe else \
+            r["cached_state"] in ("hit", "partial"), (q, r["cached_state"])
+        assert same_answer(grid_from_json(cached, s, e, step), got), \
+            f"{q}: the cached answer differs"
+        del cached
+        engine_time.take()
+        fresh, r["uncached_ms"], _ = http_json(
+            srv.port, path, dict(params, cache="false"))
+        r["uncached_engine_ms"] = 1e3 * engine_time.take()
+        assert fresh["stats"]["timings"]["resultCache"] == "bypass"
+        assert same_answer(grid_from_json(fresh, s, e, step), got), \
+            f"{q}: the answer with cache=false differs"
+        del fresh
+        log(f"phase 7: {q}: first {ms:.1f} ms, cached "
+            f"({r['cached_state']}) {r['cached_ms']:.1f} ms, uncached "
+            f"{r['uncached_ms']:.1f} ms, {nbytes} bytes")
+        answers.append((q, s, e, got, r))
+    # the instant query: the grouped rate at the end of the flushed chunks
+    iq = "sum by (job) (rate(http_requests_total[5m]))"
+    engine_time.take()
+    ipay, ims, ibytes = http_json(srv.port, path.replace("_range", ""),
+                                  {"query": iq, "time": fe})
+    ieng = engine_time.take()
+    assert ipay["data"]["resultType"] == "vector"
+    oracle = QueryEngine(srv.store.shards(srv.ref))
+    T_max = max(len(np.arange(s, e + 1, step)) for _, s, e in
+                server_queries())
+    variants = _oracle_rates(rows["ts"], rows["vals"], start * 1000, T_max,
+                             knife_ms=KNIFE_MS)
+    readings = []
+    for q, s, e, got, r in answers:
+        want = json_order(oracle.execute(parse_query_range(
+            q, TimeStepParams(s, step, e))))
+        if q.startswith(("avg_over_time", "max_over_time")):
+            r["oracle"] = check_function_answer(q.split("(")[0], q, got,
+                                                want)
+        else:
+            r["oracle"] = check_engine_answer(q, got, want, variants)
+        readings.append(r)
+        log(f"phase 7: {q} over HTTP -> {got.values.shape}: "
+            f"{json.dumps(r)}")
+    got = grid_from_json(ipay, fe, fe, step)
+    want = json_order(oracle.execute(parse_query(iq, fe)))
+    iv = _oracle_rates(rows["ts"], rows["vals"], fe * 1000, 1,
+                       knife_ms=KNIFE_MS)
+    r = {"q": iq, "instant": True, "first_ms": ims, "bytes": ibytes,
+         "engine_ms": 1e3 * ieng, "handler_outside_engine_ms":
+         ims - 1e3 * ieng, "oracle": check_engine_answer(iq, got, want, iv)}
+    log(f"phase 7: instant {iq} at {fe} over HTTP: {json.dumps(r)}")
+    readings.append(r)
+    for r in readings[:3]:
+        assert r["launches"]["counter_groupsum"] >= 1, r
+    irr = [r for r in readings if r["q"] == "rate(irregular_total[5m])"][0]
+    assert irr["launches"]["window_extract"] >= 1, irr
+    return readings
+
+
+def server_clients(srv) -> dict:
+    """SERVER_CLIENTS threads over HTTP, each SERVER_CLIENT_QUERIES queries
+    cycling phase 6's mix on grids shifted by up to BURST - 1 steps, with
+    &cache=false so that each reaches the device: through the admission
+    gate (4 in flight by default) and the micro-batcher. queries/s = the
+    queries over the run's wall time."""
+    start, fe, te = engine_grid()
+    s = STEP // 1000
+    qs = (("rate(http_requests_total[5m])", te),
+          (f"avg_over_time({GAUGE}[5m])", fe),
+          ("max_over_time(irregular_total[5m])", fe),
+          ("sum by (job) (rate(http_requests_total[5m]))", fe))
+    lat = [[] for _ in range(SERVER_CLIENTS)]
+    b0 = srv.backend.batcher.stats.snapshot()
+
+    def client(k):
+        for i in range(k, k + SERVER_CLIENT_QUERIES):
+            q, end = qs[i % len(qs)]
+            j = k % BURST
+            payload, ms, _ = http_json(
+                srv.port, "/promql/timeseries/api/v1/query_range",
+                {"query": q, "start": start - j * s, "end": end - j * s,
+                 "step": s, "cache": "false"})
+            assert payload["data"]["result"], q
+            lat[k].append(ms)
+    t0 = time.perf_counter()
+    run_threads(SERVER_CLIENTS, client)
+    wall = time.perf_counter() - t0
+    b1 = srv.backend.batcher.stats.snapshot()
+    ms = np.asarray([x for c in lat for x in c])
+    return {"clients": SERVER_CLIENTS, "queries": int(ms.size),
+            "wall_s": wall, "qps": ms.size / wall,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "max_ms": float(ms.max()),
+            "batches": b1["batches"] - b0["batches"],
+            "batched_queries": b1["queries"] - b0["queries"],
+            "occupancy_max": b1["occupancy_max"], "batcher": b1}
+
+
+def phase_server(rows: dict, smi: str) -> dict:
+    """Phase 7: the port's FiloServer on CUDA (SERVER_CONFIG), loaded with
+    the engine phases' rows through state.load_into_store (routed to their
+    shards as the reference routes them) plus seed_dev_data(), then
+    PromQL over HTTP: the default sample limit's 422, every query held
+    against the numpy oracle with the kernels it launched, the results
+    cache and its bypass, /metrics, and concurrent clients. Kernel launch
+    counts are set to 0 before the first query and read after the
+    clients; every kernel call is held against its plain version."""
+    from filodb_tpu_torch import state
+    from filodb_tpu_torch.http.server import FiloHttpServer
+    from filodb_tpu_torch.query import kernels as kn
+    from filodb_tpu_torch.query.model import QueryLimits
+    from filodb_tpu_torch.standalone.server import DEFAULTS, FiloServer
+
+    t0 = time.perf_counter()
+    for key, why in (("query-sample-limit", "23.6 M samples a query"),
+                     ("admission-wait-s", "a per-series answer holds a "
+                      "slot 8-10 s")):
+        log(f"phase 7: config {key} = {SERVER_CONFIG[key]} (default "
+            f"{DEFAULTS[key]}): {why}")
+    srv = FiloServer(SERVER_CONFIG).start()
+    try:
+        for key, schema, flush in LOAD_ORDER:
+            state.load_into_store(srv.store, srv.ref, rows[key], schema,
+                                  flush, num_shards=4, spread=1)
+        dev_rows = srv.seed_dev_data()
+        load_s = time.perf_counter() - t0
+        per_shard = {s.shard_num: len(s.partitions)
+                     for s in srv.store.shards(srv.ref)}
+        log(f"phase 7: server on :{srv.port}, data loaded in {load_s:.1f} s "
+            f"(+{dev_rows} dev samples), series per shard {per_shard}")
+        # the reference's default sample limit, on an HTTP edge over the
+        # same shards
+        edge = FiloHttpServer(
+            {srv.ref.dataset: srv.store.shards(srv.ref)},
+            backend=srv.backend, shard_mapper=srv.mapper,
+            query_limits=QueryLimits(
+                series_limit=DEFAULTS["query-series-limit"],
+                sample_limit=DEFAULTS["query-sample-limit"]))
+        edge.start()
+        try:
+            start, fe, _ = engine_grid()
+            code, body, _ = http_get(
+                edge.port, "/promql/timeseries/api/v1/query_range",
+                {"query": "sum by (job) (rate(http_requests_total[5m]))",
+                 "start": start, "end": fe, "step": STEP // 1000})
+        finally:
+            edge.stop()
+        assert code == 422, (code, body[:300])
+        log(f"phase 7: default sample limit: HTTP {code} "
+            f"{json.loads(body)['error']}")
+        m0 = scrape(srv.port)
+        calls, originals = record_kernel_calls()
+        engine_time = EngineTime()
+        kn.reset_launches()
+        try:
+            readings = server_queries_http(srv, rows, engine_time)
+            clients = server_clients(srv)
+        finally:
+            engine_time.restore()
+            restore_kernels(originals)
+        launches = dict(kn.LAUNCHES)
+        log(f"phase 7: {SERVER_CLIENTS} HTTP clients: "
+            f"{json.dumps(clients)}")
+        m1 = scrape(srv.port)
+        moved = {}
+        for fam in ("filodb_tile_builds_total", "filodb_tile_cache_hits_total",
+                    "filodb_batcher_queries_total",
+                    "filodb_batcher_batches_total",
+                    "filodb_result_cache_hits_total",
+                    "filodb_result_cache_partial_hits_total",
+                    "filodb_result_cache_bypassed_total",
+                    "filodb_plan_cache_hits_total"):
+            moved[fam] = m1[fam] - m0[fam]
+        for fam in ("filodb_tile_builds_total", "filodb_tile_cache_hits_total",
+                    "filodb_batcher_queries_total",
+                    "filodb_batcher_batches_total",
+                    "filodb_result_cache_bypassed_total"):
+            assert moved[fam] > 0, (fam, moved)
+        n_full = sum(1 for _, _, e in server_queries() if e <= fe)
+        assert moved["filodb_result_cache_hits_total"] >= n_full, moved
+        assert m1["filodb_admission_rejected_total"] == 0
+        log(f"phase 7: /metrics moved: {json.dumps(moved)}")
+        for name, n in launches.items():
+            assert n > 0, f"{name} was not launched in phase 7"
+        errs = check_kernel_calls(calls, originals, "phase 7")
+    finally:
+        srv.stop()
+    secs = time.perf_counter() - t0
+    first = readings[0]
+    split = {"wall_ms": first["first_ms"], "engine_ms": first["engine_ms"],
+             "handler_outside_engine_ms":
+                 first["handler_outside_engine_ms"],
+             "timings": first["timings"]}
+    log(f"phase 7: {secs:.1f} s; kernel launches {launches}")
+    return {"launches": launches, "errs": errs,
+            "server": {"seconds": secs, "load_s": load_s,
+                       "series_per_shard": per_shard,
+                       "queries": readings, "first_grouped_split": split,
+                       "clients": clients, "metrics_moved": moved,
+                       "card": smi}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=42)
@@ -1843,15 +2240,25 @@ def main() -> int:
     fns = phase_functions(eng, bw)
     srv = phase_serving(eng)
     eng["backend"].batcher.executor.stop(WAIT_S)
+    # phase 7 builds its own backend: drop phases 4-6's and their tiles
+    data = eng.pop("rows")
+    for k in ("backend", "shard"):
+        del eng[k]
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    server = phase_server(data, smi)
     kernels = []
     for kname in ("counter_groupsum", "window_extract"):
         r = dict(rows[kname])
         r["launches"] = eng["launches"][kname]
         r["launches_phase5"] = fns["launches"][kname]
         r["launches_phase6"] = srv["launches"][kname]
+        r["launches_phase7"] = server["launches"][kname]
         r["max_abs_err"] = max(r["max_abs_err"], eng["errs"][kname],
                                fns["errs"].get(kname, 0.0),
-                               srv["errs"].get(kname, 0.0))
+                               srv["errs"].get(kname, 0.0),
+                               server["errs"].get(kname, 0.0))
         kernels.append(r)
     print(smi, flush=True)
     print(json.dumps({"functions": fns["functions"],
@@ -1860,6 +2267,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serving": dict(srv["serving"], card=smi)}),
           flush=True)
+    print(json.dumps({"server": server["server"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

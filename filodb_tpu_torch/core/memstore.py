@@ -517,10 +517,9 @@ class TimeSeriesShard:
                  column_store: Optional[object] = None,
                  card_tracker: Optional[object] = None,
                  flush_downsampler: Optional[object] = None):
-        # persistence (column store + ODP), the cardinality quota tree and
-        # flush-time downsampling are not ported: a memory-only shard
+        # persistence (column store + ODP) and flush-time downsampling are
+        # not ported: a memory-only shard
         for name, arg in (("column_store", column_store),
-                          ("card_tracker", card_tracker),
                           ("flush_downsampler", flush_downsampler)):
             if arg is not None:
                 raise NotImplementedError(f"{name} is not ported")
@@ -607,6 +606,18 @@ class TimeSeriesShard:
             # shard-wide cap breach: drop new series
             self.stats.quota_dropped_series += 1
             return None
+        if self.card_tracker is not None:
+            from filodb_tpu_torch.core.cardinality import \
+                QuotaReachedException
+            try:
+                self.card_tracker.modify_count(
+                    self.card_tracker.prefix_of(part_key.label_map), 1,
+                    1 if active else 0)
+            except QuotaReachedException:
+                # per-prefix quota breach: drop new series + stat
+                # (QuotaExceededProtocol)
+                self.stats.quota_dropped_series += 1
+                return None
         schema = self.schemas.by_id(part_key.schema_id)
         pid = self._next_part_id
         self._next_part_id += 1

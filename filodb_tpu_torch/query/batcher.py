@@ -14,8 +14,8 @@ offsets).
     the same time, the open batch is queued to the device executor and
     later arrivals join it until the executor picks it up: the
     executor's busy time is the gather window. When the executor is
-    idle, a residual window (``GATHER_WINDOW_S``, 1 ms) holds the batch
-    open. A lone request runs the single-query path inline.
+    idle, a residual window (``gather_window_s``, 1 ms by default) holds
+    the batch open. A lone request runs the single-query path inline.
   * :class:`DeviceExecutor` — one thread that owns device submission on
     CUDA. Every thread of the process submits its work on the same
     (default) CUDA stream, so a reader's copy to the host is ordered
@@ -49,6 +49,7 @@ from filodb_tpu_torch.query import qos
 
 _log = logging.getLogger(__name__)
 
+# defaults of MicroBatcher's gather_window_s and max_batch
 GATHER_WINDOW_S = 1e-3  # residual gather window at an idle executor
 MAX_BATCH = 8           # members of one batch at most
 
@@ -202,10 +203,16 @@ class MicroBatcher:
     is available. ``run_batch(members) -> SplitResult`` executes the whole
     batch; with one member it routes to the single-query path.
     ``use_executor=None`` takes the executor thread on CUDA (``device``
-    None means CUDA, as for the backend) and runs inline on the CPU."""
+    None means CUDA, as for the backend) and runs inline on the CPU.
+    ``gather_window_s`` is the residual gather window at an idle
+    executor and ``max_batch`` the most members of one batch (the
+    server's ``batch-gather-window-ms`` and ``batch-max``)."""
 
-    def __init__(self, enabled: bool = True,
+    def __init__(self, gather_window_s: float = GATHER_WINDOW_S,
+                 max_batch: int = MAX_BATCH, enabled: bool = True,
                  use_executor: Optional[bool] = None, device=None):
+        self.gather_window_s = float(gather_window_s)
+        self.max_batch = max(1, int(max_batch))
         self.enabled = bool(enabled)
         self._lock = threading.Lock()
         self._pending: Dict[object, _Pending] = {}
@@ -242,7 +249,7 @@ class MicroBatcher:
         with self._lock:
             p = self._pending.get(key)
             if p is not None and not p.closed \
-                    and len(p.members) < MAX_BATCH:
+                    and len(p.members) < self.max_batch:
                 idx = len(p.members)
                 p.members.append(member)
                 # a higher-class join promotes the OPEN batch's class (an
@@ -272,7 +279,7 @@ class MicroBatcher:
         # interactive threads overtake it.
         yields = 3 if prio < qos.PRIORITY_BEST_EFFORT else 12
         for _ in range(yields):
-            if len(p.members) >= MAX_BATCH:
+            if len(p.members) >= self.max_batch:
                 break
             time.sleep(0)
         return self._execute(key, p, run_batch, queued=False)
@@ -288,9 +295,9 @@ class MicroBatcher:
         if queued and self.executor.idle():
             # idle executor: hold the batch open for the residual gather
             # window so a concurrent same-key arrival can still pair
-            rem_s = GATHER_WINDOW_S \
+            rem_s = self.gather_window_s \
                 - (time.perf_counter_ns() - p.opened_ns) / 1e9
-            if rem_s > 0 and len(p.members) < MAX_BATCH:
+            if rem_s > 0 and len(p.members) < self.max_batch:
                 t0 = time.perf_counter_ns()
                 time.sleep(rem_s)
                 wait_ns = time.perf_counter_ns() - t0

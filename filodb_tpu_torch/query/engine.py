@@ -24,31 +24,12 @@ from filodb_tpu_torch.core.memstore import TimeSeriesShard
 from filodb_tpu_torch.core.schemas import ColumnType
 from filodb_tpu_torch.memory import histogram as bh
 from filodb_tpu_torch.memory.vectors import counter_correction
+from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.query import logical as lp
 from filodb_tpu_torch.query import rangefn as rf
 from filodb_tpu_torch.query.model import (GridResult, QueryError, QueryLimits,
                                     QueryStats, RangeParams, RawSeries,
                                     ScalarResult, StaleRoutingError)
-
-
-class _NoopSpan:
-    """Stands in for the JAX package's trace span: device observability
-    is not ported yet, so spans record nothing."""
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-    def tag(self, **kw) -> None:
-        pass
-
-
-class obs_trace:  # noqa: N801 - keeps the reference's call sites verbatim
-    @staticmethod
-    def span(name: str, **kw) -> _NoopSpan:
-        return _NoopSpan()
 
 
 METRIC_LABELS = ("_metric_", "__name__")
@@ -1027,7 +1008,14 @@ class QueryEngine:
                     out.append(dict(s.index.labels_for(pid)))
             return out
         if isinstance(plan, lp.TsCardinalities):
-            raise NotImplementedError("TsCardinalities is not ported")
+            from filodb_tpu_torch.core.cardinality import merge_records
+            per = []
+            for s in local:
+                tracker = getattr(s, "card_tracker", None)
+                if tracker is not None:
+                    per.append(tracker.scan(plan.shard_key_prefix,
+                                            plan.num_groups))
+            return merge_records(per)
         return self._eval(plan)
 
     # -- vector evaluation ------------------------------------------------

@@ -5,7 +5,10 @@ identical state (for a database this takes the place of loading weights).
   * ``tiles_from_numpy`` builds an ``AlignedTiles`` from the same arrays
     ``filodb_tpu.query.tilestore.AlignedTiles`` takes;
   * ``load_series`` fills a ``TimeSeriesShard`` from ``(labels, ts, values)``
-    rows, flushed into chunks or left in the write buffer.
+    rows, flushed into chunks or left in the write buffer;
+  * ``load_into_store`` routes such rows to the shards of a
+    ``TimeSeriesMemStore`` the way the reference's ingest edge routes them,
+    then loads each shard as ``load_series`` does.
 """
 
 from __future__ import annotations
@@ -14,8 +17,10 @@ from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
-from filodb_tpu_torch.core.memstore import TimeSeriesShard
-from filodb_tpu_torch.core.record import PartKey, RecordContainer
+from filodb_tpu_torch.core.memstore import TimeSeriesMemStore, TimeSeriesShard
+from filodb_tpu_torch.core.record import (PartKey, RecordContainer,
+                                          ingestion_shard)
+from filodb_tpu_torch.core.schemas import DatasetRef, PartitionSchema
 from filodb_tpu_torch.query.tilestore import AlignedTiles
 
 
@@ -62,3 +67,24 @@ def load_series(shard: TimeSeriesShard,
     if flush:
         shard.flush_all()
     return n
+
+
+def load_into_store(store: TimeSeriesMemStore, ref: DatasetRef,
+                    rows: Sequence[Tuple[Mapping[str, str], np.ndarray,
+                                         np.ndarray]],
+                    schema: str = "prom-counter", flush: bool = True,
+                    num_shards: int = 4, spread: int = 1) -> int:
+    """Route each ``(labels, ts ms, values)`` row to its shard by
+    ``ingestion_shard(shard key hash, part hash, spread, num_shards)`` (the
+    reference's routing, gateway/producer.py's ``shard_for``), then load
+    each shard's rows with :func:`load_series`. Returns rows ingested."""
+    part_schema = PartitionSchema()
+    data_schema = store.schemas.by_name(schema)
+    by_shard: Dict[int, list] = {}
+    for labels, ts, vals in rows:
+        pk = PartKey.make(data_schema, labels)
+        shard = ingestion_shard(pk.shard_key_hash(part_schema),
+                                pk.part_hash(), spread, num_shards)
+        by_shard.setdefault(shard, []).append((labels, ts, vals))
+    return sum(load_series(store.get_shard(ref, shard), part, schema, flush)
+               for shard, part in sorted(by_shard.items()))

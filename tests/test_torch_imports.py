@@ -25,11 +25,42 @@ def _modules():
     return sorted(out)
 
 
-def test_the_walk_covers_the_serving_modules():
-    mods = _modules()
-    for m in ("filodb_tpu_torch.query.qos", "filodb_tpu_torch.query.batcher",
-              "filodb_tpu_torch.query.backend"):
-        assert m in mods
+SERVING_MODULES = (
+    "filodb_tpu_torch.query.qos", "filodb_tpu_torch.query.batcher",
+    "filodb_tpu_torch.query.backend",
+    # the server entry and what it needs
+    "filodb_tpu_torch.parallel", "filodb_tpu_torch.parallel.shardmapper",
+    "filodb_tpu_torch.parallel.resilience",
+    "filodb_tpu_torch.core.cardinality", "filodb_tpu_torch.core.spread",
+    "filodb_tpu_torch.obs", "filodb_tpu_torch.obs.metrics",
+    "filodb_tpu_torch.obs.trace", "filodb_tpu_torch.obs.slowlog",
+    "filodb_tpu_torch.obs.events", "filodb_tpu_torch.promql.semant",
+    "filodb_tpu_torch.query.plancache", "filodb_tpu_torch.query.resultcache",
+    "filodb_tpu_torch.query.planner", "filodb_tpu_torch.http.prom_json",
+    "filodb_tpu_torch.ingest.health", "filodb_tpu_torch.http.server",
+    "filodb_tpu_torch.gateway.producer",
+    "filodb_tpu_torch.standalone.server",
+)
+
+
+@pytest.mark.parametrize("mod", SERVING_MODULES)
+def test_the_walk_covers_the_serving_modules(mod):
+    assert mod in _modules()
+
+
+def test_the_parallel_package_imports_no_mesh_module():
+    code = (
+        "import sys\n"
+        "import filodb_tpu_torch.parallel\n"
+        "bad = [m for m in sys.modules if m.startswith("
+        "'filodb_tpu_torch.parallel.') and m.rsplit('.', 1)[1] not in "
+        "('shardmapper', 'resilience')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_importing_every_module_loads_no_jax():
