@@ -44,8 +44,23 @@ Phases, none of whose failures is caught:
      sample limit's 422, each query held against the numpy oracle with
      the kernels it launched, again from the results cache and with
      &cache=false), /metrics, 8 HTTP clients (the `server` line);
-  then the `kernels` line: launches (phase 4, and phases 5-7 as
-  `launches_phase5` to `launches_phase7`), max error, kernel and plain
+  8. the write path and durability: phase 4's flushed history (the
+     counters and the irregular series) backfilled into a fresh data-dir
+     through the memstore and a FlatFileColumnStore; server A on the card
+     over that data-dir, a fresh stream-dir and a gateway (WRITE_CONFIG:
+     fsync per append, no timed flush) takes the counters' 30-sample tail
+     through POST /api/v1/ingest/influx, one POST of 8,192 lines per
+     scrape, and an irregular tail through the TCP gateway; its grouped
+     sum and average of rate (the fused group-sum), one job's rate into
+     the tail and the irregular rate into the tail (the boundary extract)
+     are held against the numpy oracle, and a remote read of 64 series
+     must give back every sample written; A's drivers stop without a
+     flush (a crash: the tail lives only in the stream logs); server B on
+     the same directories goes through RECOVERY to ACTIVE, and must give
+     A's answers bit for bit and the same remote-read bytes, through both
+     kernels (the `durability` line);
+  then the `kernels` line: launches (phase 4, and phases 5-8 as
+  `launches_phase5` to `launches_phase8`), max error, kernel and plain
   times (CUDA events over warmed launches; `device_ms` by CUDA-graph
   replay, without the host's cost of a call) and the least time the card
   could take, at the phase-3 shapes, and for the group-sum also at the
@@ -64,7 +79,8 @@ for the prefix-sum family on the packed path, an absolute bound derived
 per row from its prefix magnitude and the window's count
 (packed_prefix_bound), logged beside the error. Phase 7: every answer
 parsed from its Prometheus JSON and held as phases 4-5 hold theirs; the
-cached and uncached repeats equal to the first answer.
+cached and uncached repeats equal to the first answer. Phase 8: A's
+answers as phase 7's; B's equal to A's bit for bit; the remote read exact.
 
 The last line of standard output is {"ok": true, "device": {...}}; the
 script exits non-zero, printing no result, when there is no CUDA device.
@@ -2203,6 +2219,405 @@ def phase_server(rows: dict, smi: str) -> dict:
                        "card": smi}}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the write path and durability
+# ---------------------------------------------------------------------------
+
+WRITE_READ_SERIES = 64      # series read back through /api/v1/read
+# server A and B's config: the reference's defaults but for these keys,
+# each with its reason
+WRITE_CONFIG = {
+    "num-shards": 4, "port": 0, "gateway-port": 0,
+    # phase 7's two keys, for phase 7's reasons
+    "query-sample-limit": 0, "admission-wait-s": 120.0,
+    # fsync per append: a 200 from the ingest endpoint means the lines are
+    # on disk (the reference's default 5 ms group commit acknowledges
+    # before the fsync)
+    "stream-group-commit-ms": 0,
+    # no timed flush: server A keeps the tail in its write buffers, so at
+    # the crash it lives only in the stream logs, and B's replay puts it
+    # back into the same buffers. Both servers then hold the same split
+    # of chunks (the aligned tiles) and buffers (the packed path), which
+    # bit-for-bit equal answers need
+    "flush-interval-s": 3600.0,
+}
+
+
+def irregular_tail(rng: np.random.Generator, irr) -> list:
+    """ENGINE_TAIL samples more of each irregular series, after its last
+    flushed one, at the series' own jittered cadence."""
+    out = []
+    for lab, t, v in irr:
+        tt = np.unique(BASE + (N_FULL + np.arange(ENGINE_TAIL)) * DT
+                       + rng.integers(-6_000, 6_000, ENGINE_TAIL))
+        tt = tt[tt > t[-1]]
+        out.append((lab, tt, v[-1] + np.cumsum(rng.uniform(0, 3, tt.size))))
+    return out
+
+
+def influx_line(lab: dict, t: int, v: float) -> str:
+    """One Influx line of a counter sample: the labels as tags (the
+    gateway adds the default _ws_/_ns_ back), the value by repr so that it
+    round-trips exactly, the timestamp in ns."""
+    return (f"{lab['_metric_']},job={lab['job']},instance={lab['instance']}"
+            f" counter={float(v)!r} {int(t) * 1_000_000}")
+
+
+def dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def backfill(data_dir: str, rows: dict) -> dict:
+    """Phase 4's flushed history (the counters and the irregular series)
+    written into a fresh data-dir through the port's memstore with a
+    FlatFileColumnStore, routed to the 4 shards as the gateway routes, as
+    a previous run's flushes would leave it."""
+    from filodb_tpu_torch import state
+    from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS, DatasetRef
+    from filodb_tpu_torch.standalone.server import DEFAULTS
+    from filodb_tpu_torch.store import FlatFileColumnStore
+
+    t0 = time.perf_counter()
+    ref = DatasetRef(DEFAULTS["dataset"])
+    cs = FlatFileColumnStore(data_dir)
+    store = TimeSeriesMemStore(DEFAULT_SCHEMAS, column_store=cs)
+    for shard in range(WRITE_CONFIG["num-shards"]):
+        store.setup(ref, shard, num_groups=DEFAULTS["groups-per-shard"],
+                    max_chunk_rows=DEFAULTS["max-chunks-size"])
+    n = 0
+    for key in ("counters", "irregular"):
+        n += state.load_into_store(store, ref, rows[key], "prom-counter",
+                                   True, num_shards=4, spread=1)
+    cs.close()
+    return {"samples": n, "seconds": time.perf_counter() - t0,
+            "bytes": dir_bytes(data_dir)}
+
+
+def http_post(port: int, path: str, body: bytes, ctype: str):
+    """POST over a real socket -> (HTTP code, body bytes, wall ms)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=body, method="POST",
+                                 headers={"Content-Type": ctype})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=WAIT_S) as r:
+            code, out = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, out = e.code, e.read()
+    return code, out, 1e3 * (time.perf_counter() - t0)
+
+
+def wait_for(pred, what: str) -> float:
+    """Poll `pred` until true, at most WAIT_S -> seconds waited."""
+    t0 = time.perf_counter()
+    while not pred():
+        assert time.perf_counter() - t0 < WAIT_S, f"timed out: {what}"
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def drivers_caught_up(srv) -> bool:
+    return all(d.recovered_to >= 0
+               and d.next_offset >= d.stream.end_offset()
+               for d in srv.drivers.values())
+
+
+def write_queries():
+    """(PromQL, start s, end s) of phase 8: the grouped sum and average
+    of rate on the flushed history (the fused group-sum), the rate of one
+    job's counters into the HTTP-ingested tail, and the irregular rate
+    into the gateway-ingested tail (the boundary extract)."""
+    start, fe, te = engine_grid()
+    q = "by (job) (rate(http_requests_total[5m]))"
+    return [(f"sum {q}", start, fe), (f"avg {q}", start, fe),
+            ('rate(http_requests_total{job="job3"}[5m])', start, te),
+            ("rate(irregular_total[5m])", start, te)]
+
+
+def read_request(rows: dict):
+    """A remote-read request of WRITE_READ_SERIES series, history and
+    tail: 3/4 of them counters of job3, the rest irregular series of
+    job3 -> (snappy body, [(metric, instance)] wanted)."""
+    from filodb_tpu_torch.http import remote_read as rr
+
+    n_c = WRITE_READ_SERIES * 3 // 4
+    ctr = [lab["instance"] for lab, _, _ in rows["counters"]
+           if lab["job"] == "job3"][:n_c]
+    irr = [lab["instance"] for lab, _, _ in rows["irregular"]
+           if lab["job"] == "job3"][:WRITE_READ_SERIES - n_c]
+    end = BASE + (N_FULL + ENGINE_TAIL + 1) * DT
+    queries = [{"matchers": [("__name__", "eq", metric),
+                             ("job", "eq", "job3"),
+                             ("instance", "re", "|".join(inst))],
+                "start_ms": 0, "end_ms": end}
+               for metric, inst in (("http_requests_total", ctr),
+                                    ("irregular_total", irr))]
+    body = rr.snappy_compress(rr.encode_read_request(queries))
+    return body, ([("http_requests_total", i) for i in ctr]
+                  + [("irregular_total", k) for k in irr])
+
+
+def check_read(payload: bytes, want_keys, truth: dict) -> int:
+    """Every written sample of every wanted series, history and tail,
+    read back exactly -> samples checked."""
+    from filodb_tpu_torch.http import remote_read as rr
+
+    got = {}
+    for series in rr.decode_read_response(rr.snappy_decompress(payload)):
+        for lab, samples in series:
+            got[(lab["__name__"], lab["instance"])] = samples
+    assert sorted(got) == sorted(want_keys), \
+        f"read back {len(got)} series of {len(want_keys)}"
+    n = 0
+    for key in want_keys:
+        ts, vals = truth[key]
+        t = np.asarray([s[0] for s in got[key]], np.int64)
+        v = np.asarray([s[1] for s in got[key]], np.float64)
+        assert np.array_equal(t, ts) and np.array_equal(v, vals), \
+            f"{key}: {t.size} samples read back, {ts.size} written"
+        n += t.size
+    return n
+
+
+class PageInSplit(HostSplit):
+    """HostSplit plus the ODP page-ins (TimeSeriesShard._ensure_loaded),
+    which run inside series selection."""
+
+    def __init__(self):
+        super().__init__()
+        from filodb_tpu_torch.core.memstore import TimeSeriesShard
+
+        self.secs["page_in_s"] = 0.0
+        self.shard_cls = TimeSeriesShard
+        self.orig_load = TimeSeriesShard._ensure_loaded
+        TimeSeriesShard._ensure_loaded = self._wrap(self.orig_load,
+                                                    "page_in_s", False)
+
+    def restore(self) -> None:
+        super().restore()
+        self.shard_cls._ensure_loaded = self.orig_load
+
+    def split(self, total_s: float) -> dict:
+        s = super().split(total_s)
+        s["select_decode_less_page_in_s"] = (s["select_decode_s"]
+                                             - s["page_in_s"])
+        return s
+
+
+def query_write_server(srv, rows, oracle: bool) -> list:
+    """Phase 8's queries over HTTP with &cache=false, the first of them
+    split by stage -> [(query, grid, reading)]; with `oracle`, each
+    answer held against the numpy oracle as phase 7 holds its answers."""
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                parse_query_range)
+    from filodb_tpu_torch.query import kernels as kn
+    from filodb_tpu_torch.query.engine import QueryEngine
+
+    step = STEP // 1000
+    path = "/promql/timeseries/api/v1/query_range"
+    start = engine_grid()[0]
+    out = []
+    for i, (q, s, e) in enumerate(write_queries()):
+        before = dict(kn.LAUNCHES)
+        split = PageInSplit() if i == 0 else None
+        try:
+            payload, ms, nbytes = http_json(
+                srv.port, path, {"query": q, "start": s, "end": e,
+                                 "step": step, "cache": "false"})
+        finally:
+            if split is not None:
+                split.restore()
+        r = {"q": q, "end": e, "ms": ms, "bytes": nbytes,
+             "launches": {k: kn.LAUNCHES[k] - before[k] for k in before}}
+        if split is not None:
+            r["host_split"] = split.split(ms / 1e3)
+        out.append((q, grid_from_json(payload, s, e, step), r))
+    if oracle:
+        eng = QueryEngine(srv.store.shards(srv.ref))
+        T_max = max(len(np.arange(s, e + 1, step))
+                    for _, s, e in write_queries())
+        variants = _oracle_rates(rows["ts"], rows["vals"], start * 1000,
+                                 T_max, knife_ms=KNIFE_MS)
+        for (q, got, r), (_, s, e) in zip(out, write_queries()):
+            want = json_order(eng.execute(parse_query_range(
+                q, TimeStepParams(s, step, e))))
+            r["oracle"] = check_engine_answer(q, got, want, variants)
+    for q, got, r in out:
+        log(f"phase 8: {q} to {r['end']}: {json.dumps(r)}")
+    return out
+
+
+def start_write_server(data_dir: str, stream_dir: str):
+    """FiloServer on the card over the data-dir and stream-dir, its shard
+    statuses recorded -> (server, {shard: [statuses]}, seconds until every
+    shard is active)."""
+    from filodb_tpu_torch.standalone.server import FiloServer
+
+    t0 = time.perf_counter()
+    srv = FiloServer(dict(WRITE_CONFIG, **{"data-dir": data_dir,
+                                           "stream-dir": stream_dir}))
+    seen = {}
+    srv.mapper.subscribe(lambda ev: seen.setdefault(ev.shard, []).append(
+        ev.status.value))
+    srv.start()
+    wait_for(lambda: all(srv.mapper.status(s).value == "active"
+                         for s in range(WRITE_CONFIG["num-shards"])),
+             "shards active")
+    return srv, seen, time.perf_counter() - t0
+
+
+def phase_write_path(rows: dict, smi: str) -> dict:
+    """Phase 8: backfill the history into a data-dir; server A ingests
+    the tail through POST /api/v1/ingest/influx (the counters, one POST
+    per scrape) and the TCP gateway (the irregular series), answers
+    phase 8's queries (held against the numpy oracle) and a remote read;
+    it crashes (drivers stopped without a flush); server B recovers from
+    the same directories and must answer bit for bit as A did, through
+    both kernels. Kernel launch counts are set to 0 before A's first
+    query and read after B's last; every kernel call is held against its
+    plain version."""
+    import shutil
+    import tempfile
+
+    from filodb_tpu_torch.gateway.server import send_lines
+    from filodb_tpu_torch.query import kernels as kn
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="filodb-phase8-")
+    data_dir, stream_dir = (os.path.join(root, d) for d in ("data",
+                                                             "stream"))
+    irr_tail = irregular_tail(np.random.default_rng(8), rows["irregular"])
+    truth = {}
+    for hist, tail in (("counters", "counter_tails"),
+                       ("irregular", None)):
+        tails = rows[tail] if tail else irr_tail
+        for (lab, t, v), (_, tt, tv) in zip(rows[hist], tails):
+            truth[(lab["_metric_"], lab["instance"])] = (
+                np.concatenate([t, tt]).astype(np.int64),
+                np.concatenate([v, tv]).astype(np.float64))
+    try:
+        bf = backfill(data_dir, rows)
+        log(f"phase 8: backfill {bf['samples']} samples in "
+            f"{bf['seconds']:.1f} s, {bf['bytes']} bytes on disk")
+        srv, _, start_a = start_write_server(data_dir, stream_dir)
+        log(f"phase 8: server A on :{srv.port}, gateway :{srv.gateway.port}"
+            f", active in {start_a:.1f} s")
+        # the counters' tail: one POST of S lines per scrape
+        path = "/api/v1/ingest/influx"
+        n_http, t0 = 0, time.perf_counter()
+        tails = rows["counter_tails"]
+        for k in range(ENGINE_TAIL):
+            body = "\n".join(influx_line(lab, t[k], v[k])
+                             for lab, t, v in tails).encode()
+            code, out, _ = http_post(srv.port, path, body, "text/plain")
+            assert code == 200, (k, code, out[:300])
+            acc = json.loads(out)["data"]
+            assert acc == {"accepted": len(tails), "rejected": 0}, acc
+            n_http += len(tails)
+        http_s = time.perf_counter() - t0
+        # the irregular tail through the TCP gateway
+        lines = [influx_line(lab, t, v) for lab, tt, vv in irr_tail
+                 for t, v in zip(tt, vv)]
+        t0 = time.perf_counter()
+        send_lines("127.0.0.1", srv.gateway.port, lines, timeout=WAIT_S)
+        wait_for(lambda: srv.gateway.lines_ingested >= n_http + len(lines),
+                 "gateway lines")
+        gw_s = time.perf_counter() - t0
+        assert srv.gateway.lines_rejected == 0
+        catch_up_s = wait_for(lambda: drivers_caught_up(srv),
+                              "drivers caught up")
+        records = {s: d.stream.end_offset() for s, d in srv.drivers.items()}
+        log(f"phase 8: {n_http} lines over HTTP in {http_s:.1f} s, "
+            f"{len(lines)} over the gateway in {gw_s:.1f} s, drivers "
+            f"caught up {catch_up_s:.2f} s later; stream records {records}")
+        m_a = scrape(srv.port)
+        body, want_keys = read_request(rows)
+        calls, originals = record_kernel_calls()
+        kn.reset_launches()
+        try:
+            ans_a = query_write_server(srv, rows, oracle=True)
+            code, read_a, read_ms_a = http_post(
+                srv.port, "/promql/timeseries/api/v1/read", body,
+                "application/x-protobuf")
+            assert code == 200, read_a[:300]
+            n_read = check_read(read_a, want_keys, truth)
+            launches_a = dict(kn.LAUNCHES)
+            # the crash: the drivers stop without a flush, then the edges
+            srv.stop(flush=False)
+            del srv
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            srv, seen, recovery_s = start_write_server(data_dir,
+                                                       stream_dir)
+            try:
+                for s in range(WRITE_CONFIG["num-shards"]):
+                    st = seen.get(s, [])
+                    assert "recovery" in st and st[-1] == "active", (s, st)
+                replayed = {s: d.recovered_to for s, d in
+                            srv.drivers.items()}
+                assert replayed == records, (replayed, records)
+                ans_b = query_write_server(srv, rows, oracle=False)
+                code, read_b, read_ms_b = http_post(
+                    srv.port, "/promql/timeseries/api/v1/read", body,
+                    "application/x-protobuf")
+                assert code == 200 and read_b == read_a, \
+                    "server B's remote read differs from A's"
+                paged_in_b = sum(s.stats.partitions_paged_in
+                                 for s in srv.store.shards(srv.ref))
+            finally:
+                srv.stop()
+        finally:
+            restore_kernels(originals)
+        launches = dict(kn.LAUNCHES)
+        launches_b = {k: launches[k] - launches_a[k] for k in launches}
+        for (q, got_a, _), (_, got_b, _) in zip(ans_a, ans_b):
+            assert same_answer(got_a, got_b), \
+                f"{q}: server B's answer differs from A's"
+        for name, n in launches_b.items():
+            assert n > 0, f"{name} was not launched on server B"
+        errs = check_kernel_calls(calls, originals, "phase 8")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fsync_n = sum(v for k, v in m_a.items()
+                  if k.startswith("filodb_ingest_fsync_seconds_count"))
+    fsync_s = sum(v for k, v in m_a.items()
+                  if k.startswith("filodb_ingest_fsync_seconds_sum"))
+    first_a, first_b = ans_a[0][2], ans_b[0][2]
+    secs = time.perf_counter() - t_phase
+    durability = {
+        "seconds": secs,
+        "backfill_s": bf["seconds"], "backfill_samples": bf["samples"],
+        "bytes_on_disk": bf["bytes"],
+        "http_lines": n_http, "http_s": http_s,
+        "http_lines_per_s": n_http / http_s,
+        "gateway_lines": len(lines), "gateway_s": gw_s,
+        "gateway_lines_per_s": len(lines) / gw_s,
+        "stream_records": sum(records.values()),
+        "fsync_count": fsync_n, "fsync_s": fsync_s,
+        "recovery_s": recovery_s,
+        "records_replayed": sum(replayed.values()),
+        "page_in_s": first_b["host_split"]["page_in_s"],
+        "paged_in_b": paged_in_b,
+        "first_grouped_ms_a": first_a["ms"],
+        "first_grouped_ms_b": first_b["ms"],
+        "first_grouped_split_b": first_b["host_split"],
+        "queries_a": [r for _, _, r in ans_a],
+        "queries_b": [r for _, _, r in ans_b],
+        "read": {"series": len(want_keys), "samples": n_read,
+                 "ms_a": read_ms_a, "ms_b": read_ms_b},
+        "launches_a": launches_a, "launches_b": launches_b,
+        "card": smi,
+    }
+    log(f"phase 8: {secs:.1f} s; kernel launches {launches}")
+    return {"launches": launches, "errs": errs, "durability": durability}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=42)
@@ -2248,6 +2663,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     server = phase_server(data, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    write = phase_write_path(data, smi)
     kernels = []
     for kname in ("counter_groupsum", "window_extract"):
         r = dict(rows[kname])
@@ -2255,15 +2673,18 @@ def main() -> int:
         r["launches_phase5"] = fns["launches"][kname]
         r["launches_phase6"] = srv["launches"][kname]
         r["launches_phase7"] = server["launches"][kname]
+        r["launches_phase8"] = write["launches"][kname]
         r["max_abs_err"] = max(r["max_abs_err"], eng["errs"][kname],
                                fns["errs"].get(kname, 0.0),
                                srv["errs"].get(kname, 0.0),
-                               server["errs"].get(kname, 0.0))
+                               server["errs"].get(kname, 0.0),
+                               write["errs"].get(kname, 0.0))
         kernels.append(r)
     print(smi, flush=True)
     print(json.dumps({"functions": fns["functions"],
                       "queries": fns["queries"],
                       "phase5_peak_gib": fns["peak_gib"]}), flush=True)
+    print(json.dumps({"durability": write["durability"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serving": dict(srv["serving"], card=smi)}),
           flush=True)

@@ -517,12 +517,9 @@ class TimeSeriesShard:
                  column_store: Optional[object] = None,
                  card_tracker: Optional[object] = None,
                  flush_downsampler: Optional[object] = None):
-        # persistence (column store + ODP) and flush-time downsampling are
-        # not ported: a memory-only shard
-        for name, arg in (("column_store", column_store),
-                          ("flush_downsampler", flush_downsampler)):
-            if arg is not None:
-                raise NotImplementedError(f"{name} is not ported")
+        # flush-time downsampling is not ported (ROADMAP A.10)
+        if flush_downsampler is not None:
+            raise NotImplementedError("flush_downsampler is not ported")
         self.ref = ref
         self.schemas = schemas
         self.shard_num = shard_num
@@ -589,6 +586,17 @@ class TimeSeriesShard:
         self.integrity_quarantined_records = total
         if total > max_allowed and not self.integrity_read_only:
             self.integrity_read_only = True
+            from filodb_tpu_torch.obs import events as obs_events
+            from filodb_tpu_torch.obs import metrics as obs_metrics
+            obs_metrics.GLOBAL_REGISTRY.gauge(
+                "filodb_shard_integrity_read_only",
+                "1 while the shard is degraded to read-only because "
+                "quarantined-record loss exceeded the integrity knob"
+            ).set(1.0, dataset=self.ref.dataset,
+                  shard=str(self.shard_num))
+            obs_events.emit("integrity-read-only",
+                            dataset=self.ref.dataset, shard=self.shard_num,
+                            quarantined=total, max_allowed=max_allowed)
         return self.integrity_read_only
 
     # -- ingest path ------------------------------------------------------
@@ -714,6 +722,7 @@ class TimeSeriesShard:
         doFlushSteps: encode → ColumnStore.write → index/partkey write →
         writeCheckpoint).  Returns chunks written."""
         n = 0
+        touched: List[TimeSeriesPartition] = []
         for pid, part in self.partitions.items():
             if pid % self.num_groups != group:
                 continue
@@ -722,6 +731,26 @@ class TimeSeriesShard:
                 n += 1
                 self.stats.chunks_encoded += 1
                 self.stats.encoded_bytes += sum(len(v) for v in info.vectors)
+            if self.column_store is not None \
+                    and part.num_chunks > part.persisted_chunks:
+                touched.append(part)
+        if touched:
+            from filodb_tpu_torch.store import PartKeyEntry
+            entries = []
+            for part in touched:
+                new = part.chunks[part.persisted_chunks:]
+                self.column_store.write_chunks(
+                    self.ref.dataset, self.shard_num,
+                    part.part_key.to_bytes(), new)
+                part.persisted_chunks = part.num_chunks
+                self.stats.chunks_persisted += len(new)
+                entries.append(PartKeyEntry(
+                    part.part_key.to_bytes(),
+                    self.index.start_time(part.part_id)
+                    or part.earliest_timestamp or 0,
+                    part.last_timestamp or 0))
+            self.column_store.write_part_keys(self.ref.dataset,
+                                              self.shard_num, entries)
         self.stats.flushes_done += 1
         if self.flush_downsampler is not None:
             # persist pending ds records (also covers chunks encoded by
@@ -933,18 +962,60 @@ class TimeSeriesShard:
                 # have nothing to release
                 and (p.chunks or not p.odp_pending))
         ]
-        # memory-only shard (no column store): evicted series are dropped
-        for pid in evict:
-            part = self.partitions.pop(pid)
-            self._resident -= sum(c.num_rows for c in part.chunks) \
-                + part._buf_rows
-            self._by_part_key.pop(part.part_key.to_bytes(), None)
-            if self.card_tracker is not None:
-                self.card_tracker.modify_count(
-                    self.card_tracker.prefix_of(part.part_key.label_map),
-                    -1, -1 if part.card_active else 0)
-        self.index.remove_part_keys(evict)
-        self.stats.num_series = len(self.partitions)
+        if self.column_store is not None:
+            from filodb_tpu_torch.store import PartKeyEntry
+            entries = []
+            # hold the ODP lock for the persist+clear: a concurrent
+            # _ensure_loaded page-in snapshotting chunks mid-eviction
+            # could otherwise clear odp_pending with the just-evicted
+            # chunks missing — silent permanent data loss until restart
+            with self._odp_lock:
+                for pid in evict:
+                    part = self.partitions[pid]
+                    new = part.chunks[part.persisted_chunks:]
+                    if new:
+                        self.column_store.write_chunks(
+                            self.ref.dataset, self.shard_num,
+                            part.part_key.to_bytes(), new)
+                        self.stats.chunks_persisted += len(new)
+                    entries.append(PartKeyEntry(
+                        part.part_key.to_bytes(),
+                        self.index.start_time(pid)
+                        or part.earliest_timestamp or 0,
+                        part.last_timestamp or 0))
+                    self._resident -= sum(c.num_rows for c in part.chunks)
+                    with part._cache_lock:
+                        # flag BEFORE clearing: a concurrent lookup must
+                        # either see the data or see the page-in flag,
+                        # never an empty unflagged partition
+                        part.odp_pending = True
+                        part.chunks = []
+                        part.persisted_chunks = 0
+                        part._decode_cache.clear()
+                        part._merge_cache.clear()
+            if entries:
+                self.column_store.write_part_keys(
+                    self.ref.dataset, self.shard_num, entries)
+            for pid in evict:       # ODP shells: still counted, inactive
+                part = self.partitions[pid]
+                if part.card_active:
+                    part.card_active = False
+                    if self.card_tracker is not None:
+                        self.card_tracker.modify_count(
+                            self.card_tracker.prefix_of(
+                                part.part_key.label_map), 0, -1)
+        else:
+            for pid in evict:
+                part = self.partitions.pop(pid)
+                self._resident -= sum(c.num_rows for c in part.chunks) \
+                    + part._buf_rows
+                self._by_part_key.pop(part.part_key.to_bytes(), None)
+                if self.card_tracker is not None:
+                    self.card_tracker.modify_count(
+                        self.card_tracker.prefix_of(part.part_key.label_map),
+                        -1, -1 if part.card_active else 0)
+            self.index.remove_part_keys(evict)
+            self.stats.num_series = len(self.partitions)
         self.stats.partitions_evicted += len(evict)
         if evict:
             # ODP shells swap a live last for an equal persisted end

@@ -14,6 +14,7 @@ ShardMapper.scala:122 ingestionShard), pinned by tests.
 
 from __future__ import annotations
 
+import functools
 import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -24,6 +25,13 @@ from filodb_tpu_torch.core.schemas import DataSchema, PartitionSchema, Schemas
 from filodb_tpu_torch.utils.xxhash import to_signed32, xxhash32
 
 _M32 = 0xFFFFFFFF
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def _str_hash(s: str) -> int:
+    """xxhash32 of a label key or value: the ingest edge hashes the same
+    few strings (metric, shard key, tag names, series) on every line."""
+    return xxhash32(s.encode())
 
 
 def combine_hash(h1: int, h2: int) -> int:
@@ -37,9 +45,9 @@ def shard_key_hash(shard_key_values: Sequence[str], metric: str,
     (RecordBuilder.scala:667-683)."""
     h = 7
     for v in shard_key_values:
-        h = combine_hash(h, xxhash32(v.encode()))
+        h = combine_hash(h, _str_hash(v))
     if include_metric:
-        h = combine_hash(h, xxhash32(metric.encode()))
+        h = combine_hash(h, _str_hash(metric))
     return h
 
 
@@ -48,7 +56,7 @@ def sort_and_compute_hashes(pairs: Sequence[Tuple[str, str]]) -> Tuple[
     """Sort label pairs by key and hash each (RecordBuilder.scala:618)."""
     spairs = sorted(pairs, key=lambda kv: kv[0])
     hashes = [
-        combine_hash(xxhash32(k.encode()), xxhash32(v.encode()))
+        combine_hash(_str_hash(k), _str_hash(v))
         for k, v in spairs
     ]
     return spairs, hashes

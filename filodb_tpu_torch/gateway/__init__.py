@@ -1,2 +1,2 @@
-"""Test-data producers (the counterpart of ``filodb_tpu.gateway``; the
-Influx gateway server is not ported yet)."""
+"""Ingest edge: the Influx line parser, the TCP gateway and test-data
+producers (the counterpart of ``filodb_tpu.gateway``)."""

@@ -1,0 +1,214 @@
+"""Influx line protocol -> ingest records.
+
+(Reference: gateway/src/main/scala/filodb/gateway/conversion/
+InfluxProtocolParser.scala:69 + InputRecord.scala — the gateway's TCP
+ingest format. Syntax: `measurement[,tag=value...] field=value[,f2=v2...]
+[timestamp-ns]` with escaping of commas/spaces/equals in identifiers.)
+
+Schema mapping mirrors InputRecord.scala:
+  * single field `gauge`/`value`   -> gauge schema
+  * field `counter`                -> prom-counter
+  * fields `sum`,`count`,`+Inf`... -> prom-histogram (le-bucket fields)
+  * otherwise each numeric field becomes its own gauge series with
+    `_field_` label (the reference appends the field name to the metric)
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from filodb_tpu_torch.core.record import RecordBuilder
+from filodb_tpu_torch.core.schemas import Schemas
+from filodb_tpu_torch.memory.histogram import CustomBuckets
+
+
+class InfluxParseError(ValueError):
+    pass
+
+
+@dataclass
+class InfluxRecord:
+    measurement: str
+    tags: Dict[str, str]
+    fields: Dict[str, float]
+    timestamp_ms: int
+
+
+def _split_escaped(s: str, sep: str) -> List[str]:
+    """Split on sep, honoring backslash escapes."""
+    if "\\" not in s:
+        return s.split(sep)
+    out: List[str] = []
+    cur: List[str] = []
+    i = 0
+    while i < len(s):
+        c = s[i]
+        if c == "\\" and i + 1 < len(s):
+            cur.append(s[i + 1])
+            i += 2
+            continue
+        if c == sep:
+            out.append("".join(cur))
+            cur = []
+        else:
+            cur.append(c)
+        i += 1
+    out.append("".join(cur))
+    return out
+
+
+def _split_top(s: str) -> Tuple[str, str, Optional[str]]:
+    """Split a line into (identity, fieldset, timestamp) on unescaped
+    spaces (InfluxProtocolParser.parse top-level scan)."""
+    if "\\" in s:
+        parts = _split_top_escaped(s)
+    else:
+        parts = [p for p in s.split(" ") if p]
+    if len(parts) == 2:
+        return parts[0], parts[1], None
+    if len(parts) == 3:
+        return parts[0], parts[1], parts[2]
+    raise InfluxParseError(f"bad influx line: {s!r}")
+
+
+def _split_top_escaped(s: str) -> List[str]:
+    """The non-empty parts of ``s`` between unescaped spaces, escapes
+    kept."""
+    parts: List[str] = []
+    cur: List[str] = []
+    i = 0
+    while i < len(s):
+        c = s[i]
+        if c == "\\" and i + 1 < len(s):
+            cur.append(c)
+            cur.append(s[i + 1])
+            i += 2
+            continue
+        if c == " ":
+            parts.append("".join(cur))
+            cur = []
+        else:
+            cur.append(c)
+        i += 1
+    parts.append("".join(cur))
+    return [p for p in parts if p]
+
+
+def parse_line(line: str, now_ms: Optional[int] = None) -> InfluxRecord:
+    ident, fieldset, ts_raw = _split_top(line.strip())
+    id_parts = _split_escaped(ident, ",")
+    measurement = id_parts[0]
+    tags: Dict[str, str] = {}
+    for kv in id_parts[1:]:
+        k, _, v = kv.partition("=")
+        if not k or not v:
+            raise InfluxParseError(f"bad tag {kv!r} in {line!r}")
+        tags[k] = v
+    fields: Dict[str, float] = {}
+    for kv in _split_escaped(fieldset, ","):
+        k, _, v = kv.partition("=")
+        if not k or not v:
+            raise InfluxParseError(f"bad field {kv!r} in {line!r}")
+        v = v.strip()
+        if v.endswith("i"):
+            v = v[:-1]
+        if v.startswith('"'):
+            continue                      # string fields are not ingestable
+        try:
+            fields[k] = float(v)
+        except ValueError as e:
+            raise InfluxParseError(f"bad field value {kv!r}") from e
+    if not fields:
+        raise InfluxParseError(f"no numeric fields in {line!r}")
+    if ts_raw is not None:
+        timestamp_ms = int(ts_raw) // 1_000_000      # ns -> ms
+    else:
+        import time
+        timestamp_ms = now_ms if now_ms is not None else int(
+            time.time() * 1000)
+    return InfluxRecord(measurement, tags, fields, timestamp_ms)
+
+
+# -- InputRecord mapping (conversion/InputRecord.scala) ---------------------
+
+def input_records(rec: InfluxRecord, ws: str = "demo", ns: str = "App-0"
+                  ) -> List[Tuple[str, Dict[str, str], int, Tuple]]:
+    """Map one parsed influx record to ingest samples:
+    (schema_name, labels, timestamp_ms, values) tuples — the InputRecord
+    schema-mapping logic (conversion/InputRecord.scala), separated from
+    builder insertion so callers can shard-route each sample first."""
+    tags = dict(rec.tags)
+    ws = tags.pop("_ws_", ws)
+    ns = tags.pop("_ns_", ns)
+    base = {"_ws_": ws, "_ns_": ns, **tags}
+    fields = rec.fields
+    out: List[Tuple[str, Dict[str, str], int, Tuple]] = []
+    le_fields = {k: v for k, v in fields.items()
+                 if k not in ("sum", "count", "min", "max")
+                 and _is_le(k)}
+    if "sum" in fields and "count" in fields and le_fields:
+        les = sorted(le_fields, key=lambda k: float(
+            "inf") if k in ("+Inf", "inf") else float(k))
+        scheme = CustomBuckets(tuple(
+            float("inf") if k in ("+Inf", "inf") else float(k)
+            for k in les))
+        counts = np.array([le_fields[k] for k in les], dtype=np.float64)
+        out.append(("prom-histogram",
+                    {**base, "_metric_": rec.measurement}, rec.timestamp_ms,
+                    (fields["sum"], fields["count"], (scheme, counts))))
+        return out
+    if "counter" in fields:
+        out.append(("prom-counter", {**base, "_metric_": rec.measurement},
+                    rec.timestamp_ms, (fields["counter"],)))
+        return out
+    single = None
+    for name in ("gauge", "value"):
+        if name in fields:
+            single = fields[name]
+            break
+    if single is not None:
+        out.append(("gauge", {**base, "_metric_": rec.measurement},
+                    rec.timestamp_ms, (single,)))
+        return out
+    for fname, fval in fields.items():
+        metric = f"{rec.measurement}_{fname}"
+        out.append(("gauge", {**base, "_metric_": metric},
+                    rec.timestamp_ms, (fval,)))
+    return out
+
+
+def record_to_builder(rec: InfluxRecord, builder: RecordBuilder,
+                      ws: str = "demo", ns: str = "App-0") -> List[str]:
+    """Convert one parsed record into builder samples; returns the schema
+    names used. Shard-key labels default like the dev gateway conf."""
+    used: List[str] = []
+    for schema_name, labels, ts, values in input_records(rec, ws, ns):
+        builder.add_sample(schema_name, labels, ts, *values)
+        used.append(schema_name)
+    return used
+
+
+def _is_le(k: str) -> bool:
+    if k in ("+Inf", "inf"):
+        return True
+    try:
+        float(k)
+        return True
+    except ValueError:
+        return False
+
+
+def parse_lines(text: str, builder: RecordBuilder,
+                now_ms: Optional[int] = None) -> int:
+    """Parse a batch of lines into a builder; returns records ingested."""
+    n = 0
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        record_to_builder(parse_line(line, now_ms), builder)
+        n += 1
+    return n

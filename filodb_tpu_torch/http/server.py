@@ -9,6 +9,8 @@ HealthRoute.scala, ClusterApiRoute.scala):
   GET      /promql/{dataset}/api/v1/labels
   GET      /promql/{dataset}/api/v1/label/{name}/values
   GET      /promql/{dataset}/api/v1/series?match[]=<selector>&start&end
+  POST     /promql/{dataset}/api/v1/read   (Prometheus remote read)
+  POST     /api/v1/ingest/influx            (with a gateway)
   GET      /__health | /__liveness | /__readiness
   GET      /api/v1/cluster/{dataset}/status
   GET      /api/v1/cardinality/{dataset}?prefix&depth
@@ -25,11 +27,11 @@ The reference checks its per-query deadline (``&timeout=``,
 mesh paths, none of which is ported: this edge takes neither yet.
 
 A route whose feature is off by config answers as the reference does with
-that feature off (rules, alerts, influx ingest, profile, admin). A route
-the reference serves whatever its config, but whose module the port does
-not have yet, answers 501 with the ROADMAP item that ports it: remote read
-(``/api/v1/read``), ``&explain=analyze``, the peer leaf-dispatch plane
-(``/api/v1/raw``) and the thread inventory (``/debug/threads``).
+that feature off (rules, alerts, influx ingest without a gateway, profile,
+admin). A route the reference serves whatever its config, but whose module
+the port does not have yet, answers 501 with the ROADMAP item that ports
+it: ``&explain=analyze``, the peer leaf-dispatch plane (``/api/v1/raw``)
+and the thread inventory (``/debug/threads``).
 
 stdlib http.server (the JVM reference uses Akka-HTTP; the edge is not the
 hot path — all bulk compute is device-side behind QueryEngine)."""
@@ -77,7 +79,6 @@ _QLAT_HELP = ("End-to-end query latency in seconds at the HTTP edge "
 # routes the reference serves whatever its config, whose modules the port
 # does not have yet -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "read": "A.1.1 ingest edge (http/remote_read.py)",
     "explain=analyze": "A.9 device observability (obs/devprof.py)",
     "raw": "A.1.4 multi-node and membership (leaf dispatch)",
     "threads": "A.12 certification rail (thread inventory)",
@@ -142,6 +143,12 @@ class FiloHttpServer:
         self.query_limits = query_limits
         self.spread_provider = spread_provider
         self.node_id = node_id
+        # the GatewayServer behind /api/v1/ingest/influx (the remote
+        # ingest edge with an ack channel); None = no gateway here
+        self.gateway = None
+        # core/metering.TenantMetering: the /metrics tenant families and
+        # the QoS cost of the planner; None = metering off
+        self.tenant_metering = None
         # observability: the tracer owns the sampling decision + the
         # bounded ring behind /debug/traces; the slow-query log and
         # in-flight registry serve /debug/slow_queries and
@@ -280,6 +287,7 @@ class FiloHttpServer:
     # -- request handling -------------------------------------------------
     def _handle(self, req: BaseHTTPRequestHandler) -> None:
         retry_after_s: Optional[float] = None
+        body_raw = b""
         try:
             parsed = urllib.parse.urlparse(req.path)
             qs = urllib.parse.parse_qs(parsed.query)
@@ -296,7 +304,7 @@ class FiloHttpServer:
                             body_raw.decode()).items():
                         qs.setdefault(k, []).extend(v)
             code, payload = self._route(
-                parsed.path, qs,
+                parsed.path, qs, body_raw,
                 tenant_hdr=req.headers.get(qos.TENANT_HEADER),
                 priority_hdr=req.headers.get(qos.PRIORITY_HEADER))
         except _Handled:
@@ -307,6 +315,11 @@ class FiloHttpServer:
             # a rejected query was never executed, so the client can
             # back off and resubmit as-is.
             code, payload = 429, prom_json.error(str(e), "throttled")
+            retry_after_s = e.retry_after_s
+        except ingest_health.IngestReadOnly as e:
+            # the ingest edge while write-path out-of-space degradation
+            # is active: recoverable — resubmit after space is freed
+            code, payload = 503, prom_json.error(str(e), "read_only")
             retry_after_s = e.retry_after_s
         except QueryLimitError as e:
             code, payload = 422, prom_json.error(str(e), "query_limit")
@@ -321,6 +334,10 @@ class FiloHttpServer:
         if isinstance(payload, prom_json.PreEncoded):
             body = payload.body
             ctype = payload.ctype
+        elif isinstance(payload, bytes):  # remote-read protobuf
+            body = payload
+            ctype = "application/x-protobuf"
+            extra_headers["Content-Encoding"] = "snappy"
         elif isinstance(payload, str):  # /metrics exposition text
             body = payload.encode()
             ctype = "text/plain; version=0.0.4"
@@ -335,7 +352,7 @@ class FiloHttpServer:
         req.end_headers()
         req.wfile.write(body)
 
-    def _route(self, path: str, qs: Dict,
+    def _route(self, path: str, qs: Dict, body_raw: bytes = b"",
                tenant_hdr: Optional[str] = None,
                priority_hdr: Optional[str] = None):
         if path in ("/__health", "/__liveness", "/__readiness"):
@@ -406,9 +423,7 @@ class FiloHttpServer:
                          "data": obs_events.snapshot(limit=limit,
                                                      kind=kind)}
         if path == "/api/v1/ingest/influx":
-            return 404, prom_json.error(
-                "no gateway on this worker (the gateway rides exactly "
-                "one worker per host)", "not_found")
+            return self._ingest_influx(body_raw)
         if path == "/debug/slow_queries":
             limit = int(self._param(qs, "limit", "50") or 50)
             return 200, {"status": "success",
@@ -474,7 +489,7 @@ class FiloHttpServer:
                     raise
                 return out
         if rest == "read":
-            return _not_ported("read")
+            return self._remote_read(ds, body_raw)
         engine = self.make_planner(ds)
         if engine is None:
             return 400, prom_json.error(f"dataset {ds} not set up")
@@ -797,12 +812,15 @@ class FiloHttpServer:
         if shards is None:
             return None
         internal = ds in INTERNAL_DATASETS
-        return QueryPlanner(
+        planner = QueryPlanner(
             shards, backend=self.backend,
             shard_mapper=None if internal else self.shard_mapper,
             spread=self.spread,
             spread_provider=None if internal else self.spread_provider,
             limits=self.query_limits)
+        # QoS cost estimation reads the metering snapshot
+        planner.metering = self.tenant_metering
+        return planner
 
     def invalidate_plan_cache(self, reason: str = "schema") -> None:
         """Explicit plan-cache invalidation hook. Topology changes flow
@@ -816,6 +834,39 @@ class FiloHttpServer:
     def _param(qs, name, default=None):
         v = qs.get(name)
         return v[0] if v else default
+
+    def _ingest_influx(self, body_raw: bytes):
+        """Remote ingest edge: newline-delimited influx lines in the
+        POST body, routed through the gateway's builders into the
+        per-shard streams. Unlike the fire-and-forget TCP gateway this
+        endpoint has an ack channel: 200 means every line's container
+        was appended (fsync'd when group commit is off); while ingest
+        is degraded to read-only it answers 503 + Retry-After."""
+        gw = self.gateway
+        if gw is None:
+            return 404, prom_json.error(
+                "no gateway on this worker (the gateway rides exactly "
+                "one worker per host)", "not_found")
+        health = ingest_health.GLOBAL
+        if health.read_only() and not health.probe_due():
+            # fast 503 without touching the disk; the rate-limited
+            # probe slot is claimed inside _publish when due
+            raise health.reject()
+        from filodb_tpu_torch.core.record import RecordBuilder
+        builders: Dict[int, RecordBuilder] = {}
+        accepted = rejected = 0
+        for raw in body_raw.splitlines():
+            line = raw.decode("utf-8", errors="replace").strip()
+            if not line or line.startswith("#"):
+                continue
+            if gw._route_line(line, builders):
+                accepted += 1
+            else:
+                rejected += 1
+        gw._publish(builders, raise_on_error=True)
+        return 200, {"status": "success",
+                     "data": {"accepted": accepted,
+                              "rejected": rejected}}
 
     def _promql_lint(self, engine, qs, query: str):
         """promlint on a user query: findings ride the response
@@ -1214,6 +1265,53 @@ class FiloHttpServer:
             lp.TsCardinalities(prefix, depth))
         return 200, prom_json.success([r.to_json() for r in recs])
 
+    # -- Prometheus remote-read -------------------------------------------
+    def _remote_read(self, ds: str, body_raw: bytes):
+        """POST /promql/{ds}/api/v1/read: snappy(ReadRequest protobuf) ->
+        snappy(ReadResponse) (remote-storage.proto;
+        PrometheusApiRoute.scala:129). The reference resolves shards
+        through its cluster planner; this node's planner covers its own
+        shards, which on one node are all of them."""
+        from filodb_tpu_torch.core.index import ColumnFilter
+        from filodb_tpu_torch.http import remote_read as rr
+        from filodb_tpu_torch.query.engine import select_raw_series
+        from filodb_tpu_torch.query.model import QueryStats
+        planner = self.make_planner(ds)
+        if planner is None:
+            return 400, prom_json.error(f"dataset {ds} not set up")
+        if not body_raw:
+            return 400, prom_json.error("missing remote-read body")
+        try:
+            queries = rr.decode_read_request(
+                rr.snappy_decompress(body_raw))
+        except (ValueError, IndexError) as e:
+            raise QueryError(f"bad remote-read request: {e}")
+        results = []
+        for q in queries:
+            # Prometheus clients send __name__; the index stores the
+            # metric under the schema's metric column (_metric_), the
+            # same mapping the PromQL parser applies
+            filters = [ColumnFilter(
+                "_metric_" if n == "__name__" else n, op, v)
+                for n, op, v in q["matchers"]]
+            plan = lp.RawSeriesPlan(tuple(filters), q["start_ms"],
+                                    q["end_ms"])
+            series = select_raw_series(
+                planner._resolve_shards(plan), filters,
+                q["start_ms"], q["end_ms"], None,
+                QueryStats(), limits=self.query_limits)
+            out = []
+            for s in series:
+                if s.values.ndim != 1:
+                    continue    # histograms have no remote-read shape
+                samples = [(int(t), float(v))
+                           for t, v in zip(s.ts, s.values)]
+                # external label form: _metric_ -> __name__ (same
+                # mapping as the JSON path)
+                out.append((prom_json._metric(dict(s.labels)), samples))
+            results.append(out)
+        return 200, rr.snappy_compress(rr.encode_read_response(results))
+
     # HELP text per family (fallback: a generic string). Kept verbose —
     # operators read this off the exposition, not the source.
     _METRIC_HELP = {
@@ -1278,6 +1376,9 @@ class FiloHttpServer:
             "Brownout stale-cache rung: extents served past the "
             "freshness horizon to an over-budget tenant / saturated "
             "host",
+        "filodb_decode_cache_bytes":
+            "Per-shard decode/merge cache bytes (bounded by "
+            "decode-cache-mb)",
         "filodb_ingest_watermark_ms":
             "Per-shard settled-time bound (ms): min over per-"
             "partition last timestamps; the results cache's "
@@ -1315,6 +1416,15 @@ class FiloHttpServer:
         "filodb_tenant_rejected_total":
             "Tenant queries answered 429 (over budget, no degraded "
             "answer existed)",
+        "filodb_tenant_time_series_total": "Per-tenant series count",
+        "filodb_tenant_time_series_active":
+            "Per-tenant actively-ingesting series count",
+        "filodb_tenant_metering_interval_seconds":
+            "Configured tenant-metering snapshot interval",
+        "filodb_tenant_metering_last_snapshot_age_seconds":
+            "Seconds since the last tenant-metering snapshot",
+        "filodb_tenant_metering_snapshots_total":
+            "Tenant-metering snapshots taken",
         "filodb_traces_started_total": "Traces started on this node",
         "filodb_traces_stored": "Finished traces in /debug/traces",
         "filodb_slow_queries_total": "Queries over the slow-query "
@@ -1359,6 +1469,9 @@ class FiloHttpServer:
                           "shard": str(getattr(shard, "shard_num", ""))}
                 for f in _dc.fields(st):
                     emit(f.name, labels, getattr(st, f.name))
+                if hasattr(shard, "decode_cache_bytes"):
+                    emit("decode_cache_bytes", labels,
+                         shard.decode_cache_bytes())
                 wm = getattr(shard, "ingest_watermark_ms", None)
                 if wm is not None:
                     emit("ingest_watermark_ms", labels, wm)
@@ -1456,6 +1569,24 @@ class FiloHttpServer:
                 emit("tenant_degraded_total", {**lbl, "rung": rung}, n)
             if t.get("rejected"):
                 emit("tenant_rejected_total", lbl, t["rejected"])
+        meter = self.tenant_metering
+        if meter is not None:
+            # periodic per-tenant cardinality gauges
+            # (TenantIngestionMetering.scala publishes these on a timer)
+            for prefix, (total, active) in sorted(meter.latest.items()):
+                labels = {"_ws_": prefix[0] if len(prefix) > 0 else "",
+                          "_ns_": prefix[1] if len(prefix) > 1 else ""}
+                emit("tenant_time_series_total", labels, total)
+                emit("tenant_time_series_active", labels, active)
+            # metering-loop liveness: a stalled/dead snapshot thread
+            # shows as a growing last-snapshot age
+            emit("tenant_metering_interval_seconds", {},
+                 meter.interval_s)
+            age = meter.last_snapshot_age_s
+            if age is not None:
+                emit("tenant_metering_last_snapshot_age_seconds", {},
+                     round(age, 3))
+            emit("tenant_metering_snapshots_total", {}, meter.snapshots)
         # observability surfaces: tracer + slow-query-log + in-flight
         ts = self.tracer.snapshot()
         emit("traces_started_total", {}, ts["started"])

@@ -35,10 +35,11 @@ required. The pragma
 scopes to the whole expression (queries are single expressions).
 
 The inversion that turns this from a linter into a correctness rail
-lives next door: :mod:`filodb_tpu_torch.promql.gen` generates random queries
-*through these typing rules* (well-typed by construction) and
-:mod:`filodb_tpu_torch.promql.refeval` is the obviously-correct reference
-those queries are differentially checked against.
+lives in the JAX package: ``filodb_tpu.promql.gen`` generates random
+queries *through these typing rules* (well-typed by construction) and
+``filodb_tpu.promql.refeval`` is the obviously-correct reference those
+queries are differentially checked against. The port has neither module
+yet (ROADMAP A.12 ports them).
 """
 
 from __future__ import annotations

@@ -40,6 +40,14 @@ SERVING_MODULES = (
     "filodb_tpu_torch.ingest.health", "filodb_tpu_torch.http.server",
     "filodb_tpu_torch.gateway.producer",
     "filodb_tpu_torch.standalone.server",
+    # the write path and durability
+    "filodb_tpu_torch.testing", "filodb_tpu_torch.testing.chaos",
+    "filodb_tpu_torch.store", "filodb_tpu_torch.store.integrity",
+    "filodb_tpu_torch.store.columnstore", "filodb_tpu_torch.ingest",
+    "filodb_tpu_torch.ingest.stream", "filodb_tpu_torch.ingest.driver",
+    "filodb_tpu_torch.gateway.influx", "filodb_tpu_torch.gateway.server",
+    "filodb_tpu_torch.http.remote_read", "filodb_tpu_torch.core.metering",
+    "filodb_tpu_torch.obs.process", "filodb_tpu_torch.fsck",
 )
 
 
@@ -98,6 +106,22 @@ def test_no_module_names_jax_or_the_jax_package():
                 if top in ("jax", "jaxlib", "filodb_tpu"):
                     offenders.append(f"{mod}: {n}")
     assert offenders == []
+
+
+def test_the_offline_tools_load_no_torch():
+    """fsck and the stream codec walk durable files on any host: their
+    import chain stays free of torch (and of jax)."""
+    code = (
+        "import sys\n"
+        "import filodb_tpu_torch.fsck, filodb_tpu_torch.ingest\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'filodb_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_backend_defaults_to_cuda_and_refuses_without_it(monkeypatch):
