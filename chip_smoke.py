@@ -58,9 +58,20 @@ Phases, none of whose failures is caught:
      flush (a crash: the tail lives only in the stream logs); server B on
      the same directories goes through RECOVERY to ACTIVE, and must give
      A's answers bit for bit and the same remote-read bytes, through both
-     kernels (the `durability` line);
-  then the `kernels` line: launches (phase 4, and phases 5-8 as
-  `launches_phase5` to `launches_phase8`), max error, kernel and plain
+     kernels, then stops without a flush as well (the `durability` line);
+  9. the cluster: two FiloServers in this process, both on the card
+     (they share the interpreter and the card), 4 shards over 2 nodes
+     (node0 owns 0-1, node1 2-3) on phase 8's directories, peers and the
+     gRPC plane: the grouped rate entering node0 and node1 (the peer's
+     series fetched over gRPC into the entry node's tiles and group-sum),
+     one job's rate and the irregular rate into the tail (the extract on
+     the entry node), a same-metric join pushed down to both nodes and a
+     series fan-out, each held to the oracle and to server B's answer;
+     then node1 stopped without a drain (detection), restarted (recovery)
+     and drained into node0 (planned handoff), the grouped rate after
+     each (the `cluster` line);
+  then the `kernels` line: launches (phase 4, and phases 5-9 as
+  `launches_phase5` to `launches_phase9`), max error, kernel and plain
   times (CUDA events over warmed launches; `device_ms` by CUDA-graph
   replay, without the host's cost of a call) and the least time the card
   could take, at the phase-3 shapes, and for the group-sum also at the
@@ -81,6 +92,10 @@ per row from its prefix magnitude and the window's count
 parsed from its Prometheus JSON and held as phases 4-5 hold theirs; the
 cached and uncached repeats equal to the first answer. Phase 8: A's
 answers as phase 7's; B's equal to A's bit for bit; the remote read exact.
+Phase 9: each answer as phase 7's; the per-series and irregular rates
+equal to server B's bit for bit, the grouped rate within the group-sum
+tolerance of B's; the join within rtol 2e-5 of the range its sides'
+branch variants span; no downgrade from gRPC to HTTP on either node.
 
 The last line of standard output is {"ok": true, "device": {...}}; the
 script exits non-zero, printing no result, when there is no CUDA device.
@@ -1312,13 +1327,18 @@ def phase_functions(eng: dict, bw: float) -> dict:
 # phase 6: the serving fast path
 # ---------------------------------------------------------------------------
 
-BURST = 8               # queries released together by a barrier
+BURST = 4               # queries released together by a barrier (cut
+                        # from 8 to make room for phase 9's full-width
+                        # join)
+GRIDS = 8               # grid positions the clients of phases 6 and 7
+                        # cycle through, up to GRIDS - 1 steps early
 BURST_ROUNDS = 1        # bursts of each key with the batcher on (cut
                         # from 2 to keep phase 6 near 90 s)
 CLIENTS = 16            # free-running engine clients
 CLIENT_WARM = 1         # first queries of each client, left out (warm-up)
-CLIENT_QUERIES = 3      # queries of each client that are measured (cut
-                        # from 10 to make room for phase 7)
+CLIENT_QUERIES = 2      # queries of each client that are measured (cut
+                        # from 10 to make room for phase 7, then from 3
+                        # for phase 9; at 1 no steady window formed)
 WAIT_S = 300.0          # bound on every wait of phase 6
 REBUILD_QUERIES = 4     # concurrent queries sent while a rebuild runs
 
@@ -1584,7 +1604,7 @@ def client_run(shard, be) -> dict:
     """CLIENTS threads, each with its own QueryEngine, cycling through
     the per-series rate (into the tail), avg_over_time on the gauges,
     max_over_time on the irregular series and sum by (job) of the rate,
-    on grids that end up to BURST - 1 steps early: CLIENT_WARM queries
+    on grids that end up to GRIDS - 1 steps early: CLIENT_WARM queries
     each, left out, then CLIENT_QUERIES measured. Latencies are those of
     the measured queries; queries/s counts the measured queries that end
     in the steady window, from the last client's end of warm-up to the
@@ -1603,7 +1623,7 @@ def client_run(shard, be) -> dict:
     s = STEP // 1000
     plans = [[parse_query_range(q, TimeStepParams(start - j * s, s,
                                                   end - j * s))
-              for q, end in qs] for j in range(BURST)]
+              for q, end in qs] for j in range(GRIDS)]
     spans = [[] for _ in range(CLIENTS)]    # per client: (start, end) s
     t0 = time.perf_counter()
 
@@ -1611,7 +1631,7 @@ def client_run(shard, be) -> dict:
         eng = QueryEngine([shard], backend=be)
         for i in range(k, k + CLIENT_WARM + CLIENT_QUERIES):
             tq = time.perf_counter()
-            got = eng.execute(plans[k % BURST][i % len(qs)])
+            got = eng.execute(plans[k % GRIDS][i % len(qs)])
             spans[k].append((tq, time.perf_counter()))
             assert np.isfinite(got.values).any()
     run_threads(CLIENTS, client)
@@ -1853,8 +1873,10 @@ def phase_serving(eng: dict) -> dict:
 # phase 7: the standalone server and its Prometheus HTTP API
 # ---------------------------------------------------------------------------
 
-SERVER_CLIENTS = 8          # HTTP client threads
-SERVER_CLIENT_QUERIES = 3   # queries of each client, over phase 6's mix
+SERVER_CLIENTS = 4          # HTTP client threads (cut from 8 for
+                            # phase 9)
+SERVER_CLIENT_QUERIES = 1   # queries of each client, over phase 6's mix
+                            # (cut from 3 to make room for phase 9)
 # the server's config: the reference's defaults but for these keys, each
 # with its reason
 SERVER_CONFIG = {
@@ -2077,7 +2099,7 @@ def server_queries_http(srv, rows, engine_time) -> list:
 
 def server_clients(srv) -> dict:
     """SERVER_CLIENTS threads over HTTP, each SERVER_CLIENT_QUERIES queries
-    cycling phase 6's mix on grids shifted by up to BURST - 1 steps, with
+    cycling phase 6's mix on grids shifted by up to GRIDS - 1 steps, with
     &cache=false so that each reaches the device: through the admission
     gate (4 in flight by default) and the micro-batcher. queries/s = the
     queries over the run's wall time."""
@@ -2093,7 +2115,7 @@ def server_clients(srv) -> dict:
     def client(k):
         for i in range(k, k + SERVER_CLIENT_QUERIES):
             q, end = qs[i % len(qs)]
-            j = k % BURST
+            j = k % GRIDS
             payload, ms, _ = http_json(
                 srv.port, "/promql/timeseries/api/v1/query_range",
                 {"query": q, "start": start - j * s, "end": end - j * s,
@@ -2471,26 +2493,23 @@ def start_write_server(data_dir: str, stream_dir: str):
     return srv, seen, time.perf_counter() - t0
 
 
-def phase_write_path(rows: dict, smi: str) -> dict:
+def phase_write_path(rows: dict, wdir: dict, smi: str) -> dict:
     """Phase 8: backfill the history into a data-dir; server A ingests
     the tail through POST /api/v1/ingest/influx (the counters, one POST
     per scrape) and the TCP gateway (the irregular series), answers
     phase 8's queries (held against the numpy oracle) and a remote read;
     it crashes (drivers stopped without a flush); server B recovers from
     the same directories and must answer bit for bit as A did, through
-    both kernels. Kernel launch counts are set to 0 before A's first
-    query and read after B's last; every kernel call is held against its
-    plain version."""
-    import shutil
-    import tempfile
-
+    both kernels. B then stops without a flush as A did, so that phase
+    9's nodes replay the same tail from the stream logs of `wdir` (its
+    "data" and "stream" directories). Kernel launch counts are set to 0
+    before A's first query and read after B's last; every kernel call is
+    held against its plain version."""
     from filodb_tpu_torch.gateway.server import send_lines
     from filodb_tpu_torch.query import kernels as kn
 
     t_phase = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="filodb-phase8-")
-    data_dir, stream_dir = (os.path.join(root, d) for d in ("data",
-                                                             "stream"))
+    data_dir, stream_dir = wdir["data"], wdir["stream"]
     irr_tail = irregular_tail(np.random.default_rng(8), rows["irregular"])
     truth = {}
     for hist, tail in (("counters", "counter_tails"),
@@ -2500,90 +2519,88 @@ def phase_write_path(rows: dict, smi: str) -> dict:
             truth[(lab["_metric_"], lab["instance"])] = (
                 np.concatenate([t, tt]).astype(np.int64),
                 np.concatenate([v, tv]).astype(np.float64))
+    bf = backfill(data_dir, rows)
+    log(f"phase 8: backfill {bf['samples']} samples in "
+        f"{bf['seconds']:.1f} s, {bf['bytes']} bytes on disk")
+    srv, _, start_a = start_write_server(data_dir, stream_dir)
+    log(f"phase 8: server A on :{srv.port}, gateway :{srv.gateway.port}"
+        f", active in {start_a:.1f} s")
+    # the counters' tail: one POST of S lines per scrape
+    path = "/api/v1/ingest/influx"
+    n_http, t0 = 0, time.perf_counter()
+    tails = rows["counter_tails"]
+    for k in range(ENGINE_TAIL):
+        body = "\n".join(influx_line(lab, t[k], v[k])
+                         for lab, t, v in tails).encode()
+        code, out, _ = http_post(srv.port, path, body, "text/plain")
+        assert code == 200, (k, code, out[:300])
+        acc = json.loads(out)["data"]
+        assert acc == {"accepted": len(tails), "rejected": 0}, acc
+        n_http += len(tails)
+    http_s = time.perf_counter() - t0
+    # the irregular tail through the TCP gateway
+    lines = [influx_line(lab, t, v) for lab, tt, vv in irr_tail
+             for t, v in zip(tt, vv)]
+    t0 = time.perf_counter()
+    send_lines("127.0.0.1", srv.gateway.port, lines, timeout=WAIT_S)
+    wait_for(lambda: srv.gateway.lines_ingested >= n_http + len(lines),
+             "gateway lines")
+    gw_s = time.perf_counter() - t0
+    assert srv.gateway.lines_rejected == 0
+    catch_up_s = wait_for(lambda: drivers_caught_up(srv),
+                          "drivers caught up")
+    records = {s: d.stream.end_offset() for s, d in srv.drivers.items()}
+    log(f"phase 8: {n_http} lines over HTTP in {http_s:.1f} s, "
+        f"{len(lines)} over the gateway in {gw_s:.1f} s, drivers "
+        f"caught up {catch_up_s:.2f} s later; stream records {records}")
+    m_a = scrape(srv.port)
+    body, want_keys = read_request(rows)
+    calls, originals = record_kernel_calls()
+    kn.reset_launches()
     try:
-        bf = backfill(data_dir, rows)
-        log(f"phase 8: backfill {bf['samples']} samples in "
-            f"{bf['seconds']:.1f} s, {bf['bytes']} bytes on disk")
-        srv, _, start_a = start_write_server(data_dir, stream_dir)
-        log(f"phase 8: server A on :{srv.port}, gateway :{srv.gateway.port}"
-            f", active in {start_a:.1f} s")
-        # the counters' tail: one POST of S lines per scrape
-        path = "/api/v1/ingest/influx"
-        n_http, t0 = 0, time.perf_counter()
-        tails = rows["counter_tails"]
-        for k in range(ENGINE_TAIL):
-            body = "\n".join(influx_line(lab, t[k], v[k])
-                             for lab, t, v in tails).encode()
-            code, out, _ = http_post(srv.port, path, body, "text/plain")
-            assert code == 200, (k, code, out[:300])
-            acc = json.loads(out)["data"]
-            assert acc == {"accepted": len(tails), "rejected": 0}, acc
-            n_http += len(tails)
-        http_s = time.perf_counter() - t0
-        # the irregular tail through the TCP gateway
-        lines = [influx_line(lab, t, v) for lab, tt, vv in irr_tail
-                 for t, v in zip(tt, vv)]
-        t0 = time.perf_counter()
-        send_lines("127.0.0.1", srv.gateway.port, lines, timeout=WAIT_S)
-        wait_for(lambda: srv.gateway.lines_ingested >= n_http + len(lines),
-                 "gateway lines")
-        gw_s = time.perf_counter() - t0
-        assert srv.gateway.lines_rejected == 0
-        catch_up_s = wait_for(lambda: drivers_caught_up(srv),
-                              "drivers caught up")
-        records = {s: d.stream.end_offset() for s, d in srv.drivers.items()}
-        log(f"phase 8: {n_http} lines over HTTP in {http_s:.1f} s, "
-            f"{len(lines)} over the gateway in {gw_s:.1f} s, drivers "
-            f"caught up {catch_up_s:.2f} s later; stream records {records}")
-        m_a = scrape(srv.port)
-        body, want_keys = read_request(rows)
-        calls, originals = record_kernel_calls()
-        kn.reset_launches()
+        ans_a = query_write_server(srv, rows, oracle=True)
+        code, read_a, read_ms_a = http_post(
+            srv.port, "/promql/timeseries/api/v1/read", body,
+            "application/x-protobuf")
+        assert code == 200, read_a[:300]
+        n_read = check_read(read_a, want_keys, truth)
+        launches_a = dict(kn.LAUNCHES)
+        # the crash: the drivers stop without a flush, then the edges
+        srv.stop(flush=False)
+        del srv
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        srv, seen, recovery_s = start_write_server(data_dir,
+                                                   stream_dir)
         try:
-            ans_a = query_write_server(srv, rows, oracle=True)
-            code, read_a, read_ms_a = http_post(
+            for s in range(WRITE_CONFIG["num-shards"]):
+                st = seen.get(s, [])
+                assert "recovery" in st and st[-1] == "active", (s, st)
+            replayed = {s: d.recovered_to for s, d in
+                        srv.drivers.items()}
+            assert replayed == records, (replayed, records)
+            ans_b = query_write_server(srv, rows, oracle=False)
+            code, read_b, read_ms_b = http_post(
                 srv.port, "/promql/timeseries/api/v1/read", body,
                 "application/x-protobuf")
-            assert code == 200, read_a[:300]
-            n_read = check_read(read_a, want_keys, truth)
-            launches_a = dict(kn.LAUNCHES)
-            # the crash: the drivers stop without a flush, then the edges
-            srv.stop(flush=False)
-            del srv
-            import gc
-            gc.collect()
-            torch.cuda.empty_cache()
-            srv, seen, recovery_s = start_write_server(data_dir,
-                                                       stream_dir)
-            try:
-                for s in range(WRITE_CONFIG["num-shards"]):
-                    st = seen.get(s, [])
-                    assert "recovery" in st and st[-1] == "active", (s, st)
-                replayed = {s: d.recovered_to for s, d in
-                            srv.drivers.items()}
-                assert replayed == records, (replayed, records)
-                ans_b = query_write_server(srv, rows, oracle=False)
-                code, read_b, read_ms_b = http_post(
-                    srv.port, "/promql/timeseries/api/v1/read", body,
-                    "application/x-protobuf")
-                assert code == 200 and read_b == read_a, \
-                    "server B's remote read differs from A's"
-                paged_in_b = sum(s.stats.partitions_paged_in
-                                 for s in srv.store.shards(srv.ref))
-            finally:
-                srv.stop()
+            assert code == 200 and read_b == read_a, \
+                "server B's remote read differs from A's"
+            paged_in_b = sum(s.stats.partitions_paged_in
+                             for s in srv.store.shards(srv.ref))
         finally:
-            restore_kernels(originals)
-        launches = dict(kn.LAUNCHES)
-        launches_b = {k: launches[k] - launches_a[k] for k in launches}
-        for (q, got_a, _), (_, got_b, _) in zip(ans_a, ans_b):
-            assert same_answer(got_a, got_b), \
-                f"{q}: server B's answer differs from A's"
-        for name, n in launches_b.items():
-            assert n > 0, f"{name} was not launched on server B"
-        errs = check_kernel_calls(calls, originals, "phase 8")
+            # B crashes as A did: the tail stays in the stream logs
+            srv.stop(flush=False)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        restore_kernels(originals)
+    launches = dict(kn.LAUNCHES)
+    launches_b = {k: launches[k] - launches_a[k] for k in launches}
+    for (q, got_a, _), (_, got_b, _) in zip(ans_a, ans_b):
+        assert same_answer(got_a, got_b), \
+            f"{q}: server B's answer differs from A's"
+    for name, n in launches_b.items():
+        assert n > 0, f"{name} was not launched on server B"
+    errs = check_kernel_calls(calls, originals, "phase 8")
     fsync_n = sum(v for k, v in m_a.items()
                   if k.startswith("filodb_ingest_fsync_seconds_count"))
     fsync_s = sum(v for k, v in m_a.items()
@@ -2615,7 +2632,382 @@ def phase_write_path(rows: dict, smi: str) -> dict:
         "card": smi,
     }
     log(f"phase 8: {secs:.1f} s; kernel launches {launches}")
-    return {"launches": launches, "errs": errs, "durability": durability}
+    return {"launches": launches, "errs": errs, "durability": durability,
+            "answers_b": [(q, got) for q, got, _ in ans_b]}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the cluster, two nodes sharing the card
+# ---------------------------------------------------------------------------
+
+# failure-detect-interval-s of phase 9's nodes (threshold 2 misses): short
+# enough that detection and recovery fit the phase's budget
+CLUSTER_DETECT_S = 0.25
+# the pushed-down join's Exec reply must exceed grpcio's default receive
+# limit, so that phase 9 holds the message-size repair (ROADMAP C.15)
+JOIN_REPLY_MIN_BYTES = 4 << 20
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def cluster_config(data_dir: str, stream_dir: str, ports, ordinal: int):
+    """Node `ordinal` of phase 9's two-node cluster: phase 8's directories
+    and WRITE_CONFIG's keys (phase 7's two, fsync per append, no timed
+    flush), no gateway, num-nodes 2 with both peers, the gRPC plane on an
+    ephemeral port (the reference's default), a fast failure detector
+    and query-timeout-s raised from its default 30 s to WAIT_S: the first
+    cross-node query pages in both nodes' shards and ships about 100 MB
+    from the peer, and on an H100 host it answered 503 at the default
+    (ROADMAP C.17). The `cluster` line states both values."""
+    peers = {f"node{i}": f"http://127.0.0.1:{p}" for i, p in
+             enumerate(ports)}
+    return dict(WRITE_CONFIG, **{
+        "port": ports[ordinal], "gateway-port": None,
+        "data-dir": data_dir, "stream-dir": stream_dir,
+        "num-nodes": 2, "node-ordinal": ordinal, "peers": peers,
+        "grpc-port": 0, "query-timeout-s": WAIT_S,
+        "failure-detect-interval-s": CLUSTER_DETECT_S,
+        "failure-detect-threshold": 2})
+
+
+class WireLog:
+    """Every gRPC call the port's clients make (grpcsvc.client._call):
+    method, peer, request and reply bytes, seconds."""
+
+    def __init__(self):
+        from filodb_tpu_torch.grpcsvc import client
+
+        self.mod, self.orig, self.calls = client, client._call, []
+        orig = self.orig
+
+        def call(addr, method, payload, timeout_s, node_id):
+            t0 = time.perf_counter()
+            out = orig(addr, method, payload, timeout_s, node_id)
+            self.calls.append((method, node_id, len(payload), len(out),
+                               time.perf_counter() - t0))
+            return out
+        client._call = call
+
+    def take(self) -> dict:
+        calls, self.calls = self.calls, []
+        return {"frames": len(calls),
+                "methods": sorted({c[0] for c in calls}),
+                "request_bytes": sum(c[2] for c in calls),
+                "reply_bytes": sum(c[3] for c in calls),
+                "fetch_s": sum(c[4] for c in calls)}
+
+    def restore(self) -> None:
+        self.mod._call = self.orig
+
+
+def cluster_query(node, name: str, q: str, s: int, e: int, wire) -> tuple:
+    """One query over HTTP into `node` with &cache=false, split by stage
+    (PageInSplit: page-ins of both nodes, since they share the process;
+    select_decode_s holds the peer fetch) -> (grid, reading, payload)."""
+    from filodb_tpu_torch.query import kernels as kn
+
+    before = dict(kn.LAUNCHES)
+    wire.take()
+    split = PageInSplit()
+    try:
+        payload, ms, nbytes = http_json(
+            node.port, "/promql/timeseries/api/v1/query_range",
+            {"query": q, "start": s, "end": e, "step": STEP // 1000,
+             "cache": "false"})
+    finally:
+        split.restore()
+    r = {"q": q, "entry": name, "end": e, "wall_ms": ms, "bytes": nbytes,
+         "launches": {k: kn.LAUNCHES[k] - before[k] for k in before},
+         "wire": wire.take()}
+    r["host_split"] = split.split(ms / 1e3)
+    r["host_split"]["select_decode_less_fetch_s"] = (
+        r["host_split"]["select_decode_s"] - r["wire"]["fetch_s"])
+    log(f"phase 9: {name} {q} to {e}: {ms:.1f} ms, {nbytes} bytes, "
+        f"wire {json.dumps(r['wire'])}, split "
+        f"{json.dumps(r['host_split'])}, launches {r['launches']}")
+    return grid_from_json(payload, s, e, STEP // 1000), r, payload
+
+
+def close_grouped(got, want, what: str) -> float:
+    """Group sums within the group-sum kernel's tolerance (check_groupsum:
+    |a - b| <= 1e-5 |b| + 1e-6 max |b|) -> max abs diff."""
+    assert [dict(k) for k in got.keys] == [dict(k) for k in want.keys], what
+    a, b = got.values, want.values
+    assert np.array_equal(np.isnan(a), np.isnan(b)), what
+    ok = ~np.isnan(b)
+    err = np.abs(a[ok] - b[ok])
+    assert (err <= 1e-5 * np.abs(b[ok]) + 1e-6 * np.abs(b[ok]).max()).all(), \
+        f"{what}: max abs diff {err.max()}"
+    return float(err.max()) if err.size else 0.0
+
+
+def check_join(got, rows, start: int) -> dict:
+    """The pushed-down join rate(x[5m]) / rate(x[5m] offset 1m) held to
+    the integer-rule oracle: the 1 m offset is one grid step, so both
+    sides are _oracle_rates rows of one grid from start - 60 s. Each
+    answer must lie within rtol 2e-5 (two rates of rtol 1e-5) of the range
+    that the four branch variants of each side span."""
+    T = got.values.shape[1]
+    var = _oracle_rates(rows["ts"], rows["vals"], (start - 60) * 1000,
+                        T + 1, knife_ms=KNIFE_MS)
+    idx = [int(k["instance"][1:]) for k in got.keys]
+    num, den = var[:, idx, 1:], var[:, idx, :-1]
+    with np.errstate(all="ignore"):
+        combos = num[:, None] / den[None, :]
+    lo, hi = np.nanmin(combos, axis=(0, 1)), np.nanmax(combos, axis=(0, 1))
+    gv = got.values
+    nan = np.isnan(combos[0, 0])
+    assert np.array_equal(np.isnan(gv), nan), "join: NaN pattern differs"
+    assert np.isfinite(gv).any()
+    ok = nan | ((gv >= lo - 2e-5 * np.abs(lo))
+                & (gv <= hi + 2e-5 * np.abs(hi)))
+    assert ok.all(), "join: outside the integer-rule oracle's range"
+    with np.errstate(all="ignore"):
+        rel = np.abs(gv - combos[0, 0]) / np.abs(combos[0, 0])
+    return {"series": len(idx), "max_rel_err_vs_variant0":
+            float(np.nanmax(rel)), "knife_cells": int((hi > lo).sum())}
+
+
+def check_grouped_rule(got, variants: np.ndarray, series) -> dict:
+    """A `sum by (job)` of rate over the counter rows `series` only (a
+    node's shards while its peer is down) held to the integer-rule
+    oracle as check_engine_answer holds the fused group sums: variant 0's
+    group sums at rtol 1e-5, no allowance."""
+    var = variants[:, series, :got.values.shape[1]]
+    rows = [int(k["job"][3:]) for k in got.keys]
+    nom = _group_sum(var[0], np.asarray(series) % G)[:, rows].T
+    gv = got.values
+    nan = np.isnan(gv)
+    assert np.isfinite(gv).any()
+    err = np.abs(gv - nom)
+    assert (nan | (err <= 1e-5 * np.abs(nom) + 1e-9)).all(), \
+        f"partial group sums: max abs err {np.nanmax(err)}"
+    with np.errstate(all="ignore"):
+        return {"series": len(series),
+                "max_rel_err": float(np.nanmax(err / np.abs(nom)))}
+
+
+def wait_statuses(node, shards, status: str) -> float:
+    """Poll node's shard map until every shard of `shards` has `status`
+    -> seconds waited."""
+    return wait_for(lambda: all(node.mapper.status(s).value == status
+                                for s in shards),
+                    f"shards {shards} {status} on {node.node_id}")
+
+
+def phase_cluster(rows: dict, wdir: dict, answers_b: list,
+                  smi: str) -> dict:
+    """Phase 9: two FiloServers in this process, both on the card (they
+    share the interpreter, hence the GIL, and the card), num-shards 4 over
+    num-nodes 2: node0 owns shards 0-1, node1 shards 2-3, both on phase
+    8's data-dir and stream-dir (each pages in and replays its own
+    shards), the gRPC plane on. Queries over HTTP with &cache=false: the
+    grouped rate entering node0 then node1 (leaf dispatch, the group-sum
+    on each entry node), one job's per-series rate and the irregular rate
+    into the tail, a same-metric join pushed down to both nodes, a series
+    fan-out; each held to the numpy f64 oracle at phase 7's bounds and to
+    server B's answer of phase 8 (per-series and irregular bit for bit,
+    grouped within the group-sum tolerance). Then node1 is stopped without
+    a drain (detection time, node0's answer with shards 2-3 DOWN),
+    restarted on the same directories (recovery time, the answer equal to
+    the one before), and drained into node0 (drain time; node0 answers
+    from all four shards). Kernel launch counts are set to 0 before the
+    first query and read after the last; every kernel call is held
+    against its plain version."""
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                parse_query_range)
+    from filodb_tpu_torch.query import kernels as kn
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.standalone.server import DEFAULTS, FiloServer
+
+    t_phase = time.perf_counter()
+    step = STEP // 1000
+    start, fe, te = engine_grid()
+    ports = [free_port(), free_port()]
+    cfgs = [cluster_config(wdir["data"], wdir["stream"], ports, i)
+            for i in range(2)]
+    nodes = [None, None]
+    wire = WireLog()
+    calls, originals = record_kernel_calls()
+    readings, times = [], {}
+    try:
+        t0 = time.perf_counter()
+
+        def start_node(i):
+            nodes[i] = FiloServer(cfgs[i]).start()
+        # both start together: each replays its own shards' streams
+        run_threads(2, start_node)
+        n0, n1 = nodes
+        times["start_s"] = wait_for(
+            lambda: all(n.mapper.status(s).value == "active"
+                        for n in nodes for s in range(4))
+            and all(n.http.grpc_peers for n in nodes),
+            "both nodes active with gRPC peers") + \
+            (time.perf_counter() - t0)
+        assert n0.owned_shards == [0, 1] and n1.owned_shards == [2, 3], \
+            (n0.owned_shards, n1.owned_shards)
+        log(f"phase 9: node0 :{n0.port} grpc :{n0.grpc_server.port}, "
+            f"node1 :{n1.port} grpc :{n1.grpc_server.port}, both active "
+            f"with gRPC peers in {times['start_s']:.1f} s")
+        oracle = QueryEngine(n0.store.shards(n0.ref)
+                             + n1.store.shards(n1.ref))
+        t_or = time.perf_counter()
+        T_max = len(np.arange(start, te + 1, step))
+        variants = _oracle_rates(rows["ts"], rows["vals"], start * 1000,
+                                 T_max, knife_ms=KNIFE_MS)
+        times["oracle_variants_s"] = time.perf_counter() - t_or
+        kn.reset_launches()
+        fetch0 = n1.grpc_server.fetch_raw_served
+        # 1. the grouped rate entering node0, then node1
+        q1 = "sum by (job) (rate(http_requests_total[5m]))"
+        g1a, r, _ = cluster_query(n0, "node0", q1, start, fe, wire)
+        readings.append(r)
+        g1b, r, _ = cluster_query(n1, "node1", q1, start, fe, wire)
+        readings.append(r)
+        assert n1.grpc_server.fetch_raw_served > fetch0
+        t_or = time.perf_counter()
+        want1 = json_order(oracle.execute(parse_query_range(
+            q1, TimeStepParams(start, step, fe))))
+        times["oracle_grouped_s"] = time.perf_counter() - t_or
+        for g, r in ((g1a, readings[0]), (g1b, readings[1])):
+            r["oracle"] = check_engine_answer(q1, g, want1, variants)
+            r["vs_b_max_abs"] = close_grouped(g, answers_b[0][1],
+                                              f"{q1} vs server B")
+            assert r["launches"]["counter_groupsum"] >= 1, r
+        # 2. one job's per-series rate into the tail, 3. the irregular
+        # rate into the tail (the extract kernel on the entry node)
+        for q, b_ix in (('rate(http_requests_total{job="job3"}[5m])', 2),
+                        ("rate(irregular_total[5m])", 3)):
+            assert answers_b[b_ix][0] == q
+            g, r, _ = cluster_query(n0, "node0", q, start, te, wire)
+            want = json_order(oracle.execute(parse_query_range(
+                q, TimeStepParams(start, step, te))))
+            r["oracle"] = check_engine_answer(q, g, want, variants)
+            r["vs_b_bit_equal"] = same_answer(g, answers_b[b_ix][1])
+            assert r["vs_b_bit_equal"], f"{q}: differs from server B's"
+            readings.append(r)
+        assert readings[-1]["launches"]["window_extract"] >= 1, readings[-1]
+        # 4. a same-metric join with no `on`, over all 8,192 series:
+        # pushed down to both nodes (pinning _ws_/_ns_ prunes shards), its
+        # Exec reply above grpcio's 4 MiB default (the C.15 repair)
+        sel = 'http_requests_total{_ws_="demo",_ns_="App-0"}'
+        qj = f"rate({sel}[5m]) / rate({sel}[5m] offset 1m)"
+        ex = n0.http.make_planner("timeseries").materialize(
+            parse_query_range(qj, TimeStepParams(start, step, fe)))
+        tree = ex.plan_tree()
+        assert type(ex).__name__ == "ConcatExec" and [
+            type(c).__name__ for c in ex.children] == [
+            "LocalEngineExec", "GrpcRemoteExec"], tree
+        exec0 = n1.grpc_server.exec_served
+        gj, r, _ = cluster_query(n0, "node0", qj, start, fe, wire)
+        assert n1.grpc_server.exec_served == exec0 + 1
+        assert r["wire"]["methods"] == ["Exec"] and \
+            r["wire"]["reply_bytes"] > JOIN_REPLY_MIN_BYTES, r["wire"]
+        r["plan_tree"] = tree
+        r["oracle"] = check_join(gj, rows, start)
+        readings.append(r)
+        # 5. a metadata fan-out
+        payload, ms, nbytes = http_json(
+            n0.port, "/promql/timeseries/api/v1/series",
+            {"match[]": "irregular_total"})
+        assert len(payload["data"]) == ENGINE_IRREGULAR
+        readings.append({"q": "/api/v1/series irregular_total",
+                         "entry": "node0", "wall_ms": ms, "bytes": nbytes,
+                         "series": len(payload["data"])})
+        log(f"phase 9: series fan-out {ms:.1f} ms, "
+            f"{len(payload['data'])} series")
+        served = {"fetch_raw": n1.grpc_server.fetch_raw_served,
+                  "exec": n1.grpc_server.exec_served}
+        fallbacks = [n.http.plane_fallbacks.total for n in nodes]
+        assert served["fetch_raw"] > 0 and served["exec"] > 0, served
+        assert fallbacks == [0, 0], fallbacks
+        # peer death: node1 stops without a drain or a flush
+        t0 = time.perf_counter()
+        n1.stop(flush=False)
+        nodes[1] = None
+        wait_statuses(n0, [2, 3], "down")
+        times["detect_s"] = time.perf_counter() - t0
+        gd, r, payload = cluster_query(n0, "node0 (node1 down)", q1, start,
+                                       fe, wire)
+        assert "shards 2,3 are down with no replica; results are " \
+            "partial" in payload.get("warnings", []), payload.get("warnings")
+        mine = sorted(int(lab["instance"][1:])
+                      for s in n0.store.shards(n0.ref)
+                      for lab in (dict(p.part_key.labels)
+                                  for p in s.partitions.values())
+                      if lab.get("_metric_") == "http_requests_total")
+        assert 0 < len(mine) < S_ENGINE, len(mine)
+        r["oracle"] = check_grouped_rule(gd, variants, mine)
+        readings.append(r)
+        # restart node1 on the same directories
+        t0 = time.perf_counter()
+        nodes[1] = FiloServer(cfgs[1]).start()
+        n1 = nodes[1]
+        times["restart_s"] = time.perf_counter() - t0
+        wait_statuses(n0, [2, 3], "active")
+        wait_for(lambda: "node1" in n0.http.grpc_peers, "gRPC re-learnt")
+        times["recover_s"] = time.perf_counter() - t0
+        g1c, r, _ = cluster_query(n0, "node0 (node1 back)", q1, start, fe,
+                                  wire)
+        r["vs_before_kill_bit_equal"] = same_answer(g1c, g1a)
+        assert r["vs_before_kill_bit_equal"], \
+            "the answer after the restart differs from the one before"
+        readings.append(r)
+        # planned handoff: node1 drains into node0
+        t0 = time.perf_counter()
+        code, body, _ = http_post(n1.port, "/admin/drain", b"{}",
+                                  "application/json")
+        times["drain_s"] = time.perf_counter() - t0
+        assert code == 200, body[:300]
+        out = json.loads(body)["data"]
+        assert sorted(h["shard"] for h in out["handed_off"]) == [2, 3] \
+            and out["failed"] == [], out
+        assert sorted(s.shard_num for s in n0.store.shards(n0.ref)) == \
+            [0, 1, 2, 3]
+        fetch1 = n1.grpc_server.fetch_raw_served
+        g1d, r, _ = cluster_query(n0, "node0 (after drain)", q1, start, fe,
+                                  wire)
+        assert n1.grpc_server.fetch_raw_served == fetch1
+        assert r["wire"]["frames"] == 0, r["wire"]
+        assert r["launches"]["counter_groupsum"] >= 1, r
+        r["oracle"] = check_engine_answer(q1, g1d, want1, variants)
+        r["vs_before_drain_max_abs"] = close_grouped(
+            g1d, g1a, "after the drain vs before")
+        r["vs_before_drain_bit_equal"] = same_answer(g1d, g1a)
+        readings.append(r)
+        launches = dict(kn.LAUNCHES)
+        for name, n in launches.items():
+            assert n > 0, f"{name} was not launched in phase 9"
+        fallbacks = [n.http.plane_fallbacks.total for n in nodes]
+        assert fallbacks == [0, 0], fallbacks
+    finally:
+        wire.restore()
+        restore_kernels(originals)
+        for n in nodes:
+            if n is not None:
+                n.stop(flush=False)
+    errs = check_kernel_calls(calls, originals, "phase 9")
+    secs = time.perf_counter() - t_phase
+    cluster = {"seconds": secs, "times": times, "queries": readings,
+               "query_timeout_s": {
+                   "used": WAIT_S, "default": DEFAULTS["query-timeout-s"],
+                   "raised_because": "the first cold cross-node grouped "
+                   "rate answered 503 at the default (ROADMAP C.17)"},
+               "grpc_served_by_node1": served,
+               "plane_fallbacks": fallbacks, "launches": launches,
+               "shared": "one interpreter (GIL) and one card", "card": smi}
+    log(f"phase 9: {secs:.1f} s; times {json.dumps(times)}; kernel "
+        f"launches {launches}; query-timeout-s {WAIT_S} (default "
+        f"{DEFAULTS['query-timeout-s']}: raised, ROADMAP C.17)")
+    return {"launches": launches, "errs": errs, "cluster": cluster}
 
 
 def main() -> int:
@@ -2665,7 +3057,17 @@ def main() -> int:
     server = phase_server(data, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    write = phase_write_path(data, smi)
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="filodb-phase8-")
+    wdir = {d: os.path.join(root, d) for d in ("data", "stream")}
+    try:
+        write = phase_write_path(data, wdir, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cluster = phase_cluster(data, wdir, write.pop("answers_b"), smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     kernels = []
     for kname in ("counter_groupsum", "window_extract"):
         r = dict(rows[kname])
@@ -2674,17 +3076,20 @@ def main() -> int:
         r["launches_phase6"] = srv["launches"][kname]
         r["launches_phase7"] = server["launches"][kname]
         r["launches_phase8"] = write["launches"][kname]
+        r["launches_phase9"] = cluster["launches"][kname]
         r["max_abs_err"] = max(r["max_abs_err"], eng["errs"][kname],
                                fns["errs"].get(kname, 0.0),
                                srv["errs"].get(kname, 0.0),
                                server["errs"].get(kname, 0.0),
-                               write["errs"].get(kname, 0.0))
+                               write["errs"].get(kname, 0.0),
+                               cluster["errs"].get(kname, 0.0))
         kernels.append(r)
     print(smi, flush=True)
     print(json.dumps({"functions": fns["functions"],
                       "queries": fns["queries"],
                       "phase5_peak_gib": fns["peak_gib"]}), flush=True)
     print(json.dumps({"durability": write["durability"]}), flush=True)
+    print(json.dumps({"cluster": cluster["cluster"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serving": dict(srv["serving"], card=smi)}),
           flush=True)

@@ -13,7 +13,9 @@ HealthRoute.scala, ClusterApiRoute.scala):
   POST     /api/v1/ingest/influx            (with a gateway)
   GET      /__health | /__liveness | /__readiness
   GET      /api/v1/cluster/{dataset}/status
-  GET      /api/v1/cardinality/{dataset}?prefix&depth
+  GET      /api/v1/cardinality[-local]/{dataset}?prefix&depth
+  POST     /api/v1/raw/{dataset}            (peer leaf fetch)
+  POST     /admin/{drain,adopt,transfer,abort_adopt}
   GET      /metrics
   GET      /debug/queries | /debug/slow_queries | /debug/traces |
            /debug/events
@@ -22,16 +24,20 @@ Query endpoints pass the admission gate (bounded in-flight evaluations,
 429 + Retry-After on saturation), the tenant QoS ladder, the plan cache
 and the results cache before the planner and the engine.
 
-The reference checks its per-query deadline (``&timeout=``,
-``query-timeout-s``) and honours ``&allow_partial=`` only on its remote and
-mesh paths, none of which is ported: this edge takes neither yet.
+The cluster plane (``peers``): ``POST /api/v1/raw/{dataset}`` serves
+peers' leaf fetches over HTTP (the gRPC ``FetchRaw`` service shares its
+selection, :meth:`FiloHttpServer.leaf_select`), ``/admin/{drain,adopt,
+transfer,abort_adopt}`` is the planned-membership control plane, and
+metadata and cardinality fan out to the live peers. The per-query deadline
+(``&timeout=``, ``query-timeout-s``) and ``&allow_partial=`` act on the
+remote paths, as in the reference.
 
 A route whose feature is off by config answers as the reference does with
-that feature off (rules, alerts, influx ingest without a gateway, profile,
-admin). A route the reference serves whatever its config, but whose module
-the port does not have yet, answers 501 with the ROADMAP item that ports
-it: ``&explain=analyze``, the peer leaf-dispatch plane (``/api/v1/raw``)
-and the thread inventory (``/debug/threads``).
+that feature off (rules, alerts, influx ingest without a gateway,
+profile). A route the reference serves whatever its config, but whose
+module the port does not have yet, answers 501 with the ROADMAP item that
+ports it: ``&explain=analyze`` and the thread inventory
+(``/debug/threads``).
 
 stdlib http.server (the JVM reference uses Akka-HTTP; the edge is not the
 hot path — all bulk compute is device-side behind QueryEngine)."""
@@ -55,6 +61,9 @@ from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.obs.slowlog import InflightRegistry, SlowQueryLog
 from filodb_tpu_torch.obs.trace import Tracer
+from filodb_tpu_torch.parallel.resilience import (Deadline,
+                                                  DeadlineExceeded,
+                                                  PeerResilience)
 from filodb_tpu_torch.promql.parser import (TimeStepParams, parse_query,
                                             parse_query_range,
                                             selector_to_filters)
@@ -64,7 +73,7 @@ from filodb_tpu_torch.query.engine import QueryEngine
 from filodb_tpu_torch.query.planner import QueryPlanner
 from filodb_tpu_torch.query.model import (GridResult, QueryError,
                                           QueryLimitError, QueryLimits,
-                                          ScalarResult)
+                                          ScalarResult, StaleRoutingError)
 
 _ROUTE = re.compile(r"^/promql/(?P<ds>[^/]+)/api/v1/(?P<rest>.+)$")
 
@@ -80,7 +89,6 @@ _QLAT_HELP = ("End-to-end query latency in seconds at the HTTP edge "
 # does not have yet -> the ROADMAP item that ports them
 _NOT_PORTED = {
     "explain=analyze": "A.9 device observability (obs/devprof.py)",
-    "raw": "A.1.4 multi-node and membership (leaf dispatch)",
     "threads": "A.12 certification rail (thread inventory)",
 }
 
@@ -125,6 +133,14 @@ class FiloHttpServer:
                  query_limits: Optional[QueryLimits] = None,
                  spread_provider: Optional[object] = None,
                  node_id: Optional[str] = None,
+                 peers: Optional[Dict[str, str]] = None,
+                 buddies: Optional[Dict[str, str]] = None,
+                 partitions: Optional[Dict[str, str]] = None,
+                 local_partitions: Optional[List[str]] = None,
+                 grpc_peers: Optional[Dict[str, str]] = None,
+                 grpc_partitions: Optional[Dict[str, str]] = None,
+                 query_timeout_s: float = 30.0,
+                 resilience: Optional[PeerResilience] = None,
                  plan_cache_size: int = 256,
                  results_cache_mb: float = 64.0,
                  results_cache_hot_window_ms: float = 10_000.0,
@@ -135,7 +151,8 @@ class FiloHttpServer:
                  qos_shed_degraded: bool = True,
                  tracer: Optional[Tracer] = None,
                  slow_query_ms: float = 1000.0,
-                 slow_query_capacity: int = 128):
+                 slow_query_capacity: int = 128,
+                 peer_fanout_workers: int = 0):
         self.shards_by_dataset = shards_by_dataset
         self.backend = backend
         self.shard_mapper = shard_mapper
@@ -143,6 +160,58 @@ class FiloHttpServer:
         self.query_limits = query_limits
         self.spread_provider = spread_provider
         self.node_id = node_id
+        # multi-process cluster plane (parallel/cluster.py): peer node_id
+        # -> base URL for leaf dispatch and metadata fan-out; buddy
+        # replicas, federated partitions and the gRPC data plane's
+        # addresses (the failure detector fills grpc_peers from peers'
+        # health bodies)
+        self.peers = dict(peers or {})
+        self.buddies = dict(buddies or {})
+        self.partitions = dict(partitions or {})
+        self.local_partitions = list(local_partitions or ())
+        self.grpc_peers = dict(grpc_peers or {})
+        self.grpc_partitions = dict(grpc_partitions or {})
+        # downgrades of this node's gRPC calls to the HTTP JSON plane
+        # (imported here: grpcsvc.wire imports the http package)
+        from filodb_tpu_torch.grpcsvc.client import PlaneFallbacks
+        self.plane_fallbacks = PlaneFallbacks()
+        # set by the standalone server: the GrpcQueryServer (/metrics
+        # gauge, health-body advertisement)
+        self.grpc_server = None
+        # degraded-mode execution: default per-query deadline budget +
+        # the server-lifetime retry policy / breaker registry (breaker
+        # state persists across queries by construction)
+        self.query_timeout_s = float(query_timeout_s)
+        if resilience is None:
+            from filodb_tpu_torch.parallel.resilience import (
+                BreakerRegistry, RetryPolicy)
+            resilience = PeerResilience(RetryPolicy(), BreakerRegistry())
+        self.resilience = resilience
+        # set by the standalone server: FailureDetector whose down-view
+        # rides the health body (quorum input for elastic reassignment)
+        self.detector = None
+        # set by the standalone server: MembershipManager behind the
+        # /admin/{drain,adopt,transfer,abort_adopt} endpoints
+        self.membership = None
+        # elastic membership read-path state:
+        #  * handoff_sources — shard -> previous-owner node for shards
+        #    THIS node is adopting mid-handoff; the planner redirects
+        #    reads there until the replay flips ACTIVE;
+        #  * peer_watermarks — gossiped per-peer ingest watermarks /
+        #    backfill epochs (FailureDetector peer_state_sink) stamped
+        #    onto remote shard groups for results-cache freshness;
+        #  * stale-routing counters for /metrics.
+        self.handoff_sources: Dict[int, str] = {}
+        self.peer_watermarks: Dict[str, Dict] = {}
+        self.stale_routing_bounces = 0
+        self.stale_routing_retries = 0
+        # metadata/cardinality peer fan-out concurrency (0 = auto from
+        # the host's core count)
+        if peer_fanout_workers and int(peer_fanout_workers) > 0:
+            self.fanout_workers = int(peer_fanout_workers)
+        else:
+            import os
+            self.fanout_workers = min(32, max(2, os.cpu_count() or 2))
         # the GatewayServer behind /api/v1/ingest/influx (the remote
         # ingest edge with an ack channel); None = no gateway here
         self.gateway = None
@@ -288,6 +357,7 @@ class FiloHttpServer:
     def _handle(self, req: BaseHTTPRequestHandler) -> None:
         retry_after_s: Optional[float] = None
         body_raw = b""
+        body_json = None
         try:
             parsed = urllib.parse.urlparse(req.path)
             qs = urllib.parse.parse_qs(parsed.query)
@@ -303,8 +373,15 @@ class FiloHttpServer:
                     for k, v in urllib.parse.parse_qs(
                             body_raw.decode()).items():
                         qs.setdefault(k, []).extend(v)
+                elif "application/json" in ctype and body_raw:
+                    body_json = json.loads(body_raw)
+            # propagated trace context (Dapper-style): a peer hop's
+            # header makes this node record spans under the caller's
+            # trace and ship them back in the response envelope
+            tctx = obs_trace.parse_context(
+                req.headers.get(obs_trace.HEADER))
             code, payload = self._route(
-                parsed.path, qs, body_raw,
+                parsed.path, qs, body_raw, body_json=body_json, tctx=tctx,
                 tenant_hdr=req.headers.get(qos.TENANT_HEADER),
                 priority_hdr=req.headers.get(qos.PRIORITY_HEADER))
         except _Handled:
@@ -316,6 +393,10 @@ class FiloHttpServer:
             # back off and resubmit as-is.
             code, payload = 429, prom_json.error(str(e), "throttled")
             retry_after_s = e.retry_after_s
+        except DeadlineExceeded as e:
+            # clean budget-exhaustion error (Prometheus timeout shape),
+            # never a hung socket
+            code, payload = 503, prom_json.error(str(e), "timeout")
         except ingest_health.IngestReadOnly as e:
             # the ingest edge while write-path out-of-space degradation
             # is active: recoverable — resubmit after space is freed
@@ -353,12 +434,16 @@ class FiloHttpServer:
         req.wfile.write(body)
 
     def _route(self, path: str, qs: Dict, body_raw: bytes = b"",
-               tenant_hdr: Optional[str] = None,
+               body_json=None, tctx=None, tenant_hdr: Optional[str] = None,
                priority_hdr: Optional[str] = None):
         if path in ("/__health", "/__liveness", "/__readiness"):
-            # locally-served shards with their FSM status, per-shard
-            # ingest watermarks + backfill epochs, and the integrity
-            # flags (HealthRoute + the reference's gossip body)
+            # the health body doubles as status gossip: locally-served
+            # shards with their FSM status (peers sync these instead of
+            # optimistically flipping adopted shards ACTIVE), this node's
+            # own down-view of its peers (quorum input for elastic
+            # reassignment), per-shard ingest watermarks + backfill
+            # epochs, and the integrity flags (HealthRoute + the
+            # reference's gossip body)
             shards_adv: Dict[str, str] = {}
             watermarks: Dict[str, int] = {}
             epochs: Dict[str, int] = {}
@@ -381,8 +466,10 @@ class FiloHttpServer:
                         quarantined[str(n)] = q
                     if getattr(s, "integrity_read_only", False):
                         integrity_ro.append(str(n))
+            down = (sorted(self.detector.down_peers())
+                    if self.detector is not None else [])
             body = {"status": "healthy", "shards": shards_adv,
-                    "down_peers": [],
+                    "down_peers": down,
                     "watermarks": watermarks,
                     "backfill_epochs": epochs,
                     "ingest_read_only":
@@ -391,7 +478,17 @@ class FiloHttpServer:
                                   "read_only_shards": integrity_ro}}
             if self.shard_mapper is not None:
                 body["topo_epoch"] = self.shard_mapper.topology_epoch
-            body["grpc_peers"] = {}
+            mem = self.membership
+            if mem is not None:
+                body["draining"] = bool(mem.draining)
+            gs = self.grpc_server
+            if gs is not None:
+                # advertise the data-plane port; peers combine it with
+                # this node's known host (gossip discovery for
+                # ephemeral-port deployments)
+                body["grpc_port"] = gs.port
+            # introspection: which peers this node has discovered
+            body["grpc_peers"] = dict(self.grpc_peers)
             return 200, body
         if path == "/metrics":
             # ?exemplars=1: OpenMetrics exemplar suffixes on histogram
@@ -400,9 +497,7 @@ class FiloHttpServer:
                        or "").lower() in ("1", "true", "yes")
             return 200, self._metrics_text(exemplars=want_ex)
         if path.startswith("/admin/"):
-            # the planned-membership control plane is off on this node
-            return 400, prom_json.error(
-                "elastic membership is not enabled on this node")
+            return self._admin(path, qs, body_json)
         if path == "/debug/traces":
             return 200, self._debug_traces(qs)
         if path == "/debug/profile":
@@ -437,30 +532,76 @@ class FiloHttpServer:
         m = re.match(r"^/api/v1/cluster/(?P<ds>[^/]+)/status$", path)
         if m:
             return 200, self._cluster_status(m.group("ds"))
-        if re.match(r"^/api/v1/raw/(?P<ds>[^/]+)$", path):
-            return _not_ported("raw")
-        m = re.match(r"^/api/v1/cardinality(-local)?/(?P<ds>[^/]+)$", path)
+        m = re.match(r"^/api/v1/raw/(?P<ds>[^/]+)$", path)
         if m:
-            return self._cardinality(m.group("ds"), qs)
+            return self._raw_dispatch(m.group("ds"), body_json, tctx=tctx)
+        m = re.match(r"^/api/v1/cardinality(?P<local>-local)?/(?P<ds>[^/]+)$",
+                     path)
+        if m:
+            return self._cardinality(m.group("ds"), qs,
+                                     local=bool(m.group("local")))
         m = _ROUTE.match(path)
         if not m:
             return 404, prom_json.error(f"no route for {path}", "not_found")
         ds, rest = m.group("ds"), m.group("rest")
+        # dispatch=local: a forwarded query must evaluate on this node's
+        # shards only (no fan-back-out; loop prevention for pushdown —
+        # federation forwarding is likewise disabled)
+        local_dispatch = self._param(qs, "dispatch") == "local"
+        # degraded-mode knobs: per-query deadline budget (&timeout=,
+        # Prom-style) + opt-in partial responses (&allow_partial=true,
+        # the Thanos partial_response analogue; default fail-fast)
+        timeout_s = self._parse_duration_s(
+            self._param(qs, "timeout"), self.query_timeout_s)
+        deadline = Deadline.after(timeout_s)
+        allow_partial = (self._param(qs, "allow_partial", "")
+                         or "").lower() in ("true", "1", "yes")
+        # &cache=false: results-cache escape hatch — this query neither
+        # reads nor seeds the cache, and pushdown hops propagate the flag
+        no_cache = (self._param(qs, "cache", "")
+                    or "").lower() in ("false", "0", "no")
         if rest in ("query_range", "query"):
             if self._param(qs, "explain") == "analyze":
                 return _not_ported("explain=analyze")
-            engine = self.make_planner(ds)
-            if engine is None:
-                raise QueryError(f"dataset {ds} not set up")
+            # stale-routing bounce (pushdown plane): a dispatch=local hop
+            # names the shards the entry node expects this peer to serve;
+            # if a handoff moved one away, bounce with the new owners
+            # instead of silently evaluating over a subset
+            if local_dispatch:
+                raw_expect = self._param(qs, "expect_shards")
+                if raw_expect:
+                    try:
+                        want = [int(x) for x in raw_expect.split(",")
+                                if x]
+                    except ValueError:
+                        raise QueryError(
+                            f"bad expect_shards {raw_expect!r}")
+                    missing = [n for n in want
+                               if n not in self._local_shard_nums(ds)]
+                    if missing:
+                        return 200, self._stale_routing_payload(missing)
+
+            def mk_engine():
+                eng = self.make_planner(ds, local_dispatch=local_dispatch,
+                                        deadline=deadline,
+                                        allow_partial=allow_partial,
+                                        no_result_cache=no_cache)
+                if eng is None:
+                    raise QueryError(f"dataset {ds} not set up")
+                return eng
             if rest == "query_range":
-                fn = lambda: self._query_range(engine, qs, ds)  # noqa: E731
+                fn = lambda eng: self._query_range(  # noqa: E731
+                    eng, qs, ds, tctx=tctx)
             else:
-                fn = lambda: self._query_instant(engine, qs, ds)  # noqa: E731
+                fn = lambda eng: self._query_instant(  # noqa: E731
+                    eng, qs, ds, tctx=tctx)
             # tenant QoS: identity from &tenant= / X-Filo-Tenant (by
             # convention the workspace), priority class from &priority= /
-            # X-Filo-Priority. The reserved internal tenants charge FORCED
-            # and run at the background class unless a priority was
-            # explicit.
+            # X-Filo-Priority. A dispatch=local hop is a fan-out LEG: the
+            # entry node already made the admission decision, so the leg
+            # force-charges and never sheds. The reserved internal
+            # tenants charge FORCED too and run at the background class
+            # unless a priority was explicit.
             tenant = (self._param(qs, "tenant") or tenant_hdr
                       or qos.DEFAULT_TENANT)
             raw_priority = self._param(qs, "priority") or priority_hdr
@@ -469,38 +610,165 @@ class FiloHttpServer:
             if internal_tenant and not raw_priority:
                 priority = qos.PRIORITY_BACKGROUND
             qctx = qos.QosContext(tenant=tenant, priority=priority,
-                                  forced=internal_tenant)
+                                  forced=local_dispatch or internal_tenant)
             adm = self.admission
             try:
                 if not adm.gated:
                     with qos.activate(qctx):
-                        return fn()
-                with adm.slot(tenant=qctx.tenant):
-                    with qos.activate(qctx):
-                        return fn()
+                        code, payload = self._run_query_routing_retry(
+                            mk_engine, fn)
+                else:
+                    with adm.slot(tenant=qctx.tenant):
+                        with qos.activate(qctx):
+                            code, payload = \
+                                self._run_query_routing_retry(
+                                    mk_engine, fn)
             except qos.AdmissionRejected as e:
                 # host saturation leaves one free rung: a stale cached
                 # extent costs neither a slot nor compute. Over-budget
                 # rejections already walked the full ladder — re-raise.
                 if e.reason != "saturated" or rest != "query_range":
                     raise
-                out = self._shed_stale_saturated(ds, qs, qctx)
+                out = self._shed_stale_saturated(ds, qs, qctx, deadline,
+                                                 no_cache)
                 if out is None:
                     raise
-                return out
+                code, payload = out
+            if local_dispatch and isinstance(payload, dict) \
+                    and self.shard_mapper is not None:
+                # a pushdown hop's response carries the responder's
+                # topology epoch alongside the result (client-facing
+                # responses are untouched — this is the peer plane)
+                payload["topo_epoch"] = self.shard_mapper.topology_epoch
+            return code, payload
         if rest == "read":
             return self._remote_read(ds, body_raw)
-        engine = self.make_planner(ds)
+        engine = self.make_planner(ds, local_dispatch=local_dispatch,
+                                   deadline=deadline,
+                                   allow_partial=allow_partial,
+                                   no_result_cache=no_cache)
         if engine is None:
             return 400, prom_json.error(f"dataset {ds} not set up")
         if rest == "labels":
-            return self._labels(engine, qs)
+            return self._labels(engine, qs, ds)
         lm = re.match(r"^label/(?P<name>[^/]+)/values$", rest)
         if lm:
-            return self._label_values(engine, lm.group("name"), qs)
+            return self._label_values(engine, lm.group("name"), qs, ds)
         if rest == "series":
-            return self._series(engine, qs)
+            return self._series(engine, qs, ds)
         return 404, prom_json.error(f"no route for {path}", "not_found")
+
+    # -- elastic membership admin plane -----------------------------------
+    def _admin(self, path: str, qs: Dict, body: Optional[Dict]):
+        """POST /admin/drain | /admin/adopt | /admin/transfer |
+        /admin/abort_adopt — the planned-membership control plane
+        (parallel/membership.py). Peer-facing endpoints answer HTTP 200
+        with a status envelope like the query plane, so callers share
+        one error-handling path."""
+        mem = self.membership
+        if mem is None:
+            return 400, prom_json.error(
+                "elastic membership is not enabled on this node")
+        body = body or {}
+        if path == "/admin/drain":
+            timeout = self._param(qs, "timeout")
+            out = mem.drain(timeout_s=float(timeout)
+                            if timeout else None)
+            return 200, {"status": "success", "data": out}
+        if path == "/admin/adopt":
+            if body.get("shard") is None:
+                return 400, prom_json.error("adopt: missing shard")
+            out = mem.accept_adopt(int(body["shard"]),
+                                   str(body.get("from") or ""))
+            return 200, {"status": "success", "data": out}
+        if path == "/admin/transfer":
+            if body.get("shard") is None or not body.get("owner"):
+                return 400, prom_json.error(
+                    "transfer: missing shard/owner")
+            out = mem.apply_transfer(int(body["shard"]),
+                                     str(body["owner"]))
+            return 200, {"status": "success", "data": out}
+        if path == "/admin/abort_adopt":
+            if body.get("shard") is None:
+                return 400, prom_json.error("abort_adopt: missing shard")
+            out = mem.abort_adopt(int(body["shard"]),
+                                  str(body.get("owner") or ""))
+            return 200, {"status": "success", "data": out}
+        return 404, prom_json.error(f"no route for {path}", "not_found")
+
+    def _local_shard_nums(self, ds: str) -> set:
+        return {getattr(s, "shard_num", i)
+                for i, s in enumerate(self.shards_by_dataset.get(ds, ()))}
+
+    def _stale_routing_payload(self, missing) -> Dict:
+        """The bounce envelope a peer returns instead of silently
+        evaluating over a subset of the shards the caller routed at it:
+        names the owners THIS node's mapper records (it witnessed the
+        handoff), so the caller can rewire and retry."""
+        owners = {}
+        if self.shard_mapper is not None:
+            owners = {str(n): self.shard_mapper.node_of(n)
+                      for n in missing}
+        epoch = getattr(self.shard_mapper, "topology_epoch", 0) \
+            if self.shard_mapper is not None else 0
+        self.stale_routing_bounces += 1
+        err = StaleRoutingError(
+            owners={int(k): v for k, v in owners.items()},
+            epoch=epoch, node=self.node_id or "",
+            detail="shards %s are not served here" % sorted(missing))
+        return {"status": "error", "errorType": "stale_routing",
+                "error": str(err), "owners": owners,
+                "topo_epoch": epoch}
+
+    def _apply_owner_hints(self, e: StaleRoutingError) -> None:
+        """Fold a stale-routing responder's owner map into the local
+        mapper before re-materializing: the responder is the former
+        owner and witnessed the handoff. Hints naming unknown nodes —
+        or claiming THIS node serves a shard it doesn't — are ignored
+        (the retry then waits for gossip/transfer to converge)."""
+        if self.shard_mapper is None:
+            return
+        from filodb_tpu_torch.parallel.shardmapper import ShardStatus
+        local = {n for lst in self.shards_by_dataset.values()
+                 for n in (getattr(s, "shard_num", i)
+                           for i, s in enumerate(lst))}
+        for sh, owner in sorted(e.owners.items()):
+            if not owner or not (0 <= sh < self.shard_mapper.num_shards):
+                continue
+            if owner == self.node_id:
+                if sh not in local:
+                    continue        # bogus hint: we don't serve it
+            elif owner not in self.peers:
+                continue
+            if self.shard_mapper.node_of(sh) != owner:
+                self.shard_mapper.assign(sh, owner)
+                self.shard_mapper.update(sh, ShardStatus.ACTIVE, owner)
+
+    def _run_query_routing_retry(self, mk_engine, fn):
+        """Execute a query, re-resolving routing on StaleRoutingError:
+        a peer mid-/post-handoff bounced rather than answer for shards
+        it no longer serves. The bounce carries the new owners; apply
+        them, drop cached plans/results keyed on the stale world, and
+        re-materialize. A stale-epoch peer response is therefore never
+        returned to a client — the query either converges on fresh
+        routing or fails loudly after bounded attempts."""
+        import time as _time
+        attempts = 3
+        for i in range(attempts):
+            try:
+                return fn(mk_engine())
+            except StaleRoutingError as e:
+                self.stale_routing_retries += 1
+                self._apply_owner_hints(e)
+                # plans are routing-independent but the results cache
+                # keys on the topology world: drop both (the listener
+                # wiring clears the results cache too)
+                self.plan_cache.invalidate("stale-routing")
+                if i == attempts - 1:
+                    raise QueryError(
+                        "shard routing did not converge after "
+                        f"{attempts} attempts: {e.detail or e}")
+                _time.sleep(0.05 * (i + 1))
 
     # -- tenant QoS: cost admission + the shed-to-degraded ladder ---------
     def _charge_or_shed(self, engine, qs, ds: str, query: str, plan,
@@ -686,14 +954,14 @@ class FiloHttpServer:
             refunds the rung's charge and falls through to the next rung
             / terminal 429 — it must never surface as a 400: the client
             sent a valid query, the degraded answer just wasn't
-            available."""
+            available. Deadline exhaustion keeps its own 503 shape."""
             cost_x = engine.estimate_cost(plan_x).total
             if not budgets.try_charge(tenant, cost_x):
                 return None
             obs_trace.event("qos-shed", rung=rung, tenant=tenant)
             try:
                 res = engine.materialize(plan_x).execute()
-            except qos.AdmissionRejected:
+            except (DeadlineExceeded, qos.AdmissionRejected):
                 raise
             except Exception as e:     # noqa: BLE001 — fall to next rung
                 budgets.refund(tenant, cost_x)
@@ -738,15 +1006,14 @@ class FiloHttpServer:
                 return out
         return None
 
-    def _shed_stale_saturated(self, ds: str, qs: Dict, qctx
+    def _shed_stale_saturated(self, ds: str, qs: Dict, qctx, deadline,
+                              no_cache: bool
                               ) -> Optional[Tuple[int, object]]:
         """Host-saturation fallback: the bounded admission wait timed
         out, but a stale cached extent needs neither a slot nor
         compute — parse (plan cache) and look it up. None when there
         is no usable extent or the client sent &cache=false (the caller
         answers 429)."""
-        no_cache = (self._param(qs, "cache", "")
-                    or "").lower() in ("false", "0", "no")
         if no_cache or not self.qos_shed_degraded:
             return None
         query = self._param(qs, "query")
@@ -760,7 +1027,7 @@ class FiloHttpServer:
             return None
         if step <= 0 or end < start:
             return None
-        engine = self.make_planner(ds)
+        engine = self.make_planner(ds, deadline=deadline)
         if engine is None:
             return None
         plan = self.plan_cache.lookup(ds, query, start * 1000,
@@ -789,8 +1056,10 @@ class FiloHttpServer:
         """Encode a shed-ladder result through the bulk matrix path; the
         warnings/partial markers ride the envelope. Never admitted to
         the results cache (the shed warning trips the degraded guard)."""
+        hist_wire = bool(self._param(qs, "hist-wire"))
         stats_json = self._query_stats(engine, res)
-        if isinstance(res, GridResult) and not res.is_hist():
+        if isinstance(res, GridResult) and not hist_wire \
+                and not res.is_hist():
             st = engine.stats
             warnings = list(getattr(st, "warnings", ()) or ())
             warnings.extend(w for w in res.warnings
@@ -799,26 +1068,70 @@ class FiloHttpServer:
             return prom_json.matrix_bytes(res, stats_json,
                                           warnings=warnings,
                                           partial=partial)
-        out = prom_json.matrix(res)
+        out = prom_json.matrix(res, hist_wire=hist_wire)
         out["stats"] = stats_json
         prom_json.attach_degraded(out, res, engine.stats)
         return out
 
-    def make_planner(self, ds: str):
-        """Planner over this node's view of a dataset. A reserved
-        internal dataset is planned over its local shards only, with no
-        shard mapper."""
+    def make_planner(self, ds: str, local_dispatch: bool = False,
+                     deadline: Optional[Deadline] = None,
+                     allow_partial: bool = False,
+                     no_result_cache: bool = False):
+        """Planner over this node's view of a dataset (shared by the HTTP
+        endpoints and the gRPC query service). ``local_dispatch`` pins
+        evaluation to local shards — no peer fan-out, no federation. A
+        reserved internal dataset is planned over its local shards
+        only, with no shard mapper and no cluster plane."""
         shards = self.shards_by_dataset.get(ds)
         if shards is None:
             return None
-        internal = ds in INTERNAL_DATASETS
-        planner = QueryPlanner(
-            shards, backend=self.backend,
-            shard_mapper=None if internal else self.shard_mapper,
-            spread=self.spread,
-            spread_provider=None if internal else self.spread_provider,
-            limits=self.query_limits)
-        # QoS cost estimation reads the metering snapshot
+        if ds in INTERNAL_DATASETS:
+            planner = QueryPlanner(
+                shards, backend=self.backend, deadline=deadline,
+                allow_partial=allow_partial,
+                no_result_cache=no_result_cache,
+                limits=self.query_limits, dataset=ds,
+                node_id=self.node_id)
+            planner.metering = self.tenant_metering
+            return planner
+        peers = {} if local_dispatch else self.peers
+        partitions = {} if local_dispatch else self.partitions
+        grpc_peers = {} if local_dispatch else self.grpc_peers
+        grpc_partitions = {} if local_dispatch else self.grpc_partitions
+        # mid-handoff read redirect: shards this node is adopting route
+        # back to their still-serving previous owner until replay
+        # completes (resolved to URLs here; applies under dispatch=local
+        # too — the data is by definition this node's shard set)
+        handoff = {}
+        if self.handoff_sources:
+            down = set(self.detector.down_peers()) \
+                if self.detector is not None else set()
+            for sh, node in dict(self.handoff_sources).items():
+                url = self.peers.get(node)
+                if url and node not in down:
+                    handoff[sh] = (node, url)
+        planner = QueryPlanner(shards, backend=self.backend,
+                               handoff_sources=handoff,
+                               peer_watermarks=self.peer_watermarks,
+                               deadline=deadline,
+                               allow_partial=allow_partial,
+                               no_result_cache=no_result_cache,
+                               resilience=self.resilience,
+                               shard_mapper=self.shard_mapper,
+                               spread=self.spread,
+                               limits=self.query_limits,
+                               spread_provider=self.spread_provider,
+                               node_id=self.node_id, peers=peers,
+                               buddies=self.buddies,
+                               partitions=partitions,
+                               local_partitions=self.local_partitions,
+                               dataset=ds,
+                               grpc_peers=grpc_peers,
+                               grpc_partitions=grpc_partitions,
+                               local_dispatch=local_dispatch,
+                               plane_fallbacks=self.plane_fallbacks)
+        # QoS cost estimation: the metering snapshot prices remote
+        # shard groups (local trackers only know local shards)
         planner.metering = self.tenant_metering
         return planner
 
@@ -834,6 +1147,23 @@ class FiloHttpServer:
     def _param(qs, name, default=None):
         v = qs.get(name)
         return v[0] if v else default
+
+    @staticmethod
+    def _parse_duration_s(raw: Optional[str], default_s: float) -> float:
+        """&timeout= value: plain seconds or a Prometheus-style suffixed
+        duration (500ms / 30s / 2m / 1h). Bad values keep the default."""
+        if not raw:
+            return default_s
+        try:
+            m = re.match(r"^\s*([0-9.]+)\s*(ms|s|m|h)?\s*$", raw)
+            if not m:
+                return default_s
+            v = float(m.group(1))
+            scale = {"ms": 1e-3, "s": 1.0, "m": 60.0,
+                     "h": 3600.0}.get(m.group(2) or "s", 1.0)
+            return max(v * scale, 1e-3)
+        except ValueError:
+            return default_s
 
     def _ingest_influx(self, body_raw: bytes):
         """Remote ingest edge: newline-delimited influx lines in the
@@ -896,7 +1226,7 @@ class FiloHttpServer:
             f"promlint: {d.render()}" for d in diags)
         return None
 
-    def _query_range(self, engine, qs, ds: str):
+    def _query_range(self, engine, qs, ds: str, tctx=None):
         import time as _time
         query = self._param(qs, "query")
         if not query:
@@ -906,11 +1236,11 @@ class FiloHttpServer:
         step = int(float(self._param(qs, "step", "10")))
         if end < start:
             raise QueryError("end < start")
-        # tracing: fresh requests sample per tracer policy;
-        # &explain=trace forces a trace for this one request and inlines
-        # it in the response
+        # tracing: a propagated context (peer hop) is always honored;
+        # fresh requests sample per tracer policy; &explain=trace forces
+        # a trace for this one request and inlines it in the response
         explain_trace = self._param(qs, "explain") == "trace"
-        tr = self.tracer.start(None, force=explain_trace)
+        tr = self.tracer.start(tctx, force=explain_trace)
         entry = self.inflight.register(
             query, ds, kind="range",
             trace_id=tr.trace_id if tr is not None else None)
@@ -923,9 +1253,15 @@ class FiloHttpServer:
                                     node=self.node_id or ""):
                     code, payload = self._query_range_stages(
                         engine, qs, ds, query, start, end, step, entry,
-                        stages, force_dict=explain_trace)
-            if explain_trace and isinstance(payload, dict):
-                payload["trace"] = tr.to_json()
+                        stages,
+                        force_dict=tctx is not None or explain_trace)
+            if tr is not None and isinstance(payload, dict):
+                if tctx is not None:
+                    # peer hop: ship the local spans back; the entry
+                    # node's recorder stitches them into ONE trace
+                    payload["trace_spans"] = tr.spans_json()
+                elif explain_trace:
+                    payload["trace"] = tr.to_json()
             return code, payload
         finally:
             # tail retention runs HERE so every exit path (success,
@@ -934,7 +1270,7 @@ class FiloHttpServer:
             total_s = _time.perf_counter() - t0
             self.inflight.unregister(entry)
             tr = self._finish_request_trace(
-                tr, code, total_s, stages, force=explain_trace)
+                tr, tctx, code, total_s, stages, force=explain_trace)
             obs_metrics.observe(
                 "filodb_query_latency_seconds", _QLAT_HELP, total_s,
                 trace_id=tr.trace_id if tr is not None else None)
@@ -947,7 +1283,10 @@ class FiloHttpServer:
         materialize -> execute -> encode, with per-stage spans, the
         in-flight registry's stage pointer, and the ``stages``
         breakdown the slow-query log records. ``force_dict`` routes the
-        encode off the pre-encoded fast path so the trace can attach."""
+        encode off the pre-encoded fast path so trace keys can attach —
+        only peer hops (``trace_spans`` rides the envelope) and explain
+        requests need it; a plain request with a pending tail-sampling
+        trace keeps the byte fast path."""
         import time as _time
         t0 = _time.perf_counter()
         self.inflight.stage(entry, "parse")
@@ -1014,8 +1353,9 @@ class FiloHttpServer:
             "resultCache": ses.state,
         }
         self.inflight.stage(entry, "encode")
-        if isinstance(res, GridResult) and not res.is_hist() \
-                and not force_dict:
+        hist_wire = bool(self._param(qs, "hist-wire"))
+        if isinstance(res, GridResult) and not hist_wire \
+                and not res.is_hist() and not force_dict:
             # serving fast path: bulk matrix rows encode straight to
             # JSON bytes (memoized ts/value fragments), skipping the
             # dict tree + json.dumps walk
@@ -1030,13 +1370,13 @@ class FiloHttpServer:
                 (_time.perf_counter() - t3) * 1000, 3)
             return 200, out
         with obs_trace.span("encode"):
-            out = prom_json.matrix(res)
+            out = prom_json.matrix(res, hist_wire=hist_wire)
             out["stats"] = stats_json
             prom_json.attach_degraded(out, res, engine.stats)
         stages["encodeMs"] = round((_time.perf_counter() - t3) * 1000, 3)
         return 200, out
 
-    def _finish_request_trace(self, tr, code: int, total_s: float,
+    def _finish_request_trace(self, tr, tctx, code: int, total_s: float,
                               stages: Dict, force: bool = False):
         """The tail-retention decision for one finished request (called
         from the query paths' ``finally``): errors (exception in
@@ -1045,9 +1385,13 @@ class FiloHttpServer:
         pending trace; the rest keep the start-time sampling coin.
         Returns the trace iff it was retained (i.e. its id resolves in
         ``/debug/traces``) — callers link slowlog records and latency
-        exemplars only to that."""
+        exemplars only to that. Peer hops pass through: the entry node
+        owns retention, and the forwarded id still links the stitched
+        entry-node trace."""
         if tr is None:
             return None
+        if tctx is not None:
+            return tr
         err = sys.exc_info()[0] is not None or code >= 400
         shed = bool(stages.get("qosShed"))
         will_log = (self.slow_log.enabled
@@ -1068,8 +1412,11 @@ class FiloHttpServer:
         rec = {
             "query": query, "dataset": ds, "kind": kind,
             "stages": dict(stages),
-            "shards": sorted(int(getattr(s, "shard_num", -1))
-                             for s in getattr(engine, "shards", ())),
+            "shards": sorted(
+                int(n) for s in getattr(engine, "shards", ())
+                for n in (s.shard_num if isinstance(
+                    getattr(s, "shard_num", None), tuple)
+                    else (getattr(s, "shard_num", -1),))),
             "seriesScanned": getattr(st, "series_scanned", 0),
             "samplesScanned": getattr(st, "samples_scanned", 0),
             "partial": bool(getattr(st, "partial", False)),
@@ -1079,14 +1426,14 @@ class FiloHttpServer:
             rec["trace_id"] = tr.trace_id
         self.slow_log.maybe_record(total_s * 1000, rec)
 
-    def _query_instant(self, engine, qs, ds: str):
+    def _query_instant(self, engine, qs, ds: str, tctx=None):
         import time as _time
         query = self._param(qs, "query")
         if not query:
             raise QueryError("missing query parameter")
         time_s = int(float(self._param(qs, "time", "0")))
         explain_trace = self._param(qs, "explain") == "trace"
-        tr = self.tracer.start(None, force=explain_trace)
+        tr = self.tracer.start(tctx, force=explain_trace)
         entry = self.inflight.register(
             query, ds, kind="instant",
             trace_id=tr.trace_id if tr is not None else None)
@@ -1099,14 +1446,17 @@ class FiloHttpServer:
                                     node=self.node_id or ""):
                     code, payload = self._query_instant_stages(
                         engine, qs, ds, query, time_s, entry, stages)
-            if explain_trace and isinstance(payload, dict):
-                payload["trace"] = tr.to_json()
+            if tr is not None and isinstance(payload, dict):
+                if tctx is not None:
+                    payload["trace_spans"] = tr.spans_json()
+                elif explain_trace:
+                    payload["trace"] = tr.to_json()
             return code, payload
         finally:
             total_s = _time.perf_counter() - t0
             self.inflight.unregister(entry)
             tr = self._finish_request_trace(
-                tr, code, total_s, stages, force=explain_trace)
+                tr, tctx, code, total_s, stages, force=explain_trace)
             obs_metrics.observe(
                 "filodb_query_latency_seconds", _QLAT_HELP, total_s,
                 trace_id=tr.trace_id if tr is not None else None)
@@ -1198,7 +1548,7 @@ class FiloHttpServer:
                else 1 << 62)
         return start, end
 
-    def _labels(self, engine, qs):
+    def _labels(self, engine, qs, ds="timeseries"):
         # Prometheus semantics: result is the UNION over all match[]
         # selectors (none -> all series).
         start, end = self._time_range(qs)
@@ -1207,18 +1557,23 @@ class FiloHttpServer:
             filters = selector_to_filters(sel) if sel else ()
             out.update(engine.execute(lp.LabelNames(list(filters),
                                                     start, end)))
+        if self.peers:
+            out |= self._peer_metadata_union(ds, "labels", qs)
         return 200, prom_json.success(sorted(out))
 
-    def _label_values(self, engine, name, qs):
+    def _label_values(self, engine, name, qs, ds="timeseries"):
         start, end = self._time_range(qs)
         out: set = set()
         for sel in qs.get("match[]", []) or [None]:
             filters = selector_to_filters(sel) if sel else ()
             out.update(engine.execute(lp.LabelValues(name, list(filters),
                                                      start, end)))
+        if self.peers:
+            out |= self._peer_metadata_union(ds, f"label/{name}/values",
+                                             qs)
         return 200, prom_json.success(sorted(out))
 
-    def _series(self, engine, qs):
+    def _series(self, engine, qs, ds="timeseries"):
         start, end = self._time_range(qs)
         out = []
         seen = set()
@@ -1230,6 +1585,13 @@ class FiloHttpServer:
                 if key not in seen:
                     seen.add(key)
                     out.append(prom_json._metric(labels))
+        if self.peers:
+            for item in self._peer_metadata_union(ds, "series", qs):
+                labels = dict(item)
+                key = frozenset(labels.items())
+                if key not in seen:
+                    seen.add(key)
+                    out.append(labels)
         return 200, prom_json.success(out)
 
     def _cluster_status(self, ds):
@@ -1245,7 +1607,7 @@ class FiloHttpServer:
                       for i in range(self.shard_mapper.num_shards)]
         return prom_json.success(states)
 
-    def _cardinality(self, ds: str, qs: Dict):
+    def _cardinality(self, ds: str, qs: Dict, local: bool = False):
         """GET /api/v1/cardinality/{ds}?prefix=ws,ns&depth=N — per-prefix
         series counts from the cardinality trackers (TsCardinalities plan;
         reference TsCardExec + TenantIngestionMetering surface)."""
@@ -1263,21 +1625,212 @@ class FiloHttpServer:
             raise QueryError("depth must be >= prefix length")
         recs = QueryEngine(shards).execute(
             lp.TsCardinalities(prefix, depth))
+        if self.peers and not local:
+            # cross-node merge: peers answer their local counts
+            # (TsCardReduceExec scatter-gather)
+            from filodb_tpu_torch.core.cardinality import (
+                CardinalityRecord, merge_records)
+            remote = self._peer_cardinality(ds, qs)
+            recs = merge_records([recs] + [[
+                CardinalityRecord(tuple(d["prefix"]), d["tsCount"],
+                                  d["activeTsCount"], d["childrenCount"],
+                                  d["childrenQuota"])
+                for d in batch] for batch in remote])
         return 200, prom_json.success([r.to_json() for r in recs])
+
+    def _peer_cardinality(self, ds: str, qs: Dict) -> List[List[Dict]]:
+        targets = self._live_peer_urls(
+            "{base}/api/v1/cardinality-local/%s" % ds, qs)
+        return [p["data"] for p in self._fanout(targets)]
+
+    # -- cluster plane ----------------------------------------------------
+    def _raw_dispatch(self, ds: str, body: Optional[Dict], tctx=None):
+        """POST /api/v1/raw/{ds}: the leaf-dispatch endpoint peers call to
+        read raw series from THIS node's shards (PlanDispatcher.scala:21 —
+        the entry node evaluates the plan over the merged series).
+        ``tctx`` is the caller's propagated trace context: spans
+        recorded here ride back in ``trace_spans`` for the entry node
+        to stitch."""
+        from filodb_tpu_torch.parallel.cluster import (series_to_wire,
+                                                       wire_to_filters)
+        from filodb_tpu_torch.query.model import QueryStats
+        if body is None:
+            return 400, prom_json.error("missing JSON body")
+        # deadline propagation: the caller (an entry node mid-query)
+        # forwards its REMAINING budget; this leaf inherits it instead
+        # of running unbounded while the entry node has long timed out
+        deadline = None
+        if body.get("timeout_s") is not None:
+            try:
+                deadline = Deadline.after(
+                    min(float(body["timeout_s"]), self.query_timeout_s))
+            except (TypeError, ValueError):
+                deadline = None
+        tr = self.tracer.start(tctx) if tctx is not None else None
+        # tenant QoS budget inheritance on the JSON leaf plane: forced
+        # charge (the entry node already made the admission decision)
+        # + the leg's priority class for the batcher
+        qctx = None
+        if body.get("tenant"):
+            qctx = qos.QosContext(tenant=str(body["tenant"]),
+                                  priority=int(body.get("priority")
+                                               or 0), forced=True)
+            adm = self.admission
+            if adm is not None and adm.budgets.enabled:
+                adm.budgets.charge_forced(
+                    qctx.tenant, qos.estimate_leaf_cost(
+                        wire_to_filters(body.get("filters", [])),
+                        self.shards_by_dataset.get(ds, ()),
+                        int(body.get("start_ms") or 0),
+                        int(body.get("end_ms") or 0)))
+        with qos.activate(qctx), obs_trace.activate(tr):
+            with obs_trace.span("peer-fetch-raw",
+                                node=self.node_id or "", dataset=ds,
+                                plane="http"):
+                try:
+                    series = self.leaf_select(
+                        ds, wire_to_filters(body.get("filters", [])),
+                        int(body["start_ms"]), int(body["end_ms"]),
+                        body.get("column"), body.get("shards"),
+                        span_snap=bool(body.get("full", True)),
+                        stats=QueryStats(), deadline=deadline)
+                except StaleRoutingError as e:
+                    # HTTP 200 + error envelope (not a 4xx): the
+                    # caller must read the owners hint, and a non-2xx
+                    # would surface as a retryable transport error
+                    return 200, {
+                        "status": "error",
+                        "errorType": "stale_routing", "error": str(e),
+                        "owners": {str(k): v
+                                   for k, v in e.owners.items()},
+                        "topo_epoch": e.epoch}
+        if series is None:
+            return 400, prom_json.error(f"dataset {ds} not set up")
+        out = {"status": "success", "data": series_to_wire(series)}
+        # every peer response carries the responder's topology epoch:
+        # the entry node can cross-check its routing freshness
+        if self.shard_mapper is not None \
+                and hasattr(self.shard_mapper, "topology_epoch"):
+            out["topo_epoch"] = self.shard_mapper.topology_epoch
+        if tr is not None:
+            out["trace_spans"] = tr.spans_json()
+        return 200, out
+
+    def leaf_select(self, ds: str, filters, start_ms: int, end_ms: int,
+                    column, want_shards, span_snap: bool = True,
+                    stats=None, deadline: Optional[Deadline] = None):
+        """Shared leaf-dispatch selection (HTTP raw endpoint + the gRPC
+        FetchRaw service): span-bounded reads with node-scoped snapshot
+        keys, so the payload scales with the query span, not retention
+        (SerializedRangeVector semantics, RangeVector.scala:452).
+        ``deadline`` carries the entry node's forwarded remaining
+        budget; selection checks it per shard and fails fast. A wanted
+        shard that is NOT served here raises StaleRoutingError (with
+        this node's owner map) instead of silently answering for a
+        subset — the caller's routing lags a handoff and must not hand
+        an incomplete result to its client."""
+        from filodb_tpu_torch.query.engine import (select_raw_series,
+                                                   select_span_series)
+        shards = self.shards_by_dataset.get(ds)
+        if shards is None:
+            return None
+        by_num = {getattr(s, "shard_num", i): s
+                  for i, s in enumerate(shards)}
+        if want_shards is not None:
+            missing = [int(n) for n in want_shards if n not in by_num]
+            if missing:
+                self.stale_routing_bounces += 1
+                owners = {}
+                if self.shard_mapper is not None:
+                    owners = {n: self.shard_mapper.node_of(n)
+                              for n in missing}
+                raise StaleRoutingError(
+                    owners=owners,
+                    epoch=getattr(self.shard_mapper, "topology_epoch",
+                                  0) if self.shard_mapper is not None
+                    else 0,
+                    node=self.node_id or "",
+                    detail=f"shards {sorted(missing)} are not served "
+                           f"here")
+        subset = [by_num[n] for n in want_shards if n in by_num] \
+            if want_shards is not None else shards
+        if span_snap:
+            return select_span_series(
+                subset, filters, start_ms, end_ms, column, stats,
+                limits=self.query_limits, node_id=self.node_id or "",
+                ds=ds, deadline=deadline)
+        return select_raw_series(
+            subset, filters, start_ms, end_ms, column, stats,
+            full=False, limits=self.query_limits, deadline=deadline)
+
+    def _live_peer_urls(self, path_fmt: str, qs: Dict) -> List[str]:
+        """URLs for peers whose shards are still queryable (dead peers are
+        skipped — the FailureDetector already marked them DOWN)."""
+        targets = []
+        for node, base in self.peers.items():
+            if self.shard_mapper is not None:
+                shards = self.shard_mapper.shards_for_node(node)
+                if shards and not self.shard_mapper.active_shards(shards):
+                    continue
+            targets.append(path_fmt.format(base=base.rstrip("/"))
+                           + "?" + urllib.parse.urlencode(qs, doseq=True))
+        return targets
+
+    def _fanout(self, targets: List[str]) -> List[Dict]:
+        """Concurrent GETs; returns successful payloads only (down peers
+        yield partial results, matching the query path's semantics).
+        Concurrency is ``fanout_workers`` (knob ``peer-fanout-workers``,
+        auto-sized from the core count; surfaced in /metrics) — the old
+        hard-coded cap of 8 serialized metadata fan-out on wide
+        clusters."""
+        import urllib.request as ureq
+        from concurrent.futures import ThreadPoolExecutor
+        if not targets:
+            return []
+
+        def fetch(url):
+            try:
+                with ureq.urlopen(url, timeout=5) as r:
+                    payload = json.loads(r.read())
+                if payload.get("status") == "success":
+                    return payload
+            except (OSError, ValueError):
+                pass
+            return None
+
+        with ThreadPoolExecutor(
+                max_workers=min(self.fanout_workers,
+                                len(targets))) as ex:
+            return [p for p in ex.map(fetch, targets) if p]
+
+    def _peer_metadata_union(self, ds: str, rest: str, qs: Dict) -> set:
+        """Fan a labels/label-values request out to peers and union the
+        results (metadata scatter-gather; MetadataRemoteExec
+        equivalent)."""
+        out: set = set()
+        if qs.get("__local__"):
+            return out
+        q = dict(qs)
+        q["__local__"] = ["1"]
+        targets = self._live_peer_urls(
+            "{base}/promql/%s/api/v1/%s" % (ds, rest), q)
+        for payload in self._fanout(targets):
+            out.update(tuple(sorted(d.items())) if isinstance(d, dict)
+                       else d for d in payload["data"])
+        return out
 
     # -- Prometheus remote-read -------------------------------------------
     def _remote_read(self, ds: str, body_raw: bytes):
         """POST /promql/{ds}/api/v1/read: snappy(ReadRequest protobuf) ->
         snappy(ReadResponse) (remote-storage.proto;
-        PrometheusApiRoute.scala:129). The reference resolves shards
-        through its cluster planner; this node's planner covers its own
-        shards, which on one node are all of them."""
+        PrometheusApiRoute.scala:129)."""
         from filodb_tpu_torch.core.index import ColumnFilter
         from filodb_tpu_torch.http import remote_read as rr
         from filodb_tpu_torch.query.engine import select_raw_series
         from filodb_tpu_torch.query.model import QueryStats
-        planner = self.make_planner(ds)
-        if planner is None:
+        from filodb_tpu_torch.query import logical as lp2
+        shards = self.shards_by_dataset.get(ds)
+        if shards is None:
             return 400, prom_json.error(f"dataset {ds} not set up")
         if not body_raw:
             return 400, prom_json.error("missing remote-read body")
@@ -1286,18 +1839,42 @@ class FiloHttpServer:
                 rr.snappy_decompress(body_raw))
         except (ValueError, IndexError) as e:
             raise QueryError(f"bad remote-read request: {e}")
+        # resolve through the planner so cluster peers / buddy replicas
+        # serve their shards — same coverage as /query_range
+        planner = QueryPlanner(shards, shard_mapper=self.shard_mapper,
+                               spread=self.spread,
+                               spread_provider=self.spread_provider,
+                               limits=self.query_limits,
+                               node_id=self.node_id, peers=self.peers,
+                               buddies=self.buddies, dataset=ds,
+                               resilience=self.resilience,
+                               deadline=Deadline.after(
+                                   self.query_timeout_s))
         results = []
         for q in queries:
-            # Prometheus clients send __name__; the index stores the
+            # Prometheus clients send __name__; our index stores the
             # metric under the schema's metric column (_metric_), the
             # same mapping the PromQL parser applies
             filters = [ColumnFilter(
                 "_metric_" if n == "__name__" else n, op, v)
                 for n, op, v in q["matchers"]]
-            plan = lp.RawSeriesPlan(tuple(filters), q["start_ms"],
-                                    q["end_ms"])
+            plan = lp2.RawSeriesPlan(tuple(filters), q["start_ms"],
+                                     q["end_ms"])
+            shard_objs = planner._resolve_shards(plan)
+            # federated workspaces: matchers pinning _ws_ to a partition
+            # another cluster owns read that cluster's raw endpoint (the
+            # same coverage /query_range gets from partition routing)
+            ws = [f.value for f in filters
+                  if f.label == "_ws_" and f.op == "eq"]
+            if ws and self.partitions:
+                url = self.partitions.get(ws[0])
+                if url and ws[0] not in self.local_partitions:
+                    from filodb_tpu_torch.parallel.cluster import \
+                        RemoteShardGroup
+                    shard_objs = [RemoteShardGroup(
+                        f"partition:{url}", url, ds, None)]
             series = select_raw_series(
-                planner._resolve_shards(plan), filters,
+                shard_objs, filters,
                 q["start_ms"], q["end_ms"], None,
                 QueryStats(), limits=self.query_limits)
             out = []
@@ -1312,8 +1889,6 @@ class FiloHttpServer:
             results.append(out)
         return 200, rr.snappy_compress(rr.encode_read_response(results))
 
-    # HELP text per family (fallback: a generic string). Kept verbose —
-    # operators read this off the exposition, not the source.
     _METRIC_HELP = {
         "filodb_shard_status": "Shard FSM status (1 per shard; labels "
                                "carry status/node)",
@@ -1416,6 +1991,45 @@ class FiloHttpServer:
         "filodb_tenant_rejected_total":
             "Tenant queries answered 429 (over budget, no degraded "
             "answer existed)",
+        "filodb_grpc_rpcs_served_total": "gRPC query-service RPCs served",
+        "filodb_grpc_plane_fallbacks_total":
+            "Leaf fetches and pushdowns of this node that fell back from "
+            "the gRPC plane to the HTTP JSON plane, by peer",
+        "filodb_breaker_state": "Per-peer circuit-breaker state "
+                                "(1 per peer; state label)",
+        "filodb_shard_handoff_started_total":
+            "Planned shard handoffs started (drain + hand-back)",
+        "filodb_shard_handoff_completed_total":
+            "Planned shard handoffs completed (ownership flipped, "
+            "local copy released)",
+        "filodb_shard_handoff_failed_total":
+            "Planned shard handoffs rolled back to the draining owner",
+        "filodb_shard_adoptions_total":
+            "Shards adopted by this node (kind=planned handoff / "
+            "kind=crash reassignment)",
+        "filodb_shard_releases_total":
+            "Local shard copies released (handoff completion or "
+            "owner return)",
+        "filodb_membership_draining":
+            "1 while this node is draining its shards for a planned "
+            "restart",
+        "filodb_membership_incoming_shards":
+            "Planned adoptions currently replaying on this node",
+        "filodb_handback_failures_total":
+            "Hand-back handoffs that exhausted their retries (shard "
+            "stays on the temporary owner)",
+        "filodb_stale_routing_bounces_total":
+            "Peer requests bounced because they named shards this "
+            "node no longer serves",
+        "filodb_stale_routing_retries_total":
+            "Queries re-materialized against fresh routing after a "
+            "peer's stale-routing bounce",
+        "filodb_detector_thread_wedged":
+            "1 if the failure-detector monitor thread failed to exit "
+            "on stop()",
+        "filodb_peer_fanout_workers":
+            "Metadata/cardinality peer fan-out concurrency "
+            "(peer-fanout-workers knob; auto = host core count)",
         "filodb_tenant_time_series_total": "Per-tenant series count",
         "filodb_tenant_time_series_active":
             "Per-tenant actively-ingesting series count",
@@ -1569,6 +2183,61 @@ class FiloHttpServer:
                 emit("tenant_degraded_total", {**lbl, "rung": rung}, n)
             if t.get("rejected"):
                 emit("tenant_rejected_total", lbl, t["rejected"])
+        # elastic membership: handoff/adoption state, stale-routing
+        # bounce/retry counters, detector liveness, the gRPC plane and
+        # the per-peer breakers
+        mem = self.membership
+        if mem is not None:
+            ms = mem.metrics_snapshot()
+            emit("shard_handoff_started_total", {},
+                 ms["handoffs_started"])
+            emit("shard_handoff_completed_total", {},
+                 ms["handoffs_completed"])
+            emit("shard_handoff_failed_total", {},
+                 ms["handoffs_failed"])
+            emit("shard_adoptions_total", {"kind": "planned"},
+                 ms["adoptions_planned"])
+            emit("shard_adoptions_total", {"kind": "crash"},
+                 ms["adoptions_crash"])
+            emit("shard_releases_total", {}, ms["releases"])
+            emit("membership_draining", {}, ms["draining"])
+            emit("membership_incoming_shards", {}, ms["incoming"])
+            emit("handback_failures_total", {},
+                 ms["handback_failures"])
+        emit("stale_routing_bounces_total", {},
+             self.stale_routing_bounces)
+        emit("stale_routing_retries_total", {},
+             self.stale_routing_retries)
+        emit("peer_fanout_workers", {}, self.fanout_workers)
+        if self.detector is not None:
+            emit("detector_thread_wedged", {},
+                 1 if self.detector.thread_wedged else 0)
+        gs = self.grpc_server
+        if gs is not None:
+            emit("grpc_rpcs_served_total", {}, gs.rpcs_served)
+        if gs is not None or self.grpc_peers or self.grpc_partitions:
+            # the repair of ROADMAP C.15: a downgrade is never silent
+            fb = self.plane_fallbacks.snapshot()
+            peers = sorted(set(self.peers) | set(fb))
+            if not peers:
+                emit("grpc_plane_fallbacks_total", {}, 0)
+            for peer in peers:
+                emit("grpc_plane_fallbacks_total", {"peer": peer},
+                     fb.get(peer, 0))
+        breakers = self.resilience.breakers
+        if breakers is not None:
+            # per-peer breaker state + retry-policy attempts/retries/
+            # exhaustions/rejections from the server-lifetime registry
+            for peer, entry in sorted(breakers.metrics_snapshot().items()):
+                state = entry.get("state")
+                if state is not None:
+                    emit("breaker_state",
+                         {"peer": peer, "state": state}, 1)
+                for k in ("attempts", "retries", "exhaustions",
+                          "rejections"):
+                    if k in entry:
+                        emit(f"peer_call_{k}_total", {"peer": peer},
+                             entry[k])
         meter = self.tenant_metering
         if meter is not None:
             # periodic per-tenant cardinality gauges

@@ -33,6 +33,8 @@ from filodb_tpu_torch.query.model import (GridResult, QueryError, QueryLimits,
 
 
 METRIC_LABELS = ("_metric_", "__name__")
+# the functions of the slide evaluator and the group-sum kernel
+_COUNTER_FUNCS = ("rate", "increase", "delta")
 
 
 def strip_metric(labels: Mapping[str, str]) -> Dict[str, str]:
@@ -50,7 +52,7 @@ def select_raw_series(shards: Sequence[TimeSeriesShard],
                       stats: Optional[QueryStats] = None,
                       full: bool = False,
                       limits: Optional[QueryLimits] = None,
-                      deadline=None) -> List[RawSeries]:
+                      deadline=None, margin_ms: int = 0) -> List[RawSeries]:
     """Gather raw samples for all matching series across shards
     (SelectRawPartitionsExec.scala:159 doExecute; schema resolved per
     partition like MultiSchemaPartitionsExec).
@@ -58,16 +60,27 @@ def select_raw_series(shards: Sequence[TimeSeriesShard],
     ``full=True`` reads each matched partition's WHOLE series (cached chunk
     decode + buffer tail) and attaches store snapshot keys; the windowing
     path uses this so device tile caches hit across queries — the step grid
-    itself restricts the evaluation to the query range."""
+    itself restricts the evaluation to the query range.
+
+    ``margin_ms`` widens the span a peer ships (a remote shard group sends
+    only the span, SerializedRangeVector semantics) on each side. The
+    windowing path passes its range window: the slide evaluator and the
+    group-sum kernel read the sample next to each window's first and last,
+    one sample interval past the span, and a cadence coarser than the
+    window leaves at most one sample a window, where rate/increase/delta
+    answer nothing. With it the peer's series are dense over every slot the
+    grid reads, beside the local whole series, and the same tiles and
+    kernels serve both (answers are unchanged: windows select by time)."""
     with obs_trace.span("select-series", shards=len(shards)) as _sp:
         out = _select_raw_series(shards, filters, start_ms, end_ms,
-                                 column, stats, full, limits, deadline)
+                                 column, stats, full, limits, deadline,
+                                 margin_ms)
         _sp.tag(series=len(out))
         return out
 
 
 def _select_raw_series(shards, filters, start_ms, end_ms, column, stats,
-                       full, limits, deadline) -> List[RawSeries]:
+                       full, limits, deadline, margin) -> List[RawSeries]:
     out: List[RawSeries] = []
     for shard in shards:
         if deadline is not None:
@@ -75,8 +88,8 @@ def _select_raw_series(shards, filters, start_ms, end_ms, column, stats,
         fetch_raw = getattr(shard, "fetch_raw", None)
         if fetch_raw is not None:       # RemoteShardGroup: peer dispatch
             try:
-                got = fetch_raw(filters, start_ms, end_ms, column,
-                                full=full)
+                got = fetch_raw(filters, start_ms - margin, end_ms + margin,
+                                column, full=full)
             except StaleRoutingError:
                 # NOT a degraded-mode drop: the peer refused because
                 # our routing lags a handoff — the entry node must
@@ -1112,7 +1125,7 @@ class QueryEngine:
         if not isinstance(inner, lp.PeriodicSeriesWithWindowing):
             return None
         if inner.at_ms is not None or inner.func_args or \
-                inner.function not in ("rate", "increase", "delta"):
+                inner.function not in _COUNTER_FUNCS:
             return None
         raw = inner.raw
         if not isinstance(raw, lp.RawSeriesPlan):
@@ -1122,7 +1135,8 @@ class QueryEngine:
                      else inner.end_ms)
         series = select_raw_series(
             self.shards, raw.filters, fetch_start, fetch_end, raw.column,
-            self.stats, full=True, limits=self.limits)
+            self.stats, full=True, limits=self.limits,
+            margin_ms=inner.window_ms)
         params = RangeParams(inner.start_ms, inner.step_ms, inner.end_ms)
         res = None
         if series and not any(s.values.ndim == 2 for s in series):
@@ -1161,9 +1175,11 @@ class QueryEngine:
                   function, window_ms, func_args, offset_ms) -> GridResult:
         fetch_start = start_ms - window_ms - offset_ms
         fetch_end = end_ms - offset_ms if offset_ms else end_ms
+        # only the counter evaluators read past the span (the margin)
         series = select_raw_series(
             self.shards, raw.filters, fetch_start, fetch_end, raw.column,
-            self.stats, full=True, limits=self.limits)
+            self.stats, full=True, limits=self.limits,
+            margin_ms=window_ms if function in _COUNTER_FUNCS else 0)
         params = RangeParams(start_ms, step_ms, end_ms)
         if self.backend is not None and function is not None:
             out = self.backend.periodic_samples(

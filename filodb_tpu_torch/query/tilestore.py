@@ -124,7 +124,27 @@ class AlignedTiles:
         self._jitter = None
         self._jl = None
         self._jf = None
+        self._support = None
         self._dense = bool(valid_t.all())
+
+    def dense_over(self, k_lo: int, k_hi: int) -> bool:
+        """Whether every row holds a sample at every slot of [k_lo, k_hi]:
+        each row's valid slots form one run (no gap) that covers the
+        range. Rows of unequal extent pass where they overlap, e.g. a
+        peer's span-bounded series beside local whole series."""
+        if self._dense:
+            return True
+        if self._support is None:
+            v = self.valid
+            N = v.shape[1]
+            cnt = v.sum(dim=1)
+            first = torch.argmax(v.to(torch.int8), dim=1)
+            last = N - 1 - torch.argmax(
+                torch.flip(v, dims=[1]).to(torch.int8), dim=1)
+            solid = bool(((cnt > 0) & (cnt == last - first + 1)).all())
+            self._support = (int(first.max()), int(last.min()), solid)
+        first, last, solid = self._support
+        return solid and first <= k_lo and k_hi <= last
 
     # -- pack-time derived channels (cached) ---------------------------------
 
@@ -944,9 +964,9 @@ def _eval_counter_fast(func: str, nsteps: int, arrs: Dict[str, torch.Tensor],
 
 def _tiles_arrays_slide(tiles: AlignedTiles, func: str, st: int
                         ) -> Dict[str, torch.Tensor]:
-    """Stride-permuted channels for the slide evaluator (dense tiles
-    only): int32 relative timestamps + the exact f64 value channel,
-    each as [st, G, S]."""
+    """Stride-permuted channels for the slide evaluator (tiles dense over
+    the slots it reads): int32 relative timestamps + the exact f64 value
+    channel, each as [st, G, S]."""
     vch = "cv" if func in ("rate", "increase") else "v"
     return {
         "tsr_p": tiles.t_perm("tsr_i32", st, tiles.t_tsr_i32()),
@@ -958,7 +978,8 @@ def _eval_counter_slide(func: str, nsteps: int, st: int,
                         arrs: Dict[str, torch.Tensor], num_slots: int,
                         base: int, dt: int, w0s: int, w0e: int,
                         step: int) -> torch.Tensor:
-    """rate/increase/delta on a REGULAR grid over dense tiles -> [T, S]
+    """rate/increase/delta on a REGULAR grid over tiles dense across the
+    slots it reads -> [T, S]
     f32. Same numerics as ``_eval_counter_fast``, but every boundary row
     read is one contiguous slice of the stride-permuted [st, G, S]
     channel. The dispatcher (_slide_eligible) guarantees every index is in
@@ -1043,13 +1064,14 @@ def _f32_epilogue(func, counts, t1, v1, t2, v2, wstart_r, wend_r, wdur_s):
 def _slide_eligible(tiles: AlignedTiles, nsteps: int, w0s: int, w0e: int,
                     last_ms: int, step: int):
     """Shared dispatch guard for the slide evaluator AND the group-sum
-    kernel: a REGULAR grid (step % dt == 0) over dense tiles, entirely
-    interior (no index clipping: kp = kc-1 >= 0 ... kn = kcl+1 <= N-1),
-    with every relative time in int32 ms. Returns (st, k_c0, k_l0) or
-    None. Both consumers dispatch off this one predicate so they agree on
-    the in-bounds proof."""
+    kernel: a REGULAR grid (step % dt == 0) over tiles dense across every
+    slot the grid reads (AlignedTiles.dense_over), entirely interior (no
+    index clipping: kp = kc-1 >= 0 ... kn = kcl+1 <= N-1), with every
+    relative time in int32 ms. Returns (st, k_c0, k_l0) or None. Both
+    consumers dispatch off this one predicate so they agree on the
+    in-bounds proof."""
     N, dt = tiles.num_slots, tiles.dt_ms
-    if nsteps < 2 or not tiles._dense or step % dt != 0:
+    if nsteps < 2 or step % dt != 0:
         return None
     lo_rel = w0s - tiles.base_ms
     hi_rel = last_ms - tiles.base_ms
@@ -1062,6 +1084,11 @@ def _slide_eligible(tiles: AlignedTiles, nsteps: int, w0s: int, w0e: int,
     span = (nsteps - 1) * st
     if not (st >= 1 and k_c0 >= 1 and k_l0 >= 0
             and k_c0 + span <= N - 1 and k_l0 + 1 + span <= N - 1):
+        return None
+    # the boundary rows read: kc and kc-1 at the window ends, kl and kl+1
+    # at the starts, every window's slots in between
+    if not tiles.dense_over(min(k_l0, k_c0 - 1),
+                            max(k_c0, k_l0 + 1) + span):
         return None
     return st, k_c0, k_l0
 

@@ -2,10 +2,18 @@
 ``filodb_tpu.standalone.server``).
 
 Wires config -> column store -> memstore shards (bootstrapped from it) ->
-shard mapper -> TorchBackend (with its micro-batcher) -> HTTP API ->
-durable streams, ingestion drivers and the influx gateway, mirroring the
-v2 startup path (standalone/NewFiloServerMain.scala:21: start memstore,
-ingestion, http) on one node.
+shard mapper -> TorchBackend (with its micro-batcher) -> HTTP API -> gRPC
+query service -> failure detector and membership -> durable streams,
+ingestion drivers and the influx gateway, mirroring the v2 startup path
+(standalone/NewFiloServerMain.scala:21: start memstore, discovery,
+ingestion, http).
+
+In a cluster (``num-nodes`` > 1, ``node-ordinal``, ``peers`` or
+``discovery``) the node owns ``shards_for_ordinal(ordinal)``, reads the
+other shards from their owners over gRPC (``grpc-port``, on by default as
+in the reference; its address is gossiped through the health body) or
+HTTP, detects dead peers, adopts their shards after
+``shard-reassign-grace-s`` and hands its own off on ``POST /admin/drain``.
 
 The backend runs on the CUDA device unless the config's ``device`` names
 another one (``"cpu"`` for tests); without a card :meth:`FiloServer.start`
@@ -21,6 +29,9 @@ silently ignored.
     python -m filodb_tpu_torch.standalone.server --seed-dev-data [--device cpu]
     python -m filodb_tpu_torch.standalone.server --data-dir D --stream-dir S \
         --gateway-port 0 [--device cpu]
+    python -m filodb_tpu_torch.standalone.server --config node1.json
+        (node1.json: {"num-nodes": 2, "node-ordinal": 1, "peers":
+        {"node0": "http://127.0.0.1:8080"}, "port": 8081, ...})
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import gc
 import json
 import os
 import sys
+import threading
 import time
 from typing import Dict, Optional
 
@@ -44,8 +56,12 @@ from filodb_tpu_torch.ingest.driver import IngestionDriver
 from filodb_tpu_torch.ingest.stream import LogIngestionStream
 from filodb_tpu_torch.obs.process import register_process_collector
 from filodb_tpu_torch.obs.trace import TraceExporter, Tracer
-from filodb_tpu_torch.parallel.shardmapper import (ShardMapper,
-                                                   assign_shards_evenly)
+from filodb_tpu_torch.parallel.resilience import (BreakerRegistry,
+                                                  PeerResilience,
+                                                  RetryPolicy)
+from filodb_tpu_torch.parallel.shardmapper import (ShardMapper, ShardStatus,
+                                                   assign_shards_evenly,
+                                                   shards_for_ordinal)
 from filodb_tpu_torch.query.batcher import MicroBatcher
 from filodb_tpu_torch.query.model import QueryLimits
 from filodb_tpu_torch.query.qos import TenantBudgets
@@ -106,6 +122,69 @@ DEFAULTS = {
     # 0 = unlimited). Over-limit queries return HTTP 422.
     "query-sample-limit": 1_000_000,
     "query-series-limit": 100_000,
+    # degraded-mode execution (parallel/resilience.py): default per-query
+    # deadline budget (overridable per request via &timeout=), bounded
+    # retries on peer transport failures, and per-peer circuit breakers
+    # (open after N consecutive failures; half-open probe after the
+    # reset window). Partial responses stay opt-in per request
+    # (&allow_partial=true).
+    "query-timeout-s": 30.0,
+    "peer-retry-attempts": 3,
+    "peer-retry-base-delay-s": 0.05,
+    "breaker-failure-threshold": 3,
+    "breaker-reset-s": 5.0,
+    # multi-process cluster (FiloDbClusterDiscovery.scala:50
+    # ordinal->shards; explicit peer list like the akka-bootstrapper's
+    # explicit-list mode): this node owns shards_for_ordinal(node-ordinal);
+    # peers maps node ids ("node0"...) -> base URLs for leaf dispatch
+    "num-nodes": 1,
+    "node-ordinal": 0,
+    "peers": {},
+    # seed discovery (parallel/discovery.py) when "peers" is empty:
+    #   {"mode": "dns-srv", "srv-name": "_filodb._tcp.ns.svc"} or
+    #   {"mode": "consul", "url": "http://consul:8500", "service": "filodb"}
+    # "advertise-url" identifies THIS node among the discovered seeds
+    # (ordinals follow the sorted seed list on every node)
+    "discovery": None,
+    "advertise-url": None,
+    # HA buddy replica cluster (HighAvailabilityPlanner.scala:31): node id
+    # -> the SAME-ordinal node of a replica cluster ingesting the same
+    # streams; queries route a DOWN node's shards to its buddy
+    "buddy-peers": {},
+    # cross-cluster federation: _ws_ value -> base URL of the cluster
+    # owning that workspace (MultiPartitionPlanner.scala:53); workspaces
+    # in local-partitions are served here and never forwarded
+    "partitions": {},
+    "local-partitions": [],
+    "failure-detect-interval-s": 0.5,
+    "failure-detect-threshold": 3,
+    # gRPC query service port (PromQLGrpcServer.scala; 0 = ephemeral,
+    # None = off). ON by default, as in the reference: leaf dispatch and
+    # pushdown ride protobuf + NibblePack over persistent channels;
+    # base64-JSON HTTP remains the control plane and the fallback. Fixed
+    # peer addresses via "grpc-peers" {node_id: "host:port"}; otherwise
+    # each node advertises its port in its health body and peers learn
+    # it through the failure detector's gossip. Needs grpcio.
+    "grpc-port": 0,
+    "grpc-peers": {},
+    "grpc-partitions": {},
+    # elastic recovery (ShardManager.scala:28): a peer DOWN this many
+    # seconds past detection has its shards adopted by the survivors
+    # (bootstrap from the column store, replay the stream from the
+    # checkpoint). None = survive-only. Needs the shared data-dir /
+    # stream-dir deployment.
+    "shard-reassign-grace-s": None,
+    # elastic membership (parallel/membership.py): POST /admin/drain
+    # hands this node's shards off make-before-break, rejoining nodes
+    # defer shards a peer still serves and receive them back through
+    # the same protocol. False = the legacy hard cutover on rejoin.
+    "elastic-membership": True,
+    # per-shard handoff budget (flush + successor replay + ACTIVE
+    # advertisement), past which the shard rolls back to its owner
+    "handoff-timeout-s": 30.0,
+    # metadata/cardinality peer fan-out concurrency (0 = auto from the
+    # host's core count)
+    "peer-fanout-workers": 0,
     # serving fast path (query/batcher.py + query/plancache.py):
     # residual gather window of the micro-batcher, max queries per device
     # dispatch, and the parsed-plan LRU size (0 disables the plan cache)
@@ -156,7 +235,6 @@ DEFAULTS = {
 # config keys whose modules are not ported yet -> the ROADMAP item that
 # ports them; FiloServer refuses a config whose value turns the feature on
 REFUSED = {
-    "grpc-port": "A.1.3 gRPC",
     "mesh-enabled": "A.11 mesh and distributed",
     "mesh-tile-serving": "A.11 mesh and distributed",
     "raw-retention-s": "A.10 downsampling",
@@ -164,24 +242,17 @@ REFUSED = {
     "self-monitor": "A.1.7 self-monitoring",
     "rules": "A.1.6 rules",
     "rules-file": "A.1.6 rules",
-    "peers": "A.1.4 multi-node and membership",
-    "discovery": "A.1.4 multi-node and membership",
-    "buddy-peers": "A.1.4 multi-node and membership",
-    "partitions": "A.1.4 multi-node and membership",
     "worker-id": "A.1.5 supervisor",
     "accept-port": "A.1.5 supervisor",
     "accept-fd": "A.1.5 supervisor",
     "bus-port": "A.1.5 supervisor",
     "profiler-enabled": "A.9 device observability",
-    "num-nodes": "A.1.4 multi-node and membership",
 }
 
 # keys of the JAX package's DEFAULTS that the port accepts at any value
 # and that change nothing here -> why. Each only tunes a feature that is
 # refused above (so it is off), or acts in the reference only there too.
 INERT = {
-    "query-timeout-s": "the reference checks the deadline only on its "
-                       "remote and mesh paths (ROADMAP C.12)",
     "downsample-resolutions": "tunes downsampling: raw-retention-s and "
                               "flush-downsample are refused (A.10)",
     "profiler-hz": "tunes the profiler: profiler-enabled is refused "
@@ -198,48 +269,19 @@ INERT = {
                              "rules-file are refused (A.1.6)",
     "rules-webhook-url": "alert notifications of rules: rules and "
                          "rules-file are refused (A.1.6)",
-    "peer-retry-attempts": "retries of peer calls: one node has no peers "
-                           "(peers refused, A.1.4)",
-    "peer-retry-base-delay-s": "retries of peer calls: one node has no "
-                               "peers (peers refused, A.1.4)",
-    "breaker-failure-threshold": "per-peer circuit breakers: one node "
-                                 "has no peers (A.1.4)",
-    "breaker-reset-s": "per-peer circuit breakers: one node has no "
-                       "peers (A.1.4)",
-    "node-ordinal": "read only when num-nodes > 1 (refused, A.1.4)",
-    "advertise-url": "read only with discovery (refused, A.1.4)",
-    "local-partitions": "read only with partitions (refused, A.1.4)",
-    "failure-detect-interval-s": "the failure detector runs only with "
-                                 "peers (refused, A.1.4)",
-    "failure-detect-threshold": "the failure detector runs only with "
-                                "peers (refused, A.1.4)",
-    "shard-reassign-grace-s": "shard adoption runs only with peers "
-                              "(refused, A.1.4)",
-    "elastic-membership": "planned handoff runs only with peers "
-                          "(refused, A.1.4)",
-    "handoff-timeout-s": "planned handoff runs only with peers "
-                         "(refused, A.1.4)",
-    "peer-fanout-workers": "metadata fan-out runs only with peers "
-                           "(refused, A.1.4)",
-    "grpc-peers": "gRPC leaf dispatch to peers: gRPC and peers are "
-                  "refused (A.1.3, A.1.4)",
-    "grpc-partitions": "gRPC federation: partitions is refused (A.1.4)",
     "accept-host": "read only with accept-port (refused, A.1.5)",
     "bus-watermark-interval-s": "read only with bus-port (refused, "
                                 "A.1.5)",
 }
 
 
-# keys that are on for any value but None (0 = an ephemeral port, worker 0)
-_ON_UNLESS_NONE = ("grpc-port", "worker-id", "accept-fd")
+# keys that are on for any value but None (worker 0, fd 0)
+_ON_UNLESS_NONE = ("worker-id", "accept-fd")
 
 
 def _refused(key: str, value, config: Dict) -> bool:
     """Whether ``value`` turns on the unported feature behind ``key``, by
-    the reference's own test of that key. ``grpc-port`` is the one key
-    whose reference default (0) turns its feature on."""
-    if key == "num-nodes":
-        return int(value) > 1
+    the reference's own test of that key."""
     if key == "mesh-tile-serving":
         # serves only on the mesh: on when mesh-enabled is on as well
         return bool(value) and bool(config.get("mesh-enabled"))
@@ -276,12 +318,28 @@ class FiloServer:
         self.http: Optional[FiloHttpServer] = None
         self.node_id: str = self.config["node-id"]
         self.card_trackers: Dict[int, CardinalityTracker] = {}
-        # one durable stream and one ingestion driver per shard (the
-        # single writer of that shard) when stream-dir is set
+        # one durable stream per served shard; ONE driver map for
+        # primary, adopted and handed-back shards: the per-shard
+        # single-writer invariant is "at most one entry here,
+        # cluster-wide, per shard"
         self.streams: Dict[int, LogIngestionStream] = {}
         self.drivers: Dict[int, IngestionDriver] = {}
         self.gateway: Optional[GatewayServer] = None
         self.tenant_metering: Optional[TenantMetering] = None
+        self.grpc_server = None
+        self.detector = None
+        self.membership = None
+        self.owned_shards: list = []
+        # rejoin deferral: ordinal shards a peer still served at start-up
+        # (it adopted them while this node was down); created only when
+        # the peer hands them back through /admin/adopt
+        self.deferred_shards: set = set()
+        # elastic-recovery bookkeeping: origin node -> shards THIS node
+        # adopted (crash or planned); node -> original assignment
+        self._adopted: Dict[str, list] = {}
+        self._reassign_lock = threading.Lock()
+        self._original_shards: Dict[str, list] = {}
+        self._gw_streams: Dict[int, LogIngestionStream] = {}
 
     def _make_qos_budgets(self) -> TenantBudgets:
         """Per-tenant token-bucket budgets from the qos-* knobs (rate 0
@@ -320,14 +378,18 @@ class FiloServer:
 
     def _make_shard(self, shard: int):
         """One shard: its cardinality tracker with the quota overrides,
-        then the memstore shard."""
+        then the memstore shard. Shared by start-up and adoption, so an
+        adopted shard cannot diverge from a primary one."""
         tracker = CardinalityTracker(
             tuple(self.config.get("card-default-quotas", ())))
         for pfx, quota in dict(
                 self.config.get("card-quotas") or {}).items():
             tracker.set_quota([p for p in pfx.split(",") if p],
                               int(quota))
-        self.card_trackers[shard] = tracker
+        # the shard registries are mutated from adopt/release/handback
+        # threads too: every mutation rides _reassign_lock
+        with self._reassign_lock:
+            self.card_trackers[shard] = tracker
         # with a column store the shard bootstraps its part keys (as ODP
         # shells) and its checkpoints from it
         return self.store.setup(
@@ -337,37 +399,60 @@ class FiloServer:
             bootstrap=self.store.column_store is not None,
             card_tracker=tracker)
 
+    def _stream(self, shard: int) -> LogIngestionStream:
+        """The durable stream log of one shard (shared by every node of
+        the cluster through the shared stream-dir)."""
+        return LogIngestionStream(
+            os.path.join(self.config["stream-dir"], f"shard={shard}",
+                         "stream.log"),
+            DEFAULT_SCHEMAS,
+            group_commit_s=float(
+                self.config["stream-group-commit-ms"]) / 1000)
+
+    def _make_driver(self, shard: int, stream) -> IngestionDriver:
+        """One ingestion driver, unstarted: the shard's single writer,
+        built the same way at start-up, on adoption and on a handoff
+        rollback (reference server :1073)."""
+        return IngestionDriver(
+            self.store.get_shard(self.ref, shard), stream,
+            mapper=self.mapper,
+            flush_every_records=self.config["flush-every-records"],
+            flush_interval_s=float(self.config["flush-interval-s"]),
+            max_resident_samples=int(self.config["max-resident-samples"]),
+            ingest_batch_records=int(self.config["ingest-batch-records"]),
+            max_decode_cache_bytes=int(float(
+                self.config["decode-cache-mb"]) * (1 << 20)),
+            max_quarantined_records=int(self.config[
+                "integrity-max-quarantined-records"]))
+
     def _start_ingestion(self) -> None:
-        """Streaming path: per-shard durable stream logs and ingestion
-        drivers (recovery -> active), then the influx gateway bound to
-        the HTTP edge (NewFiloServerMain.start: memstore, ingestion,
-        http)."""
-        group_commit_s = float(self.config["stream-group-commit-ms"]) / 1000
-        for shard in range(self.config["num-shards"]):
-            stream = LogIngestionStream(
-                os.path.join(self.config["stream-dir"], f"shard={shard}",
-                             "stream.log"),
-                DEFAULT_SCHEMAS, group_commit_s=group_commit_s)
-            self.streams[shard] = stream
-            # the shard's single writer (reference server :1073)
-            self.drivers[shard] = IngestionDriver(
-                self.store.get_shard(self.ref, shard), stream,
-                mapper=self.mapper,
-                flush_every_records=self.config["flush-every-records"],
-                flush_interval_s=float(self.config["flush-interval-s"]),
-                max_resident_samples=int(
-                    self.config["max-resident-samples"]),
-                ingest_batch_records=int(
-                    self.config["ingest-batch-records"]),
-                max_decode_cache_bytes=int(float(
-                    self.config["decode-cache-mb"]) * (1 << 20)),
-                max_quarantined_records=int(self.config[
-                    "integrity-max-quarantined-records"])).start()
+        """Streaming path: a durable stream log and an ingestion driver
+        (recovery -> active) for each shard this node serves, then the
+        influx gateway bound to the HTTP edge (NewFiloServerMain.start:
+        memstore, ingestion, http)."""
+        for shard in self.owned_shards:
+            if shard in self.deferred_shards:
+                continue        # a peer still serves it (single writer)
+            with self._reassign_lock:
+                self.streams[shard] = self._stream(shard)
+        for shard in sorted(self.streams):
+            drv = self._make_driver(shard, self.streams[shard])
+            with self._reassign_lock:
+                self.drivers[shard] = drv
+            drv.start()
         if self.config.get("gateway-port") is not None:
-            # one gateway per stream set: frames are appended whole, but
-            # two gateways on one log would interleave
+            # the gateway is the producer edge: in a cluster it publishes
+            # to EVERY shard's stream, not only this node's. One gateway
+            # per stream set: frames are appended whole, but two
+            # gateways on one log would interleave.
+            gw_streams = dict(self.streams)
+            if int(self.config.get("num-nodes", 1)) > 1:
+                for shard in range(self.config["num-shards"]):
+                    if shard not in gw_streams:
+                        gw_streams[shard] = self._stream(shard)
+            self._gw_streams = gw_streams
             self.gateway = GatewayServer(
-                self.streams, DEFAULT_SCHEMAS,
+                gw_streams, DEFAULT_SCHEMAS,
                 num_shards=self.config["num-shards"],
                 spread=int(self.config.get("default-spread", 1)),
                 spread_provider=self.spread_provider,
@@ -376,11 +461,64 @@ class FiloServer:
             # same builders and streams as the TCP gateway
             self.http.gateway = self.gateway
 
+    def _resolve_cluster(self) -> int:
+        """Seed discovery (when no explicit peers are configured), then
+        this node's id and ordinal shards. Returns the node count."""
+        n = self.config["num-shards"]
+        num_nodes = int(self.config.get("num-nodes", 1))
+        ordinal = int(self.config.get("node-ordinal", 0))
+        disc = self.config.get("discovery")
+        if disc and not self.config.get("peers"):
+            from filodb_tpu_torch.parallel.discovery import discover_peers
+            all_nodes = discover_peers(disc)
+            adv = self.config.get("advertise-url")
+            if adv is None:
+                raise ValueError(
+                    "discovery needs advertise-url to identify this "
+                    "node among the discovered seeds")
+            me = [nid for nid, url in all_nodes.items()
+                  if url.rstrip("/") == adv.rstrip("/")]
+            if len(me) != 1:
+                raise ValueError(
+                    f"advertise-url {adv!r} matched {len(me)} "
+                    f"discovered seeds {sorted(all_nodes.values())}")
+            ordinal = int(me[0].removeprefix("node"))
+            num_nodes = len(all_nodes)
+            self.config["num-nodes"] = num_nodes
+            self.config["node-ordinal"] = ordinal
+            self.config["peers"] = {nid: url for nid, url
+                                    in all_nodes.items() if nid != me[0]}
+        if num_nodes > 1:
+            self.node_id = f"node{ordinal}"
+            self.owned_shards = shards_for_ordinal(ordinal, num_nodes, n)
+        else:
+            self.node_id = self.config["node-id"]
+            self.owned_shards = list(range(n))
+        return num_nodes
+
+    def _make_resilience(self) -> PeerResilience:
+        """The server-lifetime retry policy and per-peer breakers."""
+        return PeerResilience(
+            retry=RetryPolicy(
+                max_attempts=int(self.config["peer-retry-attempts"]),
+                base_delay_s=float(self.config["peer-retry-base-delay-s"])),
+            breakers=BreakerRegistry(
+                failure_threshold=int(
+                    self.config["breaker-failure-threshold"]),
+                reset_timeout_s=float(self.config["breaker-reset-s"])))
+
     def start(self) -> "FiloServer":
-        """Build the backend, the shards (bootstrapped from the column
-        store when there is one) and the HTTP edge, start the ingestion
-        drivers and the gateway when stream-dir is set, and start
-        serving. Raises when the backend's device is missing."""
+        """Build the backend, the shards this node serves (bootstrapped
+        from the column store when there is one) and the HTTP edge; start
+        the gRPC query service, the failure detector and membership in a
+        cluster, the ingestion drivers and the gateway when stream-dir is
+        set, and start serving. Raises when the backend's device is
+        missing, or when the gRPC plane is asked for without grpcio."""
+        if self.config.get("grpc-port") is not None:
+            # a gRPC plane that is asked for is never dropped quietly: a
+            # node without grpcio fails before it builds or binds anything
+            from filodb_tpu_torch.grpcsvc.client import import_grpc
+            import_grpc()
         swi = self.config.get("gil-switch-interval-ms")
         if swi:
             # request threads do short bursts of socket I/O between
@@ -400,18 +538,61 @@ class FiloServer:
                     max_batch=int(self.config.get("batch-max", 8)),
                     enabled=bool(self.config.get("batch-enabled", True)),
                     device=device))
+        n = self.config["num-shards"]
+        num_nodes = self._resolve_cluster()
         self.spread_provider = SpreadProvider(
             int(self.config.get("default-spread", 1)),
             dict(self.config.get("spread-overrides") or {}))
-        for shard in range(self.config["num-shards"]):
-            self._make_shard(shard)
-        assign_shards_evenly(self.mapper, [self.node_id])
+        # rejoin deferral (parallel/membership.py): before creating a
+        # shard this node owns by ordinal, ask the peers whether one of
+        # them still SERVES it (it adopted the shard while this node was
+        # down). Deferred shards are neither created nor ingested here;
+        # the temporary owner hands them back make-before-break through
+        # /admin/adopt.
+        peer_claims: Dict[int, tuple] = {}
+        if num_nodes > 1 and self.config.get("elastic-membership", True):
+            probe_peers = {k: v for k, v in
+                           dict(self.config.get("peers") or {}).items()
+                           if k != self.node_id}
+            if probe_peers:
+                from filodb_tpu_torch.parallel.membership import \
+                    probe_peer_claims
+                peer_claims = probe_peer_claims(probe_peers,
+                                                self.owned_shards)
+        self.deferred_shards = set(peer_claims)
+        for shard in self.owned_shards:
+            if shard not in self.deferred_shards:
+                self._make_shard(shard)
+        if num_nodes > 1:
+            for i in range(num_nodes):
+                owned_i = shards_for_ordinal(i, num_nodes, n)
+                self._original_shards[f"node{i}"] = list(owned_i)
+                for shard in owned_i:
+                    self.mapper.assign(shard, f"node{i}")
+        else:
+            assign_shards_evenly(self.mapper, [self.node_id])
         streaming = bool(self.config.get("stream-dir"))
-        if not streaming:
-            # with streaming the drivers take each shard through
-            # RECOVERY -> ACTIVE
-            for shard in range(self.config["num-shards"]):
-                self.mapper.activate(shard)
+        # peer shards start ACTIVE optimistically; the failure detector
+        # flips them DOWN when health checks fail. Own shards activate
+        # here only without streaming (the ingestion drivers take them
+        # through RECOVERY -> ACTIVE otherwise).
+        owned = set(self.owned_shards) - self.deferred_shards
+        for shard in range(n) if num_nodes > 1 else self.owned_shards:
+            if shard in self.deferred_shards:
+                continue
+            if shard in owned and streaming:
+                continue
+            self.mapper.activate(shard)
+        # deferred shards are owned by their claimer until handed back
+        for shard, (claimer, st) in sorted(peer_claims.items()):
+            self.mapper.assign(shard, claimer)
+            try:
+                self.mapper.update(shard, ShardStatus(st), claimer)
+            except ValueError:
+                self.mapper.update(shard, ShardStatus.ACTIVE, claimer)
+        peers = {k: v for k, v in
+                 dict(self.config.get("peers") or {}).items()
+                 if k != self.node_id}
         self.http = FiloHttpServer(
             {self.ref.dataset: self.store.shards(self.ref)},
             backend=self.backend, shard_mapper=self.mapper,
@@ -421,7 +602,18 @@ class FiloServer:
                 series_limit=int(self.config.get("query-series-limit", 0)),
                 sample_limit=int(self.config.get("query-sample-limit", 0))),
             spread_provider=self.spread_provider,
-            node_id=self.node_id,
+            node_id=self.node_id, peers=peers,
+            buddies=dict(self.config.get("buddy-peers") or {}),
+            partitions=dict(self.config.get("partitions") or {}),
+            local_partitions=list(
+                self.config.get("local-partitions") or ()),
+            grpc_peers={k: v for k, v in dict(
+                self.config.get("grpc-peers") or {}).items()
+                if k != self.node_id},
+            grpc_partitions=dict(
+                self.config.get("grpc-partitions") or {}),
+            query_timeout_s=float(self.config["query-timeout-s"]),
+            resilience=self._make_resilience(),
             plan_cache_size=int(self.config.get("plan-cache-size", 256)),
             results_cache_mb=float(
                 self.config.get("results-cache-mb", 64)),
@@ -438,10 +630,44 @@ class FiloServer:
                 "qos-shed-degraded", True)),
             tracer=self._make_tracer(),
             slow_query_ms=float(self.config.get("slow-query-ms",
-                                                1000.0)))
+                                                1000.0)),
+            peer_fanout_workers=int(self.config.get(
+                "peer-fanout-workers", 0) or 0))
+        # elastic membership: wire the planned-handoff coordinator BEFORE
+        # the HTTP edge starts serving, so an adopt/hand-back request
+        # arriving the instant the health endpoint answers finds it ready
+        from filodb_tpu_torch.parallel.membership import MembershipManager
+        self.membership = MembershipManager(
+            self, handoff_timeout_s=float(self.config["handoff-timeout-s"]))
+        self.http.membership = self.membership
+        if self.config.get("grpc-port") is not None:
+            from filodb_tpu_torch.grpcsvc import GrpcQueryServer
+            self.grpc_server = GrpcQueryServer(
+                self.http, port=int(self.config["grpc-port"]))
+            self.http.grpc_server = self.grpc_server
         self.http.start()
+        if self.grpc_server is not None:
+            self.grpc_server.start()
+        if peers:
+            from filodb_tpu_torch.parallel.cluster import FailureDetector
+            shards_by_node = {node: self.mapper.shards_for_node(node)
+                              for node in peers}
+            grace = self.config.get("shard-reassign-grace-s")
+            self.detector = FailureDetector(
+                self.mapper, peers, shards_by_node,
+                interval_s=float(self.config["failure-detect-interval-s"]),
+                threshold=int(self.config["failure-detect-threshold"]),
+                reassign_grace_s=(float(grace) if grace is not None
+                                  else None),
+                on_node_down=self._on_node_down,
+                on_node_up=self._on_node_up,
+                grpc_peer_sink=self.http.grpc_peers,
+                peer_state_sink=self.http.peer_watermarks).start()
+            # the health body advertises this node's down-view (quorum
+            # input) and served-shard statuses (gossip) to its peers
+            self.http.detector = self.detector
         meter_s = float(self.config.get("tenant-metering-interval-s", 0))
-        if meter_s > 0:
+        if meter_s > 0 and self.card_trackers:
             self.tenant_metering = TenantMetering(
                 self.card_trackers, interval_s=meter_s).start()
             self.http.tenant_metering = self.tenant_metering
@@ -459,36 +685,204 @@ class FiloServer:
             gc.set_threshold(t0, t1, max(t2, 100))
         return self
 
+    # -- elastic recovery (shard reassignment on node loss) ---------------
+    # ShardManager.scala:28 assignShardsToNodes / IngestionActor.scala:297
+    # recovery protocol: every survivor independently computes the same
+    # round-robin table; the shard's new owner bootstraps index + chunks
+    # from the column store, replays the shared stream log from the
+    # checkpoint watermark (RECOVERY with progress), then serves it.
+
+    def _restart_driver(self, shard: int) -> None:
+        """Handoff rollback: the successor never went ACTIVE — resume
+        ingesting locally from the checkpoint watermark (the shard never
+        left this node's serving set)."""
+        if not self.config.get("stream-dir"):
+            return
+        stream = self.streams.get(shard)
+        if stream is None:
+            stream = self._stream(shard)
+            with self._reassign_lock:
+                self.streams[shard] = stream
+        drv = self._make_driver(shard, stream)
+        with self._reassign_lock:
+            self.drivers[shard] = drv
+        drv.start()
+
+    def _on_node_down(self, node: str) -> None:
+        from filodb_tpu_torch.parallel.cluster import reassign_dead_shards
+        dead = sorted(self.mapper.shards_for_node(node))
+        if not dead:
+            return
+        survivors = [self.node_id] + (self.detector.alive_peers()
+                                      if self.detector else [])
+        table = reassign_dead_shards(dead, survivors)
+        with self._reassign_lock:
+            self._adopted[node] = []
+        mine = []
+        for sh, owner in table.items():
+            self.mapper.assign(sh, owner)
+            # another survivor's adoption holds RECOVERY until its health
+            # body advertises the shard (the detector's status gossip
+            # promotes it), so queries meanwhile carry a partial-result
+            # warning instead of silently missing the shard
+            self.mapper.update(sh, ShardStatus.RECOVERY, owner)
+            if owner == self.node_id:
+                mine.append(sh)
+
+        def adopt_all():
+            # off the detector's poll thread: the column-store bootstrap
+            # can take long, and health checks must keep running
+            if self.membership is not None:
+                self.membership.note_crash_adoption()
+            for sh in mine:
+                with self._reassign_lock:
+                    if node not in self._adopted:
+                        return           # owner came back mid-adoption
+                try:
+                    self._adopt_shard(sh)
+                    with self._reassign_lock:
+                        if node in self._adopted:
+                            self._adopted[node].append(sh)
+                            continue
+                    # owner recovered while we bootstrapped: hand back
+                    self._release_shard(sh)
+                except Exception:   # noqa: BLE001 — surfaced as ERROR
+                    self._release_shard(sh)      # drop partial state
+                    self.mapper.update(sh, ShardStatus.ERROR,
+                                       self.node_id)
+        threading.Thread(target=adopt_all, daemon=True,
+                         name=f"adopt-{node}").start()
+
+    def _on_node_up(self, node: str) -> None:
+        if self.membership is not None \
+                and self.config.get("elastic-membership", True):
+            # planned hand-back: each adopted shard replays and flips
+            # ACTIVE on its home node BEFORE this node releases it
+            self.membership.handback(node)
+            return
+        with self._reassign_lock:
+            mine = self._adopted.pop(node, [])
+        # legacy hard cutover: hand every reassigned shard back to its
+        # original owner at once, held RECOVERY until the owner's health
+        # body advertises it
+        for sh in self._original_shards.get(node, []):
+            self.mapper.assign(sh, node)
+            self.mapper.update(sh, ShardStatus.RECOVERY, node)
+
+        def release_all():
+            # off the poll thread: driver stops join + flush
+            for sh in mine:
+                self._release_shard(sh)
+        if mine:
+            threading.Thread(target=release_all, daemon=True,
+                             name=f"release-{node}").start()
+
+    def _adopt_shard(self, shard: int, on_event=None,
+                     register=None) -> None:
+        with self._reassign_lock:
+            self.deferred_shards.discard(shard)   # hand-back on rejoin
+        self._make_shard(shard)
+        # publish the widened local shard list to the HTTP layer BEFORE
+        # claiming ownership in the mapper: a query planned in between
+        # would see "owned by me" with no local shard and silently drop
+        # it; published-but-unclaimed just routes to the previous owner
+        # (planned handoff) or stays DOWN (crash path)
+        with self._reassign_lock:
+            self.http.shards_by_dataset[self.ref.dataset] = \
+                self.store.shards(self.ref)
+        self.mapper.update(shard, ShardStatus.RECOVERY, self.node_id)
+        if self.config.get("stream-dir"):
+            stream = self._stream(shard)
+            with self._reassign_lock:
+                self.streams[shard] = stream  # the gateway routes to it
+            drv = self._make_driver(shard, stream)
+            if on_event is not None:
+                # planned adoption: membership clears the read redirect
+                # when the replay completes (driver flips ACTIVE)
+                drv.on_event = on_event
+            if register is None:
+                with self._reassign_lock:
+                    self.drivers[shard] = drv
+                drv.start()
+            elif register(drv):
+                # planned adoption: registration is the single-writer
+                # gate — refused (atomically with the abort path) when
+                # the handoff was cancelled mid-bootstrap
+                drv.start()
+        else:
+            self.mapper.update(shard, ShardStatus.ACTIVE, self.node_id)
+
+    def _release_shard(self, shard: int) -> None:
+        # registry pops ride _reassign_lock; the blocking teardown
+        # (driver stop() joins its thread, stream close() syncs the log
+        # tail) runs strictly outside it
+        with self._reassign_lock:
+            drv = self.drivers.pop(shard, None)
+            stream = self.streams.pop(shard, None)
+            self.card_trackers.pop(shard, None)
+        if drv is not None:
+            drv.stop()
+        if stream is not None and self._gw_streams.get(shard) \
+                is not stream:
+            # close by OBJECT identity: if the local gateway publishes
+            # through this very stream, only drop the consumer reference
+            try:
+                stream.close()
+            except OSError:
+                pass
+        self.store.remove_shard(self.ref, shard)
+        with self._reassign_lock:
+            self.http.shards_by_dataset[self.ref.dataset] = \
+                self.store.shards(self.ref)
+        # the backend's tiles of the released shard are keyed by its
+        # snapshot and age out of the tile cache like any other
+        if self.membership is not None:
+            self.membership.note_release()
+
     def seed_dev_data(self, n_samples: int = 360, n_instances: int = 4,
                       start_ms: Optional[int] = None) -> int:
-        """Dev loop seed (dev-gateway.sh + TestTimeseriesProducer)."""
+        """Dev loop seed (dev-gateway.sh + TestTimeseriesProducer), into
+        the shards this node serves."""
         from filodb_tpu_torch.gateway.producer import (TestTimeseriesProducer,
                                                        ingest_builders)
         producer = TestTimeseriesProducer(
             DEFAULT_SCHEMAS, num_shards=self.config["num-shards"])
         if start_ms is None:
             start_ms = (int(time.time()) - n_samples * 10) * 1000
+        owned = set(self.owned_shards) - set(self.deferred_shards)
         rows = 0
         for builders in (producer.gauges(start_ms, n_samples, n_instances),
                          producer.counters(start_ms, n_samples, n_instances),
                          producer.histograms(start_ms, n_samples)):
-            rows += ingest_builders(self.store, self.ref, builders)
+            rows += ingest_builders(
+                self.store, self.ref,
+                {sh: b for sh, b in builders.items() if sh in owned})
         self.store.flush_all(self.ref)
         return rows
 
     def stop(self, flush: bool = True) -> None:
-        """Stop the gateway, then the drivers (each flushing its shard
-        unless ``flush`` is False: a crash leaves the unflushed tail in
-        the stream logs only), then close the streams; then the metering
-        loop, the HTTP edge, the trace exporter and, when the server
-        built the backend, its device executor (a backend passed in
-        belongs to the caller)."""
+        """Stop the gRPC service, the failure detector and the gateway,
+        then the drivers (each flushing its shard unless ``flush`` is
+        False: a crash leaves the unflushed tail in the stream logs
+        only), then close the streams; then the metering loop, the HTTP
+        edge, the trace exporter and, when the server built the backend,
+        its device executor (a backend passed in belongs to the
+        caller)."""
+        if self.grpc_server is not None:
+            self.grpc_server.stop()
+        if self.detector is not None:
+            self.detector.stop()
         if self.gateway is not None:
             self.gateway.stop()
-        for drv in self.drivers.values():
+        for drv in list(self.drivers.values()):
             drv.stop(flush=flush)
-        for stream in self.streams.values():
+        for stream in list(self.streams.values()):
             stream.close()
+        for shard, stream in self._gw_streams.items():
+            # close by OBJECT identity: an adopted shard put a different
+            # stream object in self.streams for the same path
+            if stream is not self.streams.get(shard):
+                stream.close()
         if self.tenant_metering is not None:
             self.tenant_metering.stop()
         if self.http:
@@ -536,8 +930,10 @@ def main(argv=None) -> int:
         print(f"seeded {rows} dev samples", file=sys.stderr)
     # machine-readable startup line (test harness / dev scripts read this)
     gw = server.gateway.port if server.gateway is not None else None
+    gp = server.grpc_server.port if server.grpc_server is not None \
+        else None
     print(json.dumps({"port": server.port, "gateway_port": gw,
-                      "grpc_port": None}), flush=True)
+                      "grpc_port": gp}), flush=True)
     print(f"filodb-torch server listening on :{server.port}",
           file=sys.stderr)
     try:

@@ -48,6 +48,13 @@ SERVING_MODULES = (
     "filodb_tpu_torch.gateway.influx", "filodb_tpu_torch.gateway.server",
     "filodb_tpu_torch.http.remote_read", "filodb_tpu_torch.core.metering",
     "filodb_tpu_torch.obs.process", "filodb_tpu_torch.fsck",
+    # gRPC and the multi-node cluster
+    "filodb_tpu_torch.grpcsvc", "filodb_tpu_torch.grpcsvc.wire",
+    "filodb_tpu_torch.grpcsvc.server", "filodb_tpu_torch.grpcsvc.client",
+    "filodb_tpu_torch.query.planwire", "filodb_tpu_torch.query.planparser",
+    "filodb_tpu_torch.parallel.cluster",
+    "filodb_tpu_torch.parallel.membership",
+    "filodb_tpu_torch.parallel.discovery",
 )
 
 
@@ -63,6 +70,25 @@ def test_the_parallel_package_imports_no_mesh_module():
         "bad = [m for m in sys.modules if m.startswith("
         "'filodb_tpu_torch.parallel.') and m.rsplit('.', 1)[1] not in "
         "('shardmapper', 'resilience')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_importing_the_cluster_plane_loads_no_grpc():
+    """grpcio is imported only where a gRPC channel or server is built:
+    a node without it imports every module and refuses only a config
+    that asks for the gRPC plane."""
+    code = (
+        "import sys\n"
+        "import filodb_tpu_torch.grpcsvc, filodb_tpu_torch.http.server\n"
+        "import filodb_tpu_torch.standalone.server\n"
+        "import filodb_tpu_torch.parallel.cluster\n"
+        "import filodb_tpu_torch.parallel.membership\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'grpc']\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

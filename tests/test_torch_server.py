@@ -42,6 +42,7 @@ from filodb_tpu.core.schemas import DEFAULT_SCHEMAS as J_SCHEMAS
 from filodb_tpu.core.schemas import PartitionSchema as JPartitionSchema
 from filodb_tpu.standalone.server import FiloServer as JServer
 from filodb_tpu_torch import state
+from filodb_tpu_torch.http import server as psrv_http
 from filodb_tpu_torch.standalone import server as psrv
 
 # the suite runs in several worker processes on shared cores
@@ -366,18 +367,34 @@ NOT_PORTED = [
     ("/promql/timeseries/api/v1/query_range",
      {"query": "up", "start": START, "end": FLUSHED_END, "step": 60,
       "explain": "analyze"}),
-    ("/api/v1/raw/timeseries", {}),
     ("/debug/threads", {}),
 ]
 
 
 @pytest.mark.parametrize("path,params", NOT_PORTED,
-                         ids=["explain-analyze", "raw", "threads"])
+                         ids=["explain-analyze", "threads"])
 def test_unported_routes_answer_501_with_their_roadmap_item(servers, path,
                                                             params):
     code, body = _get(servers[0], path, **params)
     assert code == 501
     assert "ROADMAP" in json.loads(body)["error"]
+
+
+def test_the_raw_leaf_route_is_ported():
+    """POST /api/v1/raw/{ds} (the peer leaf plane) no longer answers 501:
+    a bodyless request gets the reference's 400."""
+    assert "raw" not in psrv_http._NOT_PORTED
+    port = psrv.FiloServer({"num-shards": 4, "port": 0, **CPU}).start()
+    jax_srv = JServer({"num-shards": 4, "port": 0, "grpc-port": None,
+                       "gc-freeze": False}).start()
+    try:
+        (pc, pb), (jc, jb) = (_get(s, "/api/v1/raw/timeseries")
+                              for s in (port, jax_srv))
+        assert pc == jc == 400
+        assert json.loads(pb) == json.loads(jb)
+    finally:
+        port.stop()
+        jax_srv.stop()
 
 
 OFF_ROUTES = [("/api/v1/rules", 200), ("/api/v1/alerts", 200),
@@ -392,12 +409,9 @@ def test_routes_of_features_off_answer_as_the_reference(path, code):
     jax_srv = JServer({"num-shards": 4, "port": 0, "grpc-port": None,
                        "gc-freeze": False}).start()
     try:
+        # /admin/drain on a node without peers: both build their
+        # membership manager, and both refuse to drain
         (pc, pb), (jc, jb) = (_get(s, path) for s in (srv, jax_srv))
-        if path == "/admin/drain":
-            # the reference always builds its membership manager; the
-            # port answers as the reference's HTTP edge does without one
-            jax_srv.http.membership = None
-            jc, jb = _get(jax_srv, path)
         assert pc == jc == code
         assert json.loads(pb) == json.loads(jb)
     finally:
@@ -407,16 +421,12 @@ def test_routes_of_features_off_answer_as_the_reference(path, code):
 
 # a value that turns each refused key's feature on
 REFUSED_ON = {
-    "grpc-port": 0, "mesh-enabled": True, "mesh-tile-serving": True,
+    "mesh-enabled": True, "mesh-tile-serving": True,
     "raw-retention-s": 3600, "flush-downsample": True,
     "self-monitor": True, "rules": {"groups": []},
-    "rules-file": "/nonexistent/rules.yaml",
-    "peers": {"node1": "http://127.0.0.1:1"},
-    "discovery": {"mode": "dns-srv", "srv-name": "_filodb._tcp"},
-    "buddy-peers": {"node0": "http://127.0.0.1:1"},
-    "partitions": {"ws": "http://127.0.0.1:1"}, "worker-id": 0,
+    "rules-file": "/nonexistent/rules.yaml", "worker-id": 0,
     "accept-port": 9000, "accept-fd": 3, "bus-port": 9001,
-    "profiler-enabled": True, "num-nodes": 2,
+    "profiler-enabled": True,
 }
 # mesh tile serving turns on only together with the mesh
 ON_WITH = {"mesh-tile-serving": {"mesh-enabled": True}}
@@ -474,7 +484,9 @@ def test_main_prints_the_startup_line_first():
     try:
         line = json.loads(proc.stdout.readline())
         assert set(line) == {"port", "gateway_port", "grpc_port"}
-        assert line["port"] > 0 and line["grpc_port"] is None
+        # the gRPC plane is on by default, on an ephemeral port, as in
+        # the reference
+        assert line["port"] > 0 and line["grpc_port"] > 0
         deadline = time.monotonic() + 60
         while True:
             try:
@@ -528,21 +540,28 @@ def test_tenant_budgets_shed_as_the_reference(qos_servers, tenant, code):
 # -- config keys (every key of the reference's DEFAULTS lands somewhere) ---
 
 J_DEFAULTS = sys.modules[JServer.__module__].DEFAULTS
-# the one refused key whose reference default turns its feature on: the
-# reference serves gRPC unless grpc-port is None
-DEFAULT_ON = {"grpc-port"}
+# the keys of gRPC (ROADMAP A.1.3) and of multi-node membership (A.1.4):
+# honoured, with the reference's defaults
+CLUSTER_KEYS = {
+    "grpc-port", "grpc-peers", "grpc-partitions", "num-nodes",
+    "node-ordinal", "peers", "discovery", "advertise-url", "buddy-peers",
+    "partitions", "local-partitions", "failure-detect-interval-s",
+    "failure-detect-threshold", "shard-reassign-grace-s",
+    "elastic-membership", "handoff-timeout-s", "peer-fanout-workers",
+    "peer-retry-attempts", "peer-retry-base-delay-s",
+    "breaker-failure-threshold", "breaker-reset-s", "query-timeout-s",
+}
 
 
 @pytest.mark.parametrize("key", sorted(J_DEFAULTS))
 def test_every_reference_config_key_is_honoured_refused_or_listed(key):
     places = [key in psrv.DEFAULTS, key in psrv.REFUSED, key in psrv.INERT]
     assert places.count(True) == 1, (key, places)
+    if key in CLUSTER_KEYS:
+        assert key in psrv.DEFAULTS
+        assert psrv.DEFAULTS[key] == J_DEFAULTS[key]
     if key in psrv.REFUSED:
         assert psrv.REFUSED[key].startswith("A.")
-        if key in DEFAULT_ON:
-            with pytest.raises(ValueError, match=key):
-                psrv.FiloServer({key: J_DEFAULTS[key], **CPU})
-            return
     if key in psrv.INERT:
         assert "(" in psrv.INERT[key]     # names its ROADMAP item
     # the reference's default value is accepted
@@ -578,20 +597,19 @@ ABSENT_FAMILIES = {
     # eager PyTorch keeps no compiled-executable cache
     "filodb_exec_cache_entries", "filodb_exec_cache_hits_total",
     "filodb_exec_cache_misses_total", "filodb_executables",
-    # membership, handoff and peer fan-out (ROADMAP A.1.4)
-    "filodb_handback_failures_total", "filodb_membership_draining",
-    "filodb_membership_incoming_shards", "filodb_peer_fanout_workers",
-    "filodb_shard_adoptions_total", "filodb_shard_handoff_completed_total",
-    "filodb_shard_handoff_failed_total",
-    "filodb_shard_handoff_started_total", "filodb_shard_releases_total",
-    "filodb_stale_routing_bounces_total",
-    "filodb_stale_routing_retries_total",
     # the device profiler's collector of XLA executables, registered once
     # the process has compiled one (ROADMAP A.9)
     "filodb_executable_flops", "filodb_executable_builds_total",
     "filodb_executable_bytes_accessed",
 }
+# families of the port the reference lacks -> why: the count of gRPC
+# downgrades to the HTTP plane (ROADMAP C.15)
+EXTRA_FAMILIES = {"filodb_grpc_plane_fallbacks_total"}
 DEFAULT_ON_FAMILIES = {
+    # the gRPC plane and membership, on at the defaults
+    "filodb_grpc_rpcs_served_total", "filodb_peer_fanout_workers",
+    "filodb_shard_handoff_started_total",
+    "filodb_stale_routing_bounces_total",
     "filodb_tenant_metering_interval_seconds",
     "filodb_tenant_metering_snapshots_total",
     "filodb_tenant_metering_last_snapshot_age_seconds",
@@ -614,14 +632,13 @@ def _reset_registries():
 def test_metric_families_match_the_jax_server_at_the_defaults():
     _reset_registries()
     srv = psrv.FiloServer({"port": 0, **CPU}).start()
-    jax_srv = JServer({"port": 0, "grpc-port": None,
-                       "gc-freeze": False}).start()
+    jax_srv = JServer({"port": 0, "gc-freeze": False}).start()
     try:
         pf, jf = _families(srv), _families(jax_srv)
     finally:
         srv.stop()
         jax_srv.stop()
-    assert pf == jf - ABSENT_FAMILIES
+    assert pf == (jf - ABSENT_FAMILIES) | EXTRA_FAMILIES
     assert DEFAULT_ON_FAMILIES <= pf
 
 
@@ -692,12 +709,14 @@ def ingest_servers(tmp_path_factory):
     root = tmp_path_factory.mktemp("write-path")
     # no timed flush: both servers keep the same split of chunks (the
     # tiles) and write buffers (the packed path) while they are compared
+    # (and the gRPC plane off in both: the write path is compared here)
     cfg = {"num-shards": 4, "port": 0, "gateway-port": 0,
-           "stream-group-commit-ms": 0, "flush-interval-s": 3600}
+           "stream-group-commit-ms": 0, "flush-interval-s": 3600,
+           "grpc-port": None}
     port = psrv.FiloServer({**cfg, **CPU,
                             "data-dir": str(root / "p-data"),
                             "stream-dir": str(root / "p-stream")}).start()
-    jax_srv = JServer({**cfg, "grpc-port": None, "gc-freeze": False,
+    jax_srv = JServer({**cfg, "gc-freeze": False,
                        "data-dir": str(root / "j-data"),
                        "stream-dir": str(root / "j-stream")}).start()
     lines = _influx_lines()
@@ -850,9 +869,12 @@ def test_stop_leaves_no_write_path_thread_running(tmp_path):
                            "data-dir": str(tmp_path / "data"),
                            "stream-dir": str(tmp_path / "stream")}).start()
     started = [t for t in threading.enumerate() if t not in before]
-    names = sorted(t.name for t in started)
+    # grpcio names its server loop thread itself ("Thread-N (_serve)")
+    grpc_loop = [t.name for t in started if t.name.endswith("(_serve)")]
+    names = sorted(t.name for t in started if t.name not in grpc_loop)
     assert names == ["accept-edge", "gateway-server", "ingest-shard-0",
                      "ingest-shard-1", "tenant-metering"], names
+    assert len(grpc_loop) == 1, grpc_loop
     srv.stop()
     for t in started:
         t.join(timeout=30)

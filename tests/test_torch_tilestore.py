@@ -228,3 +228,121 @@ def test_groupsum_counters_matches_jax_dispatcher(func):
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                rtol=1e-5, atol=1e-7)
+
+
+# ragged tiles: rows of unequal extent, each one run of samples, as a
+# peer's span-bounded series lie beside an entry node's whole series. The
+# grid of _grid() with a 300 s window reads slots 10 to 238: READ_LO is
+# the first window's first in-window slot, READ_HI the last window's end.
+READ_LO, READ_HI = 10, 238
+
+
+def _ragged(S=64, N=288, seed=11):
+    valid, ts, vals = _arrays(S=S, N=N, seed=seed)
+    rng = np.random.default_rng(seed)
+    first = rng.integers(0, READ_LO + 1, S)
+    last = rng.integers(READ_HI, N, S)
+    first[:S // 4] = 0              # a quarter of the rows are whole
+    last[:S // 4] = N - 1
+    k = np.arange(N)[None, :]
+    valid = (k >= first[:, None]) & (k <= last[:, None])
+    return valid, ts, vals
+
+
+def _slide_args(tiles, steps, window):
+    return (tiles, steps.size, int(steps[0] - window), int(steps[0]),
+            int(steps[-1]), int(steps[1] - steps[0]))
+
+
+@pytest.mark.parametrize("func", ["rate", "increase", "delta"])
+def test_ragged_tiles_ride_the_slide_and_groupsum(func):
+    """Rows that are dense over the slots the grid reads take the slide
+    evaluator and the group-sum, and both agree with the f32 evaluator
+    that reads no slot outside each window (_eval_counter_fast) and with
+    the JAX package, which declines the slide on any ragged tile."""
+    valid, ts, vals = _ragged()
+    S = valid.shape[0]
+    keys = [{"i": str(i)} for i in range(S)]
+    assert not valid.all()
+    pt = state.tiles_from_numpy(keys, BASE, DT, valid, ts, vals,
+                                device="cpu")
+    jt = jtst.AlignedTiles(keys, BASE, DT, valid, ts, vals)
+    steps, window = _grid(), 300_000
+    assert ptst._slide_eligible(*_slide_args(pt, steps, window)) is not None
+    assert pt.dense_over(READ_LO, READ_HI)
+    assert not pt.dense_over(0, READ_HI)
+    got = ptst.evaluate_counters_t(pt, func, steps, window).numpy()
+    w0e = int(steps[0])
+    fast = ptst._eval_counter_fast(
+        func, steps.size, ptst._tiles_arrays_fast(pt, func), pt.num_slots,
+        pt.base_ms, pt.dt_ms, w0e - window, w0e,
+        int(steps[1] - steps[0])).numpy()
+    assert got.dtype == fast.dtype == np.float32
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, fast)
+    want = np.asarray(jtst.evaluate_counters_t(jt, func, steps, window))
+    assert _ulps_apart(got, want, np.float32).max() <= 8
+    # the group-sum's plain version over the same ragged tiles
+    G = 4
+    gid = np.arange(S) % G
+    onehot = np.zeros((S, G), np.float32)
+    onehot[np.arange(S), gid] = 1.0
+    sums, cnts = ptst.groupsum_counters(pt, func, steps, window, onehot)
+    nom = np.stack([fast[:, gid == g].astype(np.float64).sum(axis=1)
+                    for g in range(G)], axis=1)
+    np.testing.assert_array_equal(cnts.numpy(), np.full_like(nom, S // G))
+    np.testing.assert_allclose(sums.numpy(), nom, rtol=1e-5,
+                               atol=1e-6 * np.abs(nom).max())
+
+
+def _one_row(first=0, last=287, gap=None):
+    valid, ts, vals = _ragged()
+    valid[0] = False
+    valid[0, first:last + 1] = True
+    if gap is not None:
+        valid[0, gap] = False
+    return valid, ts, vals
+
+
+def test_ragged_guard_reads_exactly_the_grids_slots():
+    """A row that holds samples over exactly the slots read passes; one
+    slot less on either side declines."""
+    steps, window = _grid(), 300_000
+    for row, ok in (({"first": READ_LO, "last": READ_HI}, True),
+                    ({"first": READ_LO + 1, "last": READ_HI}, False),
+                    ({"first": READ_LO, "last": READ_HI - 1}, False)):
+        valid, ts, vals = _one_row(**row)
+        pt = state.tiles_from_numpy([{}] * valid.shape[0], BASE, DT, valid,
+                                    ts, vals, device="cpu")
+        el = ptst._slide_eligible(*_slide_args(pt, steps, window))
+        assert (el is not None) == ok, row
+
+
+@pytest.mark.parametrize("case,row", [
+    ("gap inside the read range", {"gap": 100}),
+    ("gap at the first slot read", {"gap": READ_LO}),
+    ("gap at the last slot read", {"gap": READ_HI}),
+    ("gap outside the read range", {"gap": 270}),
+    ("row starts inside the range", {"first": READ_LO + 1}),
+    ("row ends inside the range", {"last": READ_HI - 1}),
+    ("empty row", {"first": 1, "last": 0}),
+])
+def test_ragged_tiles_guard_declines(case, row):
+    """One row that is not a single run of samples over the slots read
+    (or not a single run at all) turns the slide guard down, so the
+    group-sum declines and the counter evaluators take the f32 path, whose
+    answers match the JAX package's."""
+    valid, ts, vals = _one_row(**row)
+    S = valid.shape[0]
+    keys = [{"i": str(i)} for i in range(S)]
+    pt = state.tiles_from_numpy(keys, BASE, DT, valid, ts, vals,
+                                device="cpu")
+    steps, window = _grid(), 300_000
+    assert ptst._slide_eligible(*_slide_args(pt, steps, window)) is None, \
+        case
+    onehot = np.ones((S, 1), np.float32)
+    assert ptst.groupsum_counters(pt, "rate", steps, window, onehot) is None
+    jt = jtst.AlignedTiles(keys, BASE, DT, valid, ts, vals)
+    got = ptst.evaluate_counters_t(pt, "rate", steps, window).numpy()
+    want = np.asarray(jtst.evaluate_counters_t(jt, "rate", steps, window))
+    assert _ulps_apart(got, want, got.dtype).max() <= 8
