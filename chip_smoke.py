@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, none of whose failures is caught:
+Phases, none of whose failures is caught (a failing phase logs a line that
+names it to standard error, and its exception ends the run with a
+non-zero exit):
   1. card and build: the card's name and power limit, then both CUDA
      kernels compiled from filodb_tpu_torch/csrc/ into build/kernels/;
   2. kernel parity: each kernel against its plain PyTorch version on the
@@ -36,14 +38,40 @@ Phases, none of whose failures is caught:
      family's device function timed alone at the full-width shape beside
      its byte bound and peak device memory (the `functions` line);
   6. the serving fast path on the phase-4 shard (bursts behind a barrier,
-     engine clients, a flush with its stale serve and rebuild: the
-     `serving` line);
+     the batched ones meeting again at the batcher's door once every
+     member's host preparation is done; engine clients; a flush with its
+     stale serve and rebuild: the `serving` line; the clients' queries/s
+     is over the span from the first measured query's start to the last
+     one's end);
   7. the standalone server (`filodb_tpu_torch.standalone.server`) on the
      card, holding phase 4's data routed over 4 shards as the reference
-     routes it, plus seed_dev_data(): PromQL over HTTP (the default
-     sample limit's 422, each query held against the numpy oracle with
-     the kernels it launched, again from the results cache and with
-     &cache=false), /metrics, 8 HTTP clients (the `server` line);
+     routes it, plus seed_dev_data(), started with the rules of phase 10
+     and self-monitoring (both loops run through the phase): PromQL over
+     HTTP (the default sample limit's 422, each query held against the
+     numpy oracle with the kernels it launched, again from the results
+     cache and with &cache=false), /metrics, 4 HTTP clients (the `server`
+     line; the wall-clock rule ticks' launches, told apart from the
+     queries' by their BACKGROUND class, in its `loops`);
+ 10. on phase 7's server, before it stops: recording rules, alerting and
+     self-monitoring. The rules: `job:http_requests:rate5m` = sum by (job)
+     of rate(http_requests_total[5m]), `irregular:rate5m` =
+     rate(irregular_total[5m]), and the alert `JobRequestRateHigh`, the
+     grouped rate above X (the median of the 16 jobs' oracle rates at the
+     first tick, fixed before any tick) for 2m, posting to a loopback
+     webhook sink. The wall-clock scheduler's thread is ended and the
+     caches of phase 7 (which ran the same query texts on the same grids)
+     dropped; then every group ticks through eval_group_once at 8
+     boundaries of the data's time ending at the flushed end, both
+     kernels' launches counted. Checked: the recorded job rates against
+     the oracle and the same query over HTTP with &cache=false; the
+     irregular rates bit for bit against the engine with the extract's
+     plain version; every recorded sample read back from __rules__; the
+     alert's states per tick (pending, then firing after 2m) in the
+     engine, ALERTS, /api/v1/alerts and the webhook; explain=analyze (a
+     cold tick, then partial hits computing the newest step); and
+     __selfmon__ (the loop's tick counter, the rule-evaluation counter
+     counting this phase's evaluations exactly, and a rate over each
+     against the oracle on the raw samples) (the `rules` line);
   8. the write path and durability: phase 4's flushed history (the
      counters and the irregular series) backfilled into a fresh data-dir
      through the memstore and a FlatFileColumnStore; server A on the card
@@ -70,8 +98,8 @@ Phases, none of whose failures is caught:
      then node1 stopped without a drain (detection), restarted (recovery)
      and drained into node0 (planned handoff), the grouped rate after
      each (the `cluster` line);
-  then the `kernels` line: launches (phase 4, and phases 5-9 as
-  `launches_phase5` to `launches_phase9`), max error, kernel and plain
+  then the `kernels` line: launches (phase 4, and phases 5-10 as
+  `launches_phase5` to `launches_phase10`), max error, kernel and plain
   times (CUDA events over warmed launches; `device_ms` by CUDA-graph
   replay, without the host's cost of a call) and the least time the card
   could take, at the phase-3 shapes, and for the group-sum also at the
@@ -96,9 +124,18 @@ Phase 9: each answer as phase 7's; the per-series and irregular rates
 equal to server B's bit for bit, the grouped rate within the group-sum
 tolerance of B's; the join within rtol 2e-5 of the range its sides'
 branch variants span; no downgrade from gRPC to HTTP on either node.
+Phase 10: the job rates within rtol 1e-5 of the integer-rule oracle (on
+a tick that did not take the fused group-sum, plus the knife spread) and
+of the uncached HTTP answer; the alert's active set decided by the
+recorded rates, which must agree with the oracle's side of X wherever the
+oracle is further from X than that tolerance; the __selfmon__ rates
+within rtol 1e-5 of a branch variant of the oracle.
 
-The last line of standard output is {"ok": true, "device": {...}}; the
-script exits non-zero, printing no result, when there is no CUDA device.
+Standard output: the card's name and power limit after phase 1, then each
+phase's JSON line as the phase ends (`functions` with `queries`,
+`serving`, `server`, `rules`, `durability`, `cluster`), then the `kernels`
+line, and last {"ok": true, "device": {...}}. The script exits non-zero,
+printing no result, when there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -356,8 +393,10 @@ def phase_parity(gen, dev) -> None:
 
 
 def _oracle_rates(ts: np.ndarray, vals: np.ndarray, w0e: int, T: int,
-                  knife_ms: Optional[int] = None) -> np.ndarray:
-    """Straightforward f64 Prometheus rate per series and window -> [S, T]
+                  knife_ms: Optional[int] = None, window: int = WINDOW,
+                  step: int = STEP) -> np.ndarray:
+    """Straightforward f64 Prometheus rate per series and window (of
+    `window` ms, ends `step` ms apart from w0e) -> [S, T]
     (sorted rows, searchsorted bounds, reset-corrected values; NaN under two
     samples). The extrapolation branch ("gap < 1.1 x the average interval")
     is decided on integer ms, 10*(cnt-1)*gap <= 11*sampled, the rule the
@@ -370,8 +409,8 @@ def _oracle_rates(ts: np.ndarray, vals: np.ndarray, w0e: int, T: int,
     S, N = ts.shape
     prev = np.concatenate([np.full((S, 1), np.nan), vals[:, :-1]], axis=1)
     cv = vals + np.cumsum(np.where(vals < prev, prev, 0.0), axis=1)
-    wend = w0e + np.arange(T, dtype=np.int64) * STEP
-    wstart = wend - WINDOW
+    wend = w0e + np.arange(T, dtype=np.int64) * step
+    wstart = wend - window
     lo = np.empty((S, T), np.int64)
     hi = np.empty((S, T), np.int64)
     for s in range(S):
@@ -407,7 +446,7 @@ def _oracle_rates(ts: np.ndarray, vals: np.ndarray, w0e: int, T: int,
             use_ds = np.where(zlt, dzero < 1.1 * avg, use_ds)
             extrap = sampled + np.where(use_ds, dstart, avg / 2) \
                 + np.where(use_de, de_ms / 1000.0, avg / 2)
-            rate = delta * extrap / sampled / (WINDOW / 1000.0)
+            rate = delta * extrap / sampled / (window / 1000.0)
             out.append(np.where(cnt >= 2, rate, np.nan))
     return out[0] if knife_ms is None else np.stack(out)
 
@@ -939,6 +978,64 @@ def check_kernel_calls(calls, originals, what: str) -> dict:
     return errs
 
 
+class LaunchClasses:
+    """Counts the kernels' launches by the priority class they serve, so
+    that phase 7 tells the rules engine's wall-clock ticks (BACKGROUND,
+    set by rule_eval_range) apart from its own queries (every other
+    class): on the launching thread its QoS class, on the batcher's
+    executor thread the class of the batch it runs (a batch a query
+    joined counts as the query's). The kernel wrappers' calls are
+    serialised here, so that each call's LAUNCHES delta is its own."""
+
+    def __init__(self, batcher):
+        import threading
+        from filodb_tpu_torch.query import kernels as kn
+        from filodb_tpu_torch.query import qos
+
+        self.kn, self.batcher = kn, batcher
+        self.background = qos.PRIORITY_BACKGROUND
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.counts = {"rules": dict.fromkeys(kn.LAUNCHES, 0),
+                       "queries": dict.fromkeys(kn.LAUNCHES, 0)}
+        self.wrapped = {name: getattr(kn, name) for name in kn.LAUNCHES}
+        for name, fn in self.wrapped.items():
+            setattr(kn, name, self._count(name, fn))
+        execute = batcher._execute
+
+        def run_at(key, p, run_batch, queued):
+            self.local.priority = p.priority
+            try:
+                return execute(key, p, run_batch, queued)
+            finally:
+                self.local.priority = None
+        batcher._execute = run_at
+
+    def _count(self, name, fn):
+        def call(*a, **kw):
+            from filodb_tpu_torch.query import qos
+
+            prio = getattr(self.local, "priority", None)
+            if prio is None:
+                prio = qos.current_priority()
+            who = "rules" if prio == self.background else "queries"
+            with self.lock:
+                n0 = self.kn.LAUNCHES[name]
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.counts[who][name] += self.kn.LAUNCHES[name] - n0
+        return call
+
+    def queries(self) -> dict:
+        return dict(self.counts["queries"])
+
+    def restore(self) -> None:
+        del self.batcher._execute
+        for name, fn in self.wrapped.items():
+            setattr(self.kn, name, fn)
+
+
 # ---------------------------------------------------------------------------
 # phase 5: every device function through the engine
 # ---------------------------------------------------------------------------
@@ -1334,6 +1431,8 @@ GRIDS = 8               # grid positions the clients of phases 6 and 7
                         # cycle through, up to GRIDS - 1 steps early
 BURST_ROUNDS = 1        # bursts of each key with the batcher on (cut
                         # from 2 to keep phase 6 near 90 s)
+DOOR_WAIT_S = 60.0      # bound on a burst member's wait at the batcher's
+                        # door
 CLIENTS = 16            # free-running engine clients
 CLIENT_WARM = 1         # first queries of each client, left out (warm-up)
 CLIENT_QUERIES = 2      # queries of each client that are measured (cut
@@ -1398,9 +1497,17 @@ def burst_params(nsteps: int, ks):
                         start + (k + nsteps - 1) * STEP) for k in ks]
 
 
-def burst(be, series, func: str, params):
+def burst(be, series, func: str, params, door: bool = False):
     """One periodic_samples per grid on its own thread, all released by a
-    barrier at the backend -> (answers, latencies s)."""
+    barrier at the backend -> (answers, latencies s). With `door` (the
+    batcher on), each member also waits at the batcher's submit until
+    every member has finished its host preparation: that preparation
+    holds the interpreter lock, so members released together at the
+    backend can reach the batcher spread wider than its 1 ms residual
+    gather window, each then dispatching alone. Every member calls
+    submit once on these grids; a member that does not breaks the door
+    after DOOR_WAIT_S. A latency counts from the backend's barrier, the
+    wait at the door included."""
     import threading
 
     outs = [None] * len(params)
@@ -1413,7 +1520,20 @@ def burst(be, series, func: str, params):
         outs[i] = be.periodic_samples(series, params[i], func,
                                       WINDOW).values
         lat[i] = time.perf_counter() - t0
-    run_threads(len(params), one)
+    b = be.batcher
+    if door:
+        gate = threading.Barrier(len(params))
+        submit = b.submit
+
+        def at_door(*a, **kw):
+            gate.wait(DOOR_WAIT_S)
+            return submit(*a, **kw)
+        b.submit = at_door
+    try:
+        run_threads(len(params), one)
+    finally:
+        if door:
+            del b.submit
     return outs, lat
 
 
@@ -1535,10 +1655,11 @@ def check_rows(func: str, series, got: np.ndarray, params, stride: int
 def serving_bursts(be, sel, ts, vals) -> dict:
     """Each BURST_KEYS key: BURST queries behind a barrier, with the
     batcher off (MicroBatcher(enabled=False)) and then on (BURST_ROUNDS
-    bursts); batched answers held bit for bit to the unbatched ones (the
-    packed rate: the difference between its two routes measured), the
-    first member of each against the oracle -> (readings, the widest
-    batch of each key, to be timed later)."""
+    bursts, the members meeting again at the batcher's door: see burst);
+    batched answers held bit for bit to the unbatched ones (the packed
+    rate: the difference between its two routes measured), the first
+    member of each against the oracle -> (readings, the widest batch of
+    each key, to be timed later)."""
     from filodb_tpu_torch.query.batcher import MicroBatcher
 
     start, flushed_end, _ = engine_grid()
@@ -1555,7 +1676,7 @@ def serving_bursts(be, sel, ts, vals) -> dict:
         rounds = []
         try:
             for _ in range(BURST_ROUNDS):
-                rounds.append(burst(be, series, func, params))
+                rounds.append(burst(be, series, func, params, door=True))
         finally:
             cap.restore()
             b.executor.stop(WAIT_S)
@@ -1606,9 +1727,14 @@ def client_run(shard, be) -> dict:
     max_over_time on the irregular series and sum by (job) of the rate,
     on grids that end up to GRIDS - 1 steps early: CLIENT_WARM queries
     each, left out, then CLIENT_QUERIES measured. Latencies are those of
-    the measured queries; queries/s counts the measured queries that end
-    in the steady window, from the last client's end of warm-up to the
-    first client's last query, over its length."""
+    the measured queries; queries/s is the measured queries over the span
+    from the first measured query's start to the last one's end (a span
+    that always exists). Where every client finished its warm-up before
+    the first client ended (the steady window, from the last client's end
+    of warm-up to the first client's last query), the queries ending in
+    it over its length are reported too, with `steady_window` saying
+    whether it formed; its absence is no failure, as it measures only how
+    the clients' queries overlapped."""
     import threading
 
     from filodb_tpu_torch.promql.parser import (TimeStepParams,
@@ -1637,19 +1763,23 @@ def client_run(shard, be) -> dict:
     run_threads(CLIENTS, client)
     wall = time.perf_counter() - t0
     measured = [q for c in spans for q in c[CLIENT_WARM:]]
+    m0 = min(b for b, _ in measured)
+    m1 = max(e for _, e in measured)
+    ms = 1e3 * np.asarray([e - b for b, e in measured])
+    out = {"clients": CLIENTS, "warmup_queries": CLIENTS * CLIENT_WARM,
+           "queries": len(measured), "wall_s": wall,
+           "measured_span_s": m1 - m0, "qps": len(measured) / (m1 - m0),
+           "p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)),
+           "max_ms": float(ms.max())}
     w0 = max(c[CLIENT_WARM - 1][1] for c in spans)
     w1 = min(c[-1][1] for c in spans)
-    assert w1 > w0, "no steady window: a client ended before another " \
-        "finished its warm-up"
-    done = sum(1 for _, e in measured if w0 < e <= w1)
-    ms = 1e3 * np.asarray([e - b for b, e in measured])
-    return {"clients": CLIENTS, "warmup_queries": CLIENTS * CLIENT_WARM,
-            "queries": len(measured), "wall_s": wall,
-            "window_s": w1 - w0, "window_queries": done,
-            "qps": done / (w1 - w0),
-            "p50_ms": float(np.percentile(ms, 50)),
-            "p99_ms": float(np.percentile(ms, 99)),
-            "max_ms": float(ms.max())}
+    out["steady_window"] = w1 > w0
+    if w1 > w0:
+        done = sum(1 for _, e in measured if w0 < e <= w1)
+        out.update(window_s=w1 - w0, window_queries=done,
+                   window_qps=done / (w1 - w0))
+    return out
 
 
 def serving_clients(shard, be) -> dict:
@@ -2008,17 +2138,18 @@ def same_answer(a, b) -> bool:
                                                equal_nan=True)
 
 
-def server_queries_http(srv, rows, engine_time) -> list:
+def server_queries_http(srv, rows, engine_time, classes) -> list:
     """Phase 7's range queries and one instant query over HTTP. Each range
     query goes three times in a row: first (the kernels it launched
     counted), again as it was (the results cache answers: a full hit where
     the grid ends at or below every shard's ingest watermark), and with
     &cache=false (the engine and the device again); all three answers
     alike. Then each first answer is held against the numpy oracle as
-    phases 4-5 hold theirs -> readings."""
+    phases 4-5 hold theirs -> readings. A query's launches are those of
+    the queries' class in `classes` (LaunchClasses): a wall-clock rule
+    tick that overlaps it does not count."""
     from filodb_tpu_torch.promql.parser import (TimeStepParams, parse_query,
                                                 parse_query_range)
-    from filodb_tpu_torch.query import kernels as kn
     from filodb_tpu_torch.query.engine import QueryEngine
 
     step = STEP // 1000
@@ -2027,12 +2158,13 @@ def server_queries_http(srv, rows, engine_time) -> list:
     answers = []
     for q, s, e in server_queries():
         params = {"query": q, "start": s, "end": e, "step": step}
-        before = dict(kn.LAUNCHES)
+        before = classes.queries()
         engine_time.take()
         payload, ms, nbytes = http_json(srv.port, path, params)
         engine_s = engine_time.take()
         r = {"q": q, "first_ms": ms, "bytes": nbytes,
-             "launches": {k: kn.LAUNCHES[k] - before[k] for k in before},
+             "launches": {k: classes.queries()[k] - before[k]
+                          for k in before},
              "engine_ms": 1e3 * engine_s,
              "handler_outside_engine_ms": ms - 1e3 * engine_s,
              "timings": payload["stats"]["timings"]}
@@ -2137,19 +2269,13 @@ def server_clients(srv) -> dict:
             "occupancy_max": b1["occupancy_max"], "batcher": b1}
 
 
-def phase_server(rows: dict, smi: str) -> dict:
-    """Phase 7: the port's FiloServer on CUDA (SERVER_CONFIG), loaded with
-    the engine phases' rows through state.load_into_store (routed to their
-    shards as the reference routes them) plus seed_dev_data(), then
-    PromQL over HTTP: the default sample limit's 422, every query held
-    against the numpy oracle with the kernels it launched, the results
-    cache and its bypass, /metrics, and concurrent clients. Kernel launch
-    counts are set to 0 before the first query and read after the
-    clients; every kernel call is held against its plain version."""
+def start_server(rows: dict, loops: dict):
+    """Phase 7's server: the port's FiloServer on CUDA (SERVER_CONFIG plus
+    `loops`, the rules and self-monitoring keys), loaded with the engine
+    phases' rows through state.load_into_store (routed to their shards as
+    the reference routes them) plus seed_dev_data() -> (server, load
+    reading). Phases 7 and 10 run on it; the caller stops it."""
     from filodb_tpu_torch import state
-    from filodb_tpu_torch.http.server import FiloHttpServer
-    from filodb_tpu_torch.query import kernels as kn
-    from filodb_tpu_torch.query.model import QueryLimits
     from filodb_tpu_torch.standalone.server import DEFAULTS, FiloServer
 
     t0 = time.perf_counter()
@@ -2158,86 +2284,126 @@ def phase_server(rows: dict, smi: str) -> dict:
                       "slot 8-10 s")):
         log(f"phase 7: config {key} = {SERVER_CONFIG[key]} (default "
             f"{DEFAULTS[key]}): {why}")
-    srv = FiloServer(SERVER_CONFIG).start()
+    srv = FiloServer({**SERVER_CONFIG, **loops}).start()
     try:
+        log(f"phase 7: rules engine on ({len(srv.rules.groups)} groups, "
+            f"its wall-clock scheduler running), self-monitoring on (every "
+            f"{srv.selfmon.interval_s} s)")
         for key, schema, flush in LOAD_ORDER:
             state.load_into_store(srv.store, srv.ref, rows[key], schema,
                                   flush, num_shards=4, spread=1)
         dev_rows = srv.seed_dev_data()
-        load_s = time.perf_counter() - t0
-        per_shard = {s.shard_num: len(s.partitions)
-                     for s in srv.store.shards(srv.ref)}
-        log(f"phase 7: server on :{srv.port}, data loaded in {load_s:.1f} s "
-            f"(+{dev_rows} dev samples), series per shard {per_shard}")
-        # the reference's default sample limit, on an HTTP edge over the
-        # same shards
-        edge = FiloHttpServer(
-            {srv.ref.dataset: srv.store.shards(srv.ref)},
-            backend=srv.backend, shard_mapper=srv.mapper,
-            query_limits=QueryLimits(
-                series_limit=DEFAULTS["query-series-limit"],
-                sample_limit=DEFAULTS["query-sample-limit"]))
-        edge.start()
-        try:
-            start, fe, _ = engine_grid()
-            code, body, _ = http_get(
-                edge.port, "/promql/timeseries/api/v1/query_range",
-                {"query": "sum by (job) (rate(http_requests_total[5m]))",
-                 "start": start, "end": fe, "step": STEP // 1000})
-        finally:
-            edge.stop()
-        assert code == 422, (code, body[:300])
-        log(f"phase 7: default sample limit: HTTP {code} "
-            f"{json.loads(body)['error']}")
-        m0 = scrape(srv.port)
-        calls, originals = record_kernel_calls()
-        engine_time = EngineTime()
-        kn.reset_launches()
-        try:
-            readings = server_queries_http(srv, rows, engine_time)
-            clients = server_clients(srv)
-        finally:
-            engine_time.restore()
-            restore_kernels(originals)
-        launches = dict(kn.LAUNCHES)
-        log(f"phase 7: {SERVER_CLIENTS} HTTP clients: "
-            f"{json.dumps(clients)}")
-        m1 = scrape(srv.port)
-        moved = {}
-        for fam in ("filodb_tile_builds_total", "filodb_tile_cache_hits_total",
-                    "filodb_batcher_queries_total",
-                    "filodb_batcher_batches_total",
-                    "filodb_result_cache_hits_total",
-                    "filodb_result_cache_partial_hits_total",
-                    "filodb_result_cache_bypassed_total",
-                    "filodb_plan_cache_hits_total"):
-            moved[fam] = m1[fam] - m0[fam]
-        for fam in ("filodb_tile_builds_total", "filodb_tile_cache_hits_total",
-                    "filodb_batcher_queries_total",
-                    "filodb_batcher_batches_total",
-                    "filodb_result_cache_bypassed_total"):
-            assert moved[fam] > 0, (fam, moved)
-        n_full = sum(1 for _, _, e in server_queries() if e <= fe)
-        assert moved["filodb_result_cache_hits_total"] >= n_full, moved
-        assert m1["filodb_admission_rejected_total"] == 0
-        log(f"phase 7: /metrics moved: {json.dumps(moved)}")
-        for name, n in launches.items():
-            assert n > 0, f"{name} was not launched in phase 7"
-        errs = check_kernel_calls(calls, originals, "phase 7")
-    finally:
+    except BaseException:
         srv.stop()
+        raise
+    load_s = time.perf_counter() - t0
+    per_shard = {s.shard_num: len(s.partitions)
+                 for s in srv.store.shards(srv.ref)}
+    log(f"phase 7: server on :{srv.port}, data loaded in {load_s:.1f} s "
+        f"(+{dev_rows} dev samples), series per shard {per_shard}")
+    return srv, {"t0": t0, "load_s": load_s, "series_per_shard": per_shard}
+
+
+def phase_server(srv, loaded: dict, rows: dict, smi: str) -> dict:
+    """Phase 7 on start_server's server: PromQL over HTTP: the default
+    sample limit's 422, every query held against the numpy oracle with
+    the kernels it launched, the results cache and its bypass, /metrics,
+    and concurrent clients, while the rules engine's wall-clock scheduler
+    and the self-monitoring loop run. Kernel launch counts are set to 0
+    before the first query and read after the clients; the launches of
+    the wall-clock rule ticks are told apart (LaunchClasses) and reported
+    in `loops`; every kernel call is held against its plain version."""
+    from filodb_tpu_torch.http.server import FiloHttpServer
+    from filodb_tpu_torch.query import kernels as kn
+    from filodb_tpu_torch.query.model import QueryLimits
+    from filodb_tpu_torch.standalone.server import DEFAULTS
+
+    t0 = loaded["t0"]
+    # the reference's default sample limit, on an HTTP edge over the
+    # same shards
+    edge = FiloHttpServer(
+        {srv.ref.dataset: srv.store.shards(srv.ref)},
+        backend=srv.backend, shard_mapper=srv.mapper,
+        query_limits=QueryLimits(
+            series_limit=DEFAULTS["query-series-limit"],
+            sample_limit=DEFAULTS["query-sample-limit"]))
+    edge.start()
+    try:
+        start, fe, _ = engine_grid()
+        code, body, _ = http_get(
+            edge.port, "/promql/timeseries/api/v1/query_range",
+            {"query": "sum by (job) (rate(http_requests_total[5m]))",
+             "start": start, "end": fe, "step": STEP // 1000})
+    finally:
+        edge.stop()
+    assert code == 422, (code, body[:300])
+    log(f"phase 7: default sample limit: HTTP {code} "
+        f"{json.loads(body)['error']}")
+    m0 = scrape(srv.port)
+    calls, originals = record_kernel_calls()
+    classes = LaunchClasses(srv.backend.batcher)
+    engine_time = EngineTime()
+    kn.reset_launches()
+    try:
+        readings = server_queries_http(srv, rows, engine_time, classes)
+        clients = server_clients(srv)
+    finally:
+        engine_time.restore()
+        classes.restore()
+        restore_kernels(originals)
+    launches = dict(kn.LAUNCHES)
+    own, ticks = classes.counts["queries"], classes.counts["rules"]
+    assert all(own[k] + ticks[k] == launches[k] for k in launches), \
+        (launches, classes.counts)
+    log(f"phase 7: {SERVER_CLIENTS} HTTP clients: {json.dumps(clients)}")
+    m1 = scrape(srv.port)
+    moved = {}
+    for fam in ("filodb_tile_builds_total", "filodb_tile_cache_hits_total",
+                "filodb_batcher_queries_total",
+                "filodb_batcher_batches_total",
+                "filodb_result_cache_hits_total",
+                "filodb_result_cache_partial_hits_total",
+                "filodb_result_cache_bypassed_total",
+                "filodb_plan_cache_hits_total"):
+        moved[fam] = m1[fam] - m0[fam]
+    for fam in ("filodb_tile_builds_total", "filodb_tile_cache_hits_total",
+                "filodb_batcher_queries_total",
+                "filodb_batcher_batches_total",
+                "filodb_result_cache_bypassed_total"):
+        assert moved[fam] > 0, (fam, moved)
+    n_full = sum(1 for _, _, e in server_queries() if e <= fe)
+    assert moved["filodb_result_cache_hits_total"] >= n_full, moved
+    assert m1["filodb_admission_rejected_total"] == 0
+    log(f"phase 7: /metrics moved: {json.dumps(moved)}")
+    for name, n in own.items():
+        assert n > 0, f"{name} was not launched by phase 7's queries"
+    errs = check_kernel_calls(calls, originals, "phase 7")
     secs = time.perf_counter() - t0
     first = readings[0]
-    split = {"wall_ms": first["first_ms"], "engine_ms": first["engine_ms"],
+    split = {"wall_ms": first["first_ms"],
+             "engine_ms": first["engine_ms"],
              "handler_outside_engine_ms":
                  first["handler_outside_engine_ms"],
              "timings": first["timings"]}
-    log(f"phase 7: {secs:.1f} s; kernel launches {launches}")
+    # the rules engine's wall-clock ticks and the self-monitoring loop ran
+    # beside every phase-7 query
+    rs, sm = srv.rules.snapshot(), srv.selfmon.snapshot()
+    loops = {"rules": {"scheduler_alive": rs["alive"],
+                       "wall_ticks": rs["ticks"], "errors": rs["errors"],
+                       "launches": dict(ticks)},
+             "selfmon": {"alive": sm["alive"], "ticks": sm["ticks"],
+                         "samples": sm["samples_ingested"],
+                         "errors": sm["errors"],
+                         "last_tick_s": sm["last_tick_s"]}}
+    assert rs["alive"] and sm["alive"], loops
+    log(f"phase 7: {secs:.1f} s; kernel launches {launches} (queries "
+        f"{dict(own)}, wall-clock rule ticks {dict(ticks)})")
     return {"launches": launches, "errs": errs,
-            "server": {"seconds": secs, "load_s": load_s,
-                       "series_per_shard": per_shard,
+            "server": {"seconds": secs, "load_s": loaded["load_s"],
+                       "series_per_shard": loaded["series_per_shard"],
                        "queries": readings, "first_grouped_split": split,
                        "clients": clients, "metrics_moved": moved,
+                       "launches_queries": dict(own), "loops": loops,
                        "card": smi}}
 
 
@@ -3010,6 +3176,561 @@ def phase_cluster(rows: dict, wdir: dict, answers_b: list,
     return {"launches": launches, "errs": errs, "cluster": cluster}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: recording rules, alerting and self-monitoring on phase 7's server
+# ---------------------------------------------------------------------------
+
+RULE_TICKS = 8          # consecutive 60 s boundaries ticked, ending at the
+                        # engine grid's flushed end
+RULE_FOR = "2m"         # the alert's for: (pending at ticks 1-2)
+SELFMON_WINDOW_S = 60   # rate window and step of the __selfmon__ checks
+SELFMON_STEP_S = 15
+REC_JOB = "job:http_requests:rate5m"
+REC_IRR = "irregular:rate5m"
+ALERT = "JobRequestRateHigh"
+Q_GROUPED = "sum by (job) (rate(http_requests_total[5m]))"
+Q_IRR = "rate(irregular_total[5m])"
+
+
+def rule_ticks() -> list:
+    """The phase's tick boundaries in s: RULE_TICKS steps of the 60 s
+    interval ending at engine_grid()'s flushed end (a multiple of 60)."""
+    _, fe, _ = engine_grid()
+    s = STEP // 1000
+    assert fe % s == 0
+    return [fe - (RULE_TICKS - 1 - k) * s for k in range(RULE_TICKS)]
+
+
+def rule_threshold(rows: dict) -> float:
+    """The alert's threshold X: the median of the G jobs' rates at the
+    first tick by the f64 integer-rule oracle (variant 0), fixed before
+    any tick and never tuned against the kernel's answer."""
+    r = _oracle_rates(rows["ts"], rows["vals"], rule_ticks()[0] * 1000, 1)
+    gid = np.arange(r.shape[0]) % G
+    return float(np.median(_group_sum(r, gid)[0]))
+
+
+def rules_config(threshold: float, webhook_url: str) -> dict:
+    """Phase 7's extra keys: three rule groups at the 60 s step (inline
+    JSON, so PyYAML is not needed), their webhook, and self-monitoring at
+    the reference's default intervals."""
+    return {"rules": {"groups": [
+        {"name": "job-rates", "interval": "60s", "rules": [
+            {"record": REC_JOB, "expr": Q_GROUPED}]},
+        {"name": "irregular-rates", "interval": "60s", "rules": [
+            {"record": REC_IRR, "expr": Q_IRR}]},
+        {"name": "alerts", "interval": "60s", "rules": [
+            {"alert": ALERT, "expr": f"{Q_GROUPED} > {threshold!r}",
+             "for": RULE_FOR}]}]},
+        "rules-webhook-url": webhook_url, "self-monitor": True}
+
+
+class WebhookSink:
+    """A loopback HTTP receiver of the alert webhooks: keeps every POSTed
+    JSON body."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        bodies = self.bodies = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                bodies.append(json.loads(self.rfile.read(n)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/alerts"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+def _backend_counts(be) -> dict:
+    return {k: getattr(be, k) for k in ("tile_builds", "tile_hits",
+                                        "aligned_evals", "packed_dispatches",
+                                        "fused_aggs")}
+
+
+def rule_tick_run(srv) -> dict:
+    """Ticks every group of the engine at each rule_ticks() boundary
+    through eval_group_once, the kernels' calls recorded and their launch
+    counts set to 0 just before the first tick and read just after the
+    last. Per tick: the route (launches and backend counters moved), the
+    engine's alert instances and /api/v1/rules?explain=analyze. Every
+    sample the write-back received is kept."""
+    from filodb_tpu_torch.query import kernels as kn
+
+    eng, be = srv.rules, srv.backend
+    writes = []
+    wb_write = eng.writeback.write
+
+    def keep(samples):
+        samples = list(samples)
+        writes.extend(samples)
+        return wb_write(samples)
+    eng.writeback.write = keep
+    ticks, per_tick = rule_ticks(), []
+    calls, originals = record_kernel_calls()
+    kn.reset_launches()
+    wall0 = time.time()
+    t0 = time.perf_counter()
+    try:
+        for b in ticks:
+            l0, c0 = dict(kn.LAUNCHES), _backend_counts(be)
+            tk = time.perf_counter()
+            outs = [eng.eval_group_once(g, b) for g in eng.groups]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - tk
+            assert all(o["ok"] for o in outs), outs
+            c1 = _backend_counts(be)
+            r = {"at": b, "s": dt,
+                 "launches": {k: kn.LAUNCHES[k] - l0[k] for k in l0},
+                 "backend": {k: c1[k] - c0[k] for k in c0},
+                 "groups_s": {o["group"]: o["duration_s"] for o in outs},
+                 "alerts": sorted((a["labels"]["job"], a["state"])
+                                  for a in eng.alerts_payload()["alerts"])}
+            payload, _, _ = http_json(srv.port, "/api/v1/rules",
+                                      {"explain": "analyze"})
+            r["stages"] = {rule["name"]: rule["lastEval"]["stages"]
+                           for g in payload["data"]["groups"]
+                           for rule in g["rules"]}
+            per_tick.append(r)
+            cache = {k: (v["resultCache"], v["cachedSteps"])
+                     for k, v in r["stages"].items()}
+            log(f"phase 10: tick at {b}: {dt * 1e3:.1f} ms, launches "
+                f"{r['launches']}, backend {r['backend']}, cache {cache}")
+    finally:
+        restore_kernels(originals)
+        eng.writeback.write = wb_write
+    launches = dict(kn.LAUNCHES)
+    ticks_s = time.perf_counter() - t0
+    for name, n in launches.items():
+        assert n > 0, f"{name} was not launched by phase 10's rule ticks"
+    errs = check_kernel_calls(calls, originals, "phase 10")
+    return {"per_tick": per_tick, "writes": writes, "launches": launches,
+            "errs": errs, "ticks_s": ticks_s, "wall": (wall0, time.time())}
+
+
+def _recorded(writes, metric: str) -> dict:
+    """{(labels without _ws_/_ns_/_metric_, ts ms): value} of one metric."""
+    out = {}
+    for _, labels, ts, v in writes:
+        if labels["_metric_"] == metric:
+            key = tuple(sorted((k, x) for k, x in labels.items()
+                               if k not in ("_ws_", "_ns_", "_metric_")))
+            out[(key, int(ts))] = v
+    return out
+
+
+def _route(r: dict) -> str:
+    """The route a tick's grouped rate took, from what moved: the fused
+    group-sum declines a grid of one step (groupsum_plan needs two, as the
+    reference does), and the engine then evaluates every series on the
+    cached aligned tiles (evaluate_counters_t) and groups on the host."""
+    if r["backend"]["fused_aggs"]:
+        assert r["launches"]["counter_groupsum"] > 0, r
+        return "fused group-sum"
+    if r["backend"]["tile_hits"] or r["backend"]["tile_builds"]:
+        return "per-series on aligned tiles"
+    return "packed path"
+
+
+def check_rule_groups(srv, rows, run, threshold) -> dict:
+    """The recorded job rates at every tick against the f64 integer-rule
+    oracle (group-sum tolerance) and against the same query over HTTP with
+    &cache=false on the tick's grid."""
+    ticks = rule_ticks()
+    s = STEP // 1000
+    variants = _oracle_rates(rows["ts"], rows["vals"], ticks[0] * 1000,
+                             len(ticks), knife_ms=KNIFE_MS)
+    gid = np.arange(variants.shape[1]) % G
+    nom = _group_sum(variants[0], gid)                   # [T, G]
+    spread = _group_sum(np.nan_to_num(np.nanmax(variants, axis=0)
+                                      - np.nanmin(variants, axis=0)), gid)
+    rec = _recorded(run["writes"], REC_JOB)
+    got = np.full(nom.shape, np.nan)
+    for (key, ts), v in rec.items():
+        k = ticks.index(ts // 1000)
+        got[k, int(dict(key)["job"][3:])] = v
+    assert np.isfinite(got).all(), "a job's rate is missing at a tick"
+    err = np.abs(got - nom)
+    # the fused group-sum decides the extrapolation branch on integer ms as
+    # variant 0 does; another route may take a knife edge either way
+    fused = np.asarray([_route(r) == "fused group-sum"
+                        for r in run["per_tick"]])[:, None]
+    allow = np.where(fused, 0.0, spread)
+    assert (err <= 1e-5 * np.abs(nom) + allow + 1e-9).all(), \
+        f"recorded job rates vs the oracle: max abs err {err.max()}"
+    http_diff = 0.0
+    for k, b in enumerate(ticks):
+        payload, _, _ = http_json(
+            srv.port, "/promql/timeseries/api/v1/query_range",
+            {"query": Q_GROUPED, "start": b - (RULE_TICKS - 1) * s,
+             "end": b, "step": s, "cache": "false"})
+        g = grid_from_json(payload, b - (RULE_TICKS - 1) * s, b, s)
+        for key, row in zip(g.keys, g.values):
+            j = int(key["job"][3:])
+            d = abs(row[-1] - got[k, j])
+            assert d <= 1e-5 * abs(got[k, j]) + 1e-9, (b, key, d)
+            http_diff = max(http_diff, d / abs(got[k, j]))
+    return {"samples": len(rec), "max_rel_err_vs_oracle":
+            float(np.max(err / np.abs(nom))),
+            "knife_cells": int(((spread > 0) & ~fused).sum()),
+            "max_rel_diff_vs_http_uncached": http_diff,
+            "threshold": threshold, "got": got, "nom": nom,
+            "spread": spread}
+
+
+def check_rule_irregular(srv, run) -> dict:
+    """The recorded irregular rates at every tick: bit for bit what the
+    engine gives on the tick's computed grid with the extract's plain
+    version in the kernel's place, and within phase 4's tolerance of the
+    engine's numpy oracle."""
+    from types import SimpleNamespace
+
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                parse_query_range)
+    from filodb_tpu_torch.query import kernels as kn
+    from filodb_tpu_torch.query.engine import QueryEngine
+
+    ticks = rule_ticks()
+    s = STEP // 1000
+    rec = _recorded(run["writes"], REC_IRR)
+    shards = srv.store.shards(srv.ref)
+    plain = QueryEngine(shards, backend=srv.backend)
+    kernel = kn.window_extract
+    kn.window_extract = kn.window_extract_reference
+    try:
+        exact = 0
+        for k, b in enumerate(ticks):
+            # the first tick computes its whole grid, the others the
+            # newest step (the results cache serves the rest)
+            start = b - (RULE_TICKS - 1) * s if k == 0 else b
+            want = plain.execute(parse_query_range(
+                Q_IRR, TimeStepParams(start, s, b)))
+            for key, row in zip(want.keys, want.values):
+                if np.isnan(row[-1]):
+                    continue
+                lab = tuple(sorted((a, v) for a, v in dict(key).items()
+                                   if a not in ("_ws_", "_ns_", "_metric_")))
+                got = rec[(lab, b * 1000)]
+                assert got == row[-1], (b, lab, got, row[-1])
+                exact += 1
+    finally:
+        kn.window_extract = kernel
+    assert exact == len(rec), (exact, len(rec))
+    oracle = QueryEngine(shards).execute(parse_query_range(
+        Q_IRR, TimeStepParams(ticks[0], s, ticks[-1])))
+    vals = np.full(oracle.values.shape, np.nan)
+    for i, key in enumerate(oracle.keys):
+        lab = tuple(sorted((a, v) for a, v in dict(key).items()
+                           if a not in ("_ws_", "_ns_", "_metric_")))
+        for k, b in enumerate(ticks):
+            vals[i, k] = rec.get((lab, b * 1000), np.nan)
+    got = SimpleNamespace(keys=oracle.keys, values=vals)
+    return {"samples": len(rec), "bit_exact_vs_plain_extract": exact,
+            "oracle": check_engine_answer(Q_IRR, got, oracle, None)}
+
+
+def check_rule_readback(srv, run) -> dict:
+    """Every recorded sample read back from __rules__ over HTTP, bit for
+    bit as written."""
+    ticks = rule_ticks()
+    s = STEP // 1000
+    n = 0
+    for metric in (REC_JOB, REC_IRR):
+        rec = _recorded(run["writes"], metric)
+        payload, _, nbytes = http_json(
+            srv.port, "/promql/__rules__/api/v1/query_range",
+            {"query": metric, "start": ticks[0], "end": ticks[-1],
+             "step": s})
+        back = {}
+        for e in payload["data"]["result"]:
+            assert e["metric"]["_ws_"] == "__rules__", e["metric"]
+            key = tuple(sorted((a, v) for a, v in e["metric"].items()
+                               if a not in ("_ws_", "_ns_", "__name__")))
+            for t, v in e["values"]:
+                back[(key, int(round(float(t) * 1000)))] = float(v)
+        assert set(back) == set(rec), (metric, len(back), len(rec))
+        for key, v in rec.items():
+            assert back[key] == v, (metric, key, back[key], v)
+        n += len(rec)
+    return {"samples_read_back": n}
+
+
+def expected_alerts(groups: dict, threshold: float, for_s: float):
+    """The alert's instances after each tick by Prometheus' state machine
+    over the recorded job rates; a job is active where its recorded rate
+    is above X. Where the oracle puts a job clearly on one side of X
+    (further than the group-sum tolerance and the knife spread) the
+    recorded side must agree; closer, the recorded side decides, and the
+    cell is counted -> ([sorted (job, state)] per tick, knife cells)."""
+    ticks = rule_ticks()
+    got, nom, spread = groups["got"], groups["nom"], groups["spread"]
+    tol = 1e-5 * np.abs(nom) + spread + 1e-9
+    clear = np.abs(nom - threshold) > tol
+    assert ((got > threshold) == (nom > threshold))[clear].all(), \
+        "a job clearly on one side of X by the oracle alerts on the other"
+    state, out = {}, []
+    for k, b in enumerate(ticks):
+        for j in range(G):
+            if got[k, j] > threshold:
+                st = state.get(j)
+                if st is None:
+                    state[j] = ("pending" if for_s > 0 else "firing", b)
+                elif st[0] == "pending" and b - st[1] >= for_s:
+                    state[j] = ("firing", st[1])
+            else:
+                state.pop(j, None)
+        out.append(sorted((f"job{j}", st[0]) for j, st in state.items()))
+    return out, int((~clear).sum())
+
+
+def check_alerts(srv, sink, run, groups) -> dict:
+    """The alert's instances after every tick as expected_alerts() says;
+    ALERTS{alertstate=...} read back from __rules__ at each step (a
+    series stays visible for the 5 m lookback after its last sample),
+    /api/v1/alerts after the last tick, and the webhook's firing bodies."""
+    ticks = rule_ticks()
+    s = STEP // 1000
+    want, knife = expected_alerts(groups, groups["threshold"], 120.0)
+    got = [[tuple(a) for a in r["alerts"]] for r in run["per_tick"]]
+    assert got == [[tuple(a) for a in w] for w in want], (got, want)
+    firing_final = sorted(j for j, st in want[-1] if st == "firing")
+    assert firing_final, "no job fired"
+    for state in ("pending", "firing"):
+        payload, _, _ = http_json(
+            srv.port, "/promql/__rules__/api/v1/query_range",
+            {"query": f'ALERTS{{alertname="{ALERT}",alertstate="{state}"}}',
+             "start": ticks[0], "end": ticks[-1], "step": s})
+        seen = {}
+        for e in payload["data"]["result"]:
+            for t, _ in e["values"]:
+                seen.setdefault(int(float(t)), set()).add(
+                    e["metric"]["job"])
+        for k, b in enumerate(ticks):
+            recent = {j for i in range(k + 1) if b - ticks[i] <= 300
+                      for j, st in want[i] if st == state}
+            assert seen.get(b, set()) == recent, (state, b, seen.get(b),
+                                                  recent)
+    payload, _, _ = http_json(srv.port, "/api/v1/alerts", {})
+    api = sorted((a["labels"]["job"], a["state"])
+                 for a in payload["data"]["alerts"])
+    assert api == [tuple(a) for a in want[-1]], (api, want[-1])
+    fired = []
+    for k in range(len(ticks)):
+        before = {j for j, st in want[k - 1] if st == "firing"} if k else set()
+        fired += sorted({j for j, st in want[k] if st == "firing"} - before)
+    deadline = time.monotonic() + 60
+    while sum(1 for b in sink.bodies if b["status"] == "firing") \
+            < len(fired):
+        assert time.monotonic() < deadline, "webhook not delivered"
+        time.sleep(0.05)
+    hooked = sorted(b["alerts"][0]["labels"]["job"] for b in sink.bodies
+                    if b["status"] == "firing")
+    assert hooked == sorted(fired), (hooked, fired)
+    return {"threshold": groups["threshold"], "knife_cells": knife,
+            "per_tick": [dict(want[k]) for k in range(len(ticks))],
+            "firing": firing_final, "webhook_firing": hooked,
+            "webhook_bodies": len(sink.bodies), "alerts_api": api}
+
+
+def check_explain(run) -> dict:
+    """/api/v1/rules?explain=analyze: a cold first evaluation (nothing
+    cached, the plan parsed), then results-cache partial hits where only
+    the newest step computes."""
+    out = []
+    for k, r in enumerate(run["per_tick"]):
+        for name, st in r["stages"].items():
+            want = ("miss", 0, "miss") if k == 0 else \
+                ("partial", RULE_TICKS - 1, "hit")
+            got = (st["resultCache"], st["cachedSteps"], st["rulePlanCache"])
+            assert got == want, (k, name, st)
+        out.append({n: st["resultCache"] for n, st in r["stages"].items()})
+    return {"result_cache": out}
+
+
+def selfmon_raw(srv, metric: str, start_ms: int, end_ms: int, **labels):
+    """Raw (ts, values) of one __selfmon__ series (empty before its first
+    sample), read from its shard."""
+    from filodb_tpu_torch.core.index import ColumnFilter
+    from filodb_tpu_torch.core.schemas import DatasetRef
+    from filodb_tpu_torch.query.engine import select_raw_series
+
+    filters = [ColumnFilter("_metric_", "eq", metric)] + [
+        ColumnFilter(k, "eq", v) for k, v in labels.items()]
+    found = select_raw_series(srv.store.shards(DatasetRef("__selfmon__")),
+                              filters, start_ms, end_ms)
+    assert len(found) <= 1, [s.labels for s in found]
+    if not found:
+        return np.zeros(0, np.int64), np.zeros(0)
+    return np.asarray(found[0].ts, np.int64), np.asarray(found[0].values,
+                                                         np.float64)
+
+
+def check_selfmon_rate(srv, metric: str, span, **labels) -> dict:
+    """rate(metric[SELFMON_WINDOW_S]) over __selfmon__ on the span's grid
+    over HTTP, against the f64 oracle on the raw samples of the same
+    selection: a value where the oracle has one (two samples in the
+    window), matching one branch variant at rtol 1e-5 -> the reading,
+    with the steps that had a value."""
+    s0, s1 = span
+    start = s0 + SELFMON_WINDOW_S
+    end = start + (s1 - start) // SELFMON_STEP_S * SELFMON_STEP_S
+    sel = metric + ("{" + ",".join(f'{k}="{v}"' for k, v in labels.items())
+                    + "}" if labels else "")
+    payload, _, _ = http_json(
+        srv.port, "/promql/__selfmon__/api/v1/query_range",
+        {"query": f"rate({sel}[{SELFMON_WINDOW_S}s])", "start": start,
+         "end": end, "step": SELFMON_STEP_S})
+    assert len(payload["data"]["result"]) <= 1, payload["data"]["result"]
+    g = grid_from_json(payload, start, end, SELFMON_STEP_S)
+    ts, vals = selfmon_raw(srv, metric, s0 * 1000 - 120_000, end * 1000,
+                           **labels)
+    T = (end - start) // SELFMON_STEP_S + 1
+    var = np.full((4, T), np.nan) if ts.size < 2 else _oracle_rates(
+        ts[None], vals[None], start * 1000, T, knife_ms=KNIFE_MS,
+        window=SELFMON_WINDOW_S * 1000, step=SELFMON_STEP_S * 1000)[:, 0]
+    got = g.values[0] if len(g.keys) else np.full(T, np.nan)
+    ok = np.isnan(var[0]) == np.isnan(got)
+    hit = (np.abs(got[None] - var) <= 1e-5 * np.abs(var) + 1e-12).any(0)
+    assert (ok & (np.isnan(got) | hit)).all(), (metric, got, var[0])
+    with np.errstate(all="ignore"):
+        rel = np.abs(got - var[0]) / np.abs(var[0])
+    rel = float(rel[np.isfinite(rel)].max()) if np.isfinite(rel).any() \
+        else 0.0
+    return {"query": f"rate({sel}[{SELFMON_WINDOW_S}s])", "steps": T,
+            "steps_with_a_value": int(np.isfinite(got).sum()),
+            "raw_samples": int(ts.size), "max_rel_err": rel}
+
+
+def selfmon_wait(srv, after_s: float) -> int:
+    """Waits for the self-monitoring loop's next snapshot after `after_s`
+    (wall s) -> its timestamp in ms."""
+    deadline = time.monotonic() + 60
+    while True:
+        ts, _ = selfmon_raw(srv, "filodb_selfmon_ticks_total", 0,
+                            int(time.time() * 1000) + 1)
+        if ts.size and ts[-1] > after_s * 1000:
+            return int(ts[-1])
+        assert time.monotonic() < deadline, "no self-monitoring tick"
+        time.sleep(0.2)
+
+
+def check_selfmon(srv, run, span) -> dict:
+    """__selfmon__ over the phases' wall-time span: the loop's own tick
+    counter and the rule-evaluation counter come back over HTTP, the
+    latter counting this phase's evaluations exactly (a snapshot was
+    taken between the scheduler's end and the first tick), and a rate
+    over each is held against the oracle on the raw samples."""
+    wall0, wall1 = run["wall"]
+    t_last = selfmon_wait(srv, wall1)
+    span = (span[0], t_last // 1000)
+    payload, _, _ = http_json(
+        srv.port, "/promql/__selfmon__/api/v1/query_range",
+        {"query": "filodb_selfmon_ticks_total", "start": span[0],
+         "end": span[1], "step": SELFMON_STEP_S})
+    assert payload["data"]["result"], "no filodb_selfmon_ticks_total"
+    evals = 0
+    for g in srv.rules.groups:
+        for rule in g.rules:
+            ts, v = selfmon_raw(srv, "filodb_rule_evals_total",
+                                span[0] * 1000, t_last + 1,
+                                group=g.name, rule=rule.name)
+            before = v[ts < wall0 * 1000]
+            evals += v[-1] - (before[-1] if before.size else 0.0)
+    assert evals == RULE_TICKS * sum(len(g.rules) for g in srv.rules.groups), \
+        evals
+    rates = [check_selfmon_rate(srv, "filodb_selfmon_ticks_total", span),
+             check_selfmon_rate(srv, "filodb_rule_evals_total", span,
+                                rule=REC_IRR)]
+    # the loop ran through phase 7: its own counter has a rate
+    assert rates[0]["steps_with_a_value"] > 0, rates
+    sm = srv.selfmon.snapshot()
+    return {"span_s": span[1] - span[0], "loop_ticks": sm["ticks"],
+            "loop_errors": sm["errors"], "rule_evals_phase10": int(evals),
+            "rates": rates}
+
+
+def phase_rules(srv, rows: dict, sink, span_start: int, smi: str) -> dict:
+    """Phase 10 on phase 7's server (rules and self-monitoring on since it
+    started): the wall-clock scheduler's thread is ended and the cached
+    plans and extents of phase 7 dropped (it ran the same query texts on
+    the same grids), then every group ticks at RULE_TICKS boundaries of the
+    data's time, through both kernels; recorded series, alert states,
+    ALERTS, /api/v1/alerts, the webhook, explain=analyze and __selfmon__
+    are checked (the `rules` line)."""
+    t0 = time.perf_counter()
+    eng = srv.rules
+    wall = eng.snapshot()
+    eng._stop_evt.set()
+    eng._thread.join(WAIT_S)
+    assert not eng.alive
+    srv.http.plan_cache.invalidate("phase 10")
+    log(f"phase 10: scheduler thread ended after {wall['ticks']} wall-clock "
+        f"group ticks; plan, results and rule-plan caches dropped")
+    # a self-monitoring snapshot between the last wall-clock evaluation and
+    # the first tick, so that __selfmon__ can count this phase's alone
+    selfmon_wait(srv, time.time())
+    run = rule_tick_run(srv)
+    groups = check_rule_groups(srv, rows, run, rule_threshold(rows))
+    out = {
+        "seconds": None, "ticks": rule_ticks(), "ticks_s": run["ticks_s"],
+        "cold_tick_ms": 1e3 * run["per_tick"][0]["s"],
+        "warm_tick_ms": [1e3 * r["s"] for r in run["per_tick"][1:]],
+        "routes": [_route(r) for r in run["per_tick"]],
+        "per_tick": [{k: r[k] for k in ("at", "launches", "backend",
+                                        "groups_s")}
+                     for r in run["per_tick"]],
+        "how_ticked": "eval_group_once per group at each boundary; the "
+                      "wall-clock scheduler's thread ended (stop event set, "
+                      "thread joined) before the first tick; the plan "
+                      "cache invalidated (results and rule-plan caches "
+                      "with it)",
+        "wall_clock_ticks_phase7": wall["ticks"],
+        "job_rates": {k: groups[k] for k in (
+            "samples", "max_rel_err_vs_oracle", "knife_cells",
+            "max_rel_diff_vs_http_uncached", "threshold")},
+        "explain": check_explain(run),
+        "irregular": check_rule_irregular(srv, run),
+        "readback": check_rule_readback(srv, run),
+        "alerts": check_alerts(srv, sink, run, groups),
+        "launches": run["launches"], "card": smi}
+    out["selfmon"] = check_selfmon(srv, run, (span_start, int(time.time())))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 10: {out['seconds']:.1f} s; kernel launches "
+        f"{run['launches']}; routes {out['routes']}")
+    return {"launches": run["launches"], "errs": run["errs"], "rules": out}
+
+
+def emit(key: str, value) -> None:
+    """One result line on standard output, as its phase ends."""
+    print(json.dumps({key: value}), flush=True)
+
+
+def run_phase(n: int, name: str, fn, *args):
+    """fn(*args), with a log line naming the phase before its exception
+    goes on (uncaught) to end the run with a non-zero exit."""
+    try:
+        return fn(*args)
+    except BaseException as e:
+        log(f"phase {n} ({name}) failed: {type(e).__name__}: {e}")
+        raise
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=42)
@@ -3031,21 +3752,28 @@ def main() -> int:
     log(f"phase 1: card {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    kn.build_kernels()
+    run_phase(1, "build", kn.build_kernels)
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s into "
         f"{os.path.relpath(kn.BUILD_DIR, REPO)}")
     for k, out in kn.BUILD_LOG.items():
         for line in out.splitlines():
             if "registers" in line or "smem" in line:
                 log(f"phase 1: ptxas {k}: {line.strip()}")
+    print(smi, flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    phase_parity(gen, dev)
-    rows = phase_real_size(gen, dev, bw, f32_rate)
-    eng = phase_engine(np.random.default_rng(args.seed))
-    fns = phase_functions(eng, bw)
-    srv = phase_serving(eng)
+    run_phase(2, "kernel parity", phase_parity, gen, dev)
+    rows = run_phase(3, "real size", phase_real_size, gen, dev, bw,
+                     f32_rate)
+    eng = run_phase(4, "engine", phase_engine,
+                    np.random.default_rng(args.seed))
+    fns = run_phase(5, "functions", phase_functions, eng, bw)
+    print(json.dumps({"functions": fns["functions"],
+                      "queries": fns["queries"],
+                      "phase5_peak_gib": fns["peak_gib"]}), flush=True)
+    srv = run_phase(6, "serving", phase_serving, eng)
+    emit("serving", dict(srv["serving"], card=smi))
     eng["backend"].batcher.executor.stop(WAIT_S)
     # phase 7 builds its own backend: drop phases 4-6's and their tiles
     data = eng.pop("rows")
@@ -3054,7 +3782,27 @@ def main() -> int:
     import gc
     gc.collect()
     torch.cuda.empty_cache()
-    server = phase_server(data, smi)
+    # phase 10 runs on phase 7's server, which starts with the rules (the
+    # alert's threshold fixed from the oracle first) and self-monitoring
+    sink = WebhookSink()
+    threshold = rule_threshold(data)
+    log(f"phase 7: alert threshold X = {threshold!r} (median of the "
+        f"{G} jobs' oracle rates at the first rule tick)")
+    span_start = int(time.time())
+    try:
+        psrv, loaded = run_phase(7, "server", start_server, data,
+                                 rules_config(threshold, sink.url))
+        try:
+            server = run_phase(7, "server", phase_server, psrv, loaded, data,
+                               smi)
+            emit("server", server["server"])
+            rules = run_phase(10, "rules", phase_rules, psrv, data, sink,
+                              span_start, smi)
+            emit("rules", rules["rules"])
+        finally:
+            psrv.stop()
+    finally:
+        sink.close()
     gc.collect()
     torch.cuda.empty_cache()
     import shutil
@@ -3062,10 +3810,13 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="filodb-phase8-")
     wdir = {d: os.path.join(root, d) for d in ("data", "stream")}
     try:
-        write = phase_write_path(data, wdir, smi)
+        write = run_phase(8, "write path", phase_write_path, data, wdir, smi)
+        emit("durability", write["durability"])
         gc.collect()
         torch.cuda.empty_cache()
-        cluster = phase_cluster(data, wdir, write.pop("answers_b"), smi)
+        cluster = run_phase(9, "cluster", phase_cluster, data, wdir,
+                            write.pop("answers_b"), smi)
+        emit("cluster", cluster["cluster"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = []
@@ -3077,23 +3828,16 @@ def main() -> int:
         r["launches_phase7"] = server["launches"][kname]
         r["launches_phase8"] = write["launches"][kname]
         r["launches_phase9"] = cluster["launches"][kname]
+        r["launches_phase10"] = rules["launches"][kname]
         r["max_abs_err"] = max(r["max_abs_err"], eng["errs"][kname],
                                fns["errs"].get(kname, 0.0),
                                srv["errs"].get(kname, 0.0),
                                server["errs"].get(kname, 0.0),
                                write["errs"].get(kname, 0.0),
-                               cluster["errs"].get(kname, 0.0))
+                               cluster["errs"].get(kname, 0.0),
+                               rules["errs"].get(kname, 0.0))
         kernels.append(r)
-    print(smi, flush=True)
-    print(json.dumps({"functions": fns["functions"],
-                      "queries": fns["queries"],
-                      "phase5_peak_gib": fns["peak_gib"]}), flush=True)
-    print(json.dumps({"durability": write["durability"]}), flush=True)
-    print(json.dumps({"cluster": cluster["cluster"]}), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"serving": dict(srv["serving"], card=smi)}),
-          flush=True)
-    print(json.dumps({"server": server["server"]}), flush=True)
+    emit("kernels", kernels)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

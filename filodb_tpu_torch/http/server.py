@@ -16,6 +16,8 @@ HealthRoute.scala, ClusterApiRoute.scala):
   GET      /api/v1/cardinality[-local]/{dataset}?prefix&depth
   POST     /api/v1/raw/{dataset}            (peer leaf fetch)
   POST     /admin/{drain,adopt,transfer,abort_adopt}
+  GET      /api/v1/rules[?explain=analyze][&debug=1]
+  GET      /api/v1/alerts
   GET      /metrics
   GET      /debug/queries | /debug/slow_queries | /debug/traces |
            /debug/events
@@ -33,10 +35,12 @@ metadata and cardinality fan out to the live peers. The per-query deadline
 remote paths, as in the reference.
 
 A route whose feature is off by config answers as the reference does with
-that feature off (rules, alerts, influx ingest without a gateway,
-profile). A route the reference serves whatever its config, but whose
-module the port does not have yet, answers 501 with the ROADMAP item that
-ports it: ``&explain=analyze`` and the thread inventory
+that feature off (rules and alerts without rules, influx ingest without a
+gateway, profile). The reserved ``__rules__`` and ``__selfmon__`` datasets
+(recorded series and alert state; self-ingested metrics) are planned over
+this process's internal shard only. A route the reference serves whatever
+its config, but whose module the port does not have yet, answers 501 with
+the ROADMAP item that ports it: ``&explain=analyze`` and the thread inventory
 (``/debug/threads``).
 
 stdlib http.server (the JVM reference uses Akka-HTTP; the edge is not the
@@ -102,9 +106,10 @@ def _not_ported(what: str):
 # promlint findings per query text: queries repeat (dashboards), the
 # analysis is pure, and the hot path must not re-walk the AST per refresh
 @functools.lru_cache(maxsize=512)
-def _lint_memo(query: str) -> Tuple:
+def _lint_memo(query: str, schema_items: Tuple) -> Tuple:
     from filodb_tpu_torch.promql import semant
-    return tuple(semant.lint_query(query, semant.MetricSchemas({})))
+    schemas = semant.MetricSchemas(dict(schema_items))
+    return tuple(semant.lint_query(query, schemas))
 
 
 class _Handled(Exception):
@@ -218,6 +223,13 @@ class FiloHttpServer:
         # core/metering.TenantMetering: the /metrics tenant families and
         # the QoS cost of the planner; None = metering off
         self.tenant_metering = None
+        # set by the standalone server under self-monitor: the SelfMonitor
+        # loop (obs/selfmon.py) whose liveness gauges ride /metrics
+        self.selfmon = None
+        # set by the standalone server when rules are configured: the
+        # RulesEngine (rules/engine.py) behind /api/v1/rules and
+        # /api/v1/alerts; its evaluations call rule_eval_range below
+        self.rules = None
         # observability: the tracer owns the sampling decision + the
         # bounded ring behind /debug/traces; the slow-query log and
         # in-flight registry serve /debug/slow_queries and
@@ -525,10 +537,9 @@ class FiloHttpServer:
                          "summary": self.slow_log.snapshot(),
                          "data": self.slow_log.records(limit)}
         if path == "/api/v1/rules":
-            return 200, {"status": "success",
-                         "data": {"groups": [], "evaluating": False}}
+            return self._rules_api(qs)
         if path == "/api/v1/alerts":
-            return 200, {"status": "success", "data": {"alerts": []}}
+            return self._alerts_api(qs)
         m = re.match(r"^/api/v1/cluster/(?P<ds>[^/]+)/status$", path)
         if m:
             return 200, self._cluster_status(m.group("ds"))
@@ -695,6 +706,102 @@ class FiloHttpServer:
                                   str(body.get("owner") or ""))
             return 200, {"status": "success", "data": out}
         return 404, prom_json.error(f"no route for {path}", "not_found")
+
+    # -- recording rules & alerting (rules/) ------------------------------
+    def _rules_proxy(self, path: str, qs: Dict):
+        """Only ONE process of a fleet evaluates rules; a request landing
+        on a stand-by proxies to the evaluator's address so clients see
+        authoritative state. ``__local__`` breaks proxy loops when
+        elections disagree for a beat. Returns None when no proxy applies
+        (answer locally)."""
+        eng = self.rules
+        if eng is None or qs.get("__local__"):
+            return None
+        snap = eng.snapshot()
+        if snap["active"]:
+            return None
+        target = self.peers.get(f"node{eng.evaluator_ordinal()}")
+        if not target:
+            return None
+        import urllib.request as ureq
+        q = {k: v for k, v in qs.items()}
+        q["__local__"] = ["1"]
+        url = (target.rstrip("/") + path + "?"
+               + urllib.parse.urlencode(q, doseq=True))
+        try:
+            with ureq.urlopen(url, timeout=5) as r:
+                return 200, json.loads(r.read())
+        except (OSError, ValueError):
+            return None     # fall back to the local (stand-by) view
+
+    def _rules_api(self, qs: Dict):
+        """GET /api/v1/rules (Prometheus rules API shape). Extensions:
+        ``&explain=analyze`` inlines each rule's retained last evaluation
+        (query, exact range, cache dispositions, duration, error);
+        ``&debug`` adds the scheduler and election state."""
+        proxied = self._rules_proxy("/api/v1/rules", qs)
+        if proxied is not None:
+            return proxied
+        eng = self.rules
+        if eng is None:
+            return 200, {"status": "success",
+                         "data": {"groups": [], "evaluating": False}}
+        explain = self._param(qs, "explain") == "analyze"
+        data = eng.rules_payload(explain=explain)
+        if self._param(qs, "debug"):
+            data["debug"] = eng.snapshot()
+        return 200, {"status": "success", "data": data}
+
+    def _alerts_api(self, qs: Dict):
+        """GET /api/v1/alerts: active alert instances and the bounded
+        ring of state transitions."""
+        proxied = self._rules_proxy("/api/v1/alerts", qs)
+        if proxied is not None:
+            return proxied
+        eng = self.rules
+        if eng is None:
+            return 200, {"status": "success", "data": {"alerts": []}}
+        return 200, {"status": "success", "data": eng.alerts_payload()}
+
+    def rule_eval_range(self, ds: str, query: str, plan,
+                        start_ms: int, step_ms: int, end_ms: int):
+        """One standing-query evaluation for the rules engine, through
+        the normal serving path: the plan-cost charge (FORCED, on the
+        reserved ``__rules__`` tenant: standing evaluation never bounces
+        off a drained bucket), the results-cache split (the tick is a
+        step-aligned tail recompute: the warm prefix serves from the
+        cache, only the newest step materializes) and the engine at
+        BACKGROUND priority in the micro-batcher. Returns ``(result,
+        stages)``; the stages carry the cache dispositions the engine
+        keeps per rule for ``/api/v1/rules?explain=analyze``. No
+        admission slot is taken: the scheduler is one standing consumer,
+        not a burst of client connections."""
+        deadline = Deadline.after(self.query_timeout_s)
+        engine = self.make_planner(ds, deadline=deadline)
+        if engine is None:
+            raise QueryError(f"rules: dataset {ds} not set up")
+        stages: Dict[str, object] = {}
+        qctx = qos.QosContext(tenant=qos.RULES_TENANT,
+                              priority=qos.PRIORITY_BACKGROUND,
+                              forced=True)
+        with qos.activate(qctx):
+            with obs_trace.span("rule-eval", query=query, dataset=ds):
+                # forced context: charges the reserved tenant's bucket
+                # and returns None (rule evaluation is never shed)
+                self._charge_or_shed(engine, {}, ds, query, plan,
+                                     start_ms // 1000, end_ms // 1000,
+                                     step_ms // 1000, stages)
+                ses = self.result_cache.begin(
+                    engine, ds, query, plan, start_ms, step_ms, end_ms)
+                exs = [engine.materialize(p) for p in ses.plans]
+                res = ses.finish(engine, [ex.execute() for ex in exs])
+        stages["resultCache"] = ses.state
+        stages["cachedSteps"] = ses.cached_steps
+        if isinstance(res, GridResult):
+            stages["series"] = res.num_series
+            if res.partial:
+                stages["partial"] = True
+        return res, stages
 
     def _local_shard_nums(self, ds: str) -> set:
         return {getattr(s, "shard_num", i)
@@ -1198,6 +1305,17 @@ class FiloHttpServer:
                      "data": {"accepted": accepted,
                               "rejected": rejected}}
 
+    def _lint_schema_items(self) -> Tuple:
+        """The metric-schema snapshot promlint checks user queries
+        against: the recording rules' ``schema:`` declarations, as a
+        hashable tuple (the lint memo keys on it; rules may reload)."""
+        eng = self.rules
+        if eng is None:
+            return ()
+        return tuple(sorted(
+            (r.name, r.schema) for g in eng.groups for r in g.rules
+            if r.kind == "recording" and r.schema))
+
     def _promql_lint(self, engine, qs, query: str):
         """promlint on a user query: findings ride the response
         ``warnings`` array; ``&lint=strict`` turns error-severity
@@ -1207,7 +1325,7 @@ class FiloHttpServer:
         mode = (self._param(qs, "lint", "") or "").lower()
         if mode == "off":
             return None
-        diags = _lint_memo(query)
+        diags = _lint_memo(query, self._lint_schema_items())
         if not diags:
             return None
         if mode == "strict":
@@ -2040,6 +2158,10 @@ class FiloHttpServer:
         "filodb_tenant_metering_snapshots_total":
             "Tenant-metering snapshots taken",
         "filodb_traces_started_total": "Traces started on this node",
+        "filodb_selfmon_alive":
+            "1 while the self-monitoring loop thread is running",
+        "filodb_selfmon_interval_seconds":
+            "Configured self-monitoring collect+ingest interval",
         "filodb_traces_stored": "Finished traces in /debug/traces",
         "filodb_slow_queries_total": "Queries over the slow-query "
                                      "threshold",
@@ -2262,6 +2384,12 @@ class FiloHttpServer:
         emit("traces_stored", {}, ts["stored"])
         emit("slow_queries_total", {}, self.slow_log.snapshot()["recorded"])
         emit("inflight_queries", {}, len(self.inflight))
+        sm = self.selfmon
+        if sm is not None:
+            # loop-liveness gauges (its counters and age ride the global
+            # registry, collected below)
+            emit("selfmon_alive", {}, 1 if sm.alive else 0)
+            emit("selfmon_interval_seconds", {}, sm.interval_s)
         # tail-sampling retention + export health: only once tracing is
         # on (the default exposition stays byte-identical)
         if self.tracer.enabled:

@@ -10,8 +10,13 @@ in-flight registry (the counterpart of ``filodb_tpu.obs``).
   * :mod:`filodb_tpu_torch.obs.events` — the operational event journal
     behind ``/debug/events``.
 
-Device profiling (``obs/devprof.py``, ``&explain=analyze``), the process
-collector, the sampling profiler and self-monitoring are not ported yet.
+  * :mod:`filodb_tpu_torch.obs.selfmon` — self-monitoring: the loop that
+    ingests the metrics registry into ``__selfmon__`` through
+    :mod:`filodb_tpu_torch.obs.writeback` (the write-back rail it shares
+    with the rules engine).
+
+Device profiling (``obs/devprof.py``, ``&explain=analyze``) and the
+sampling profiler are not ported yet.
 """
 
 from filodb_tpu_torch.obs.metrics import (  # noqa: F401
@@ -21,6 +26,6 @@ from filodb_tpu_torch.obs.slowlog import (  # noqa: F401
 from filodb_tpu_torch.obs.trace import (  # noqa: F401
     Span, Trace, Tracer, span, trace_active)
 
-# the reserved self-monitoring dataset (obs/selfmon.py in the JAX package);
-# the HTTP layer keeps it node-local even before self-monitoring is ported
+# the reserved self-monitoring dataset (obs/selfmon.py holds the same
+# name; this copy keeps the HTTP layer's import light)
 SELFMON_DATASET = "__selfmon__"

@@ -15,6 +15,12 @@ in the reference; its address is gossiped through the health body) or
 HTTP, detects dead peers, adopts their shards after
 ``shard-reassign-grace-s`` and hands its own off on ``POST /admin/drain``.
 
+With ``self-monitor`` the node ingests its own metrics into the reserved
+``__selfmon__`` dataset; with ``rules`` or ``rules-file`` it evaluates
+Prometheus rule groups through its own serving path (and so through the
+device kernels), writes recorded series and alert state into
+``__rules__`` and serves ``/api/v1/rules`` and ``/api/v1/alerts``.
+
 The backend runs on the CUDA device unless the config's ``device`` names
 another one (``"cpu"`` for tests); without a card :meth:`FiloServer.start`
 raises. The server never falls back to the numpy oracle.
@@ -29,6 +35,8 @@ silently ignored.
     python -m filodb_tpu_torch.standalone.server --seed-dev-data [--device cpu]
     python -m filodb_tpu_torch.standalone.server --data-dir D --stream-dir S \
         --gateway-port 0 [--device cpu]
+    python -m filodb_tpu_torch.standalone.server --seed-dev-data \
+        --self-monitor --rules-file rules.yaml
     python -m filodb_tpu_torch.standalone.server --config node1.json
         (node1.json: {"num-nodes": 2, "node-ordinal": 1, "peers":
         {"node0": "http://127.0.0.1:8080"}, "port": 8081, ...})
@@ -230,6 +238,27 @@ DEFAULTS = {
     # (0 = unlimited) and per-prefix overrides {"ws,ns": quota}
     "card-default-quotas": [0, 0, 0, 0],
     "card-quotas": {},
+    # self-monitoring (obs/selfmon.py): a loop snapshots the metrics
+    # registry in-process every interval and ingests it into the reserved
+    # __selfmon__ dataset through the normal ingest path (a stream and a
+    # driver under stream-dir; direct ingest and a flush every
+    # self-monitor-flush-ticks ticks otherwise), queryable as
+    # /promql/__selfmon__/api/v1/query_range
+    "self-monitor": False,
+    "self-monitor-interval-s": 5.0,
+    "self-monitor-flush-ticks": 4,
+    # recording rules and alerting (rules/): a Prometheus-style YAML or
+    # JSON rule file, or the same structure inline ({"groups": [...]}).
+    # Groups evaluate in-process as standing queries (background
+    # priority, forced charges on the __rules__ tenant, step-aligned
+    # tail recomputes of rules-eval-span-steps steps through the results
+    # cache); recorded series and ALERTS land in the reserved __rules__
+    # dataset; firing and resolved alerts POST to rules-webhook-url
+    # (None = no notifications)
+    "rules-file": None,
+    "rules": None,
+    "rules-eval-span-steps": 8,
+    "rules-webhook-url": None,
 }
 
 # config keys whose modules are not ported yet -> the ROADMAP item that
@@ -239,9 +268,6 @@ REFUSED = {
     "mesh-tile-serving": "A.11 mesh and distributed",
     "raw-retention-s": "A.10 downsampling",
     "flush-downsample": "A.10 downsampling",
-    "self-monitor": "A.1.7 self-monitoring",
-    "rules": "A.1.6 rules",
-    "rules-file": "A.1.6 rules",
     "worker-id": "A.1.5 supervisor",
     "accept-port": "A.1.5 supervisor",
     "accept-fd": "A.1.5 supervisor",
@@ -261,14 +287,6 @@ INERT = {
                            "refused (A.9)",
     "profiler-top-n": "tunes the profiler: profiler-enabled is refused "
                       "(A.9)",
-    "self-monitor-interval-s": "tunes self-monitoring: self-monitor is "
-                               "refused (A.1.7)",
-    "self-monitor-flush-ticks": "tunes self-monitoring: self-monitor is "
-                                "refused (A.1.7)",
-    "rules-eval-span-steps": "tunes rule evaluation: rules and "
-                             "rules-file are refused (A.1.6)",
-    "rules-webhook-url": "alert notifications of rules: rules and "
-                         "rules-file are refused (A.1.6)",
     "accept-host": "read only with accept-port (refused, A.1.5)",
     "bus-watermark-interval-s": "read only with bus-port (refused, "
                                 "A.1.5)",
@@ -340,6 +358,14 @@ class FiloServer:
         self._reassign_lock = threading.Lock()
         self._original_shards: Dict[str, list] = {}
         self._gw_streams: Dict[int, LogIngestionStream] = {}
+        # the internal datasets' loops, each with its own stream and
+        # driver under stream-dir (None without one)
+        self.selfmon = None
+        self._selfmon_stream = None
+        self._selfmon_driver = None
+        self.rules = None
+        self._rules_stream = None
+        self._rules_driver = None
 
     def _make_qos_budgets(self) -> TenantBudgets:
         """Per-tenant token-bucket budgets from the qos-* knobs (rate 0
@@ -675,6 +701,10 @@ class FiloServer:
         register_process_collector()
         if streaming:
             self._start_ingestion()
+        if self.config.get("self-monitor"):
+            self._start_selfmon()
+        if self.config.get("rules") or self.config.get("rules-file"):
+            self._start_rules()
         if self.config.get("gc-freeze", True):
             # move the large, permanent start-up object graph (torch and
             # CUDA state included) out of the collector's reach and make
@@ -684,6 +714,105 @@ class FiloServer:
             t0, t1, t2 = gc.get_threshold()
             gc.set_threshold(t0, t1, max(t2, 100))
         return self
+
+    # -- reserved internal datasets (selfmon + rules write-back) ----------
+    def _setup_internal_dataset(self, dataset: str, subdir: str):
+        """One internal shard per process for a reserved dataset, numbered
+        by worker ordinal (0 outside a supervisor), with its OWN
+        cardinality tracker: internal series are invisible to user
+        cardinality accounting and quotas. With a stream-dir the producer
+        appends to a dedicated stream and a normal ingestion driver
+        replays it (derived series survive restarts); memory-only
+        deployments ingest directly and flush explicitly, so the
+        freshness watermark still advances. Returns ``(shard, stream,
+        driver)`` (stream and driver None without a stream-dir)."""
+        shard_num = int(self.config.get("worker-id") or 0)
+        ref = DatasetRef(dataset)
+        shard = self.store.setup(
+            ref, shard_num, num_groups=2,
+            max_chunk_rows=self.config["max-chunks-size"],
+            bootstrap=self.store.column_store is not None,
+            card_tracker=CardinalityTracker())
+        self.http.shards_by_dataset[dataset] = self.store.shards(ref)
+        stream = driver = None
+        if self.config.get("stream-dir"):
+            stream = LogIngestionStream(
+                os.path.join(self.config["stream-dir"], subdir,
+                             f"shard={shard_num}", "stream.log"),
+                DEFAULT_SCHEMAS,
+                group_commit_s=float(
+                    self.config["stream-group-commit-ms"]) / 1000)
+            driver = IngestionDriver(
+                shard, stream, mapper=None,
+                flush_interval_s=float(self.config["flush-interval-s"]),
+                ingest_batch_records=int(
+                    self.config["ingest-batch-records"]))
+            driver.start()
+        return shard, stream, driver
+
+    def _start_selfmon(self) -> None:
+        """The reserved ``__selfmon__`` dataset and its loop."""
+        from filodb_tpu_torch.obs.selfmon import SELFMON_DATASET, SelfMonitor
+        wid = self.config.get("worker-id")
+        shard, stream, driver = self._setup_internal_dataset(
+            SELFMON_DATASET, "selfmon")
+        self._selfmon_stream = stream
+        self._selfmon_driver = driver
+        self.selfmon = SelfMonitor(
+            self.http.build_exposition, shard,
+            schemas=DEFAULT_SCHEMAS, stream=stream,
+            interval_s=float(self.config["self-monitor-interval-s"]),
+            node=self.node_id,
+            worker_id=int(wid) if wid is not None else None,
+            flush_every_ticks=int(self.config["self-monitor-flush-ticks"]))
+        self.http.selfmon = self.selfmon
+        self.selfmon.start()
+
+    def _start_rules(self) -> None:
+        """Load the rule groups and start the scheduler. Evaluations run
+        through ``FiloHttpServer.rule_eval_range`` (the plan cache, the
+        results cache and QoS under the reserved ``__rules__`` tenant);
+        recorded series and ALERTS write back through their own
+        IngestWriteBack into the reserved ``__rules__`` dataset. Without
+        a supervisor the process is announced from birth and evaluates
+        (ordinal 0)."""
+        from filodb_tpu_torch.obs.writeback import IngestWriteBack
+        from filodb_tpu_torch.rules import (RULES_DATASET, RulesEngine,
+                                            WebhookNotifier, load_groups,
+                                            load_rules_file)
+        if self.config.get("rules"):
+            groups = load_groups(self.config["rules"])
+        else:
+            groups = load_rules_file(self.config["rules-file"])
+        if not groups:
+            return
+        shard, stream, driver = self._setup_internal_dataset(
+            RULES_DATASET, "rules")
+        self._rules_stream = stream
+        self._rules_driver = driver
+        notifier = None
+        url = self.config.get("rules-webhook-url")
+        if url:
+            notifier = WebhookNotifier(url).start()
+        wid = self.config.get("worker-id")
+        self.rules = RulesEngine(
+            groups,
+            evaluator=self.http.rule_eval_range,
+            writeback=IngestWriteBack(shard, schemas=DEFAULT_SCHEMAS,
+                                      stream=stream),
+            default_dataset=self.config["dataset"],
+            node=self.node_id,
+            worker_id=int(wid) if wid is not None else None,
+            num_workers=int(self.config.get("num-nodes", 1) or 1),
+            span_steps=int(self.config["rules-eval-span-steps"]),
+            notifier=notifier,
+            announced=not self.config.get("bus-port"))
+        self.http.rules = self.rules
+        # topology and schema invalidations reach the engine's rule-plan
+        # cache through the plan cache's listener chain
+        self.http.plan_cache.add_invalidation_listener(
+            self.rules.invalidate_plans)
+        self.rules.start()
 
     # -- elastic recovery (shard reassignment on node loss) ---------------
     # ShardManager.scala:28 assignShardsToNodes / IngestionActor.scala:297
@@ -867,7 +996,26 @@ class FiloServer:
         only), then close the streams; then the metering loop, the HTTP
         edge, the trace exporter and, when the server built the backend,
         its device executor (a backend passed in belongs to the
-        caller)."""
+        caller). The rules engine and the self-monitoring loop stop
+        first, each with its internal driver and stream."""
+        if self.rules is not None:
+            self.rules.stop()
+        if self._rules_driver is not None:
+            self._rules_driver.stop()
+        if self._rules_stream is not None:
+            try:
+                self._rules_stream.close()
+            except OSError:
+                pass
+        if self.selfmon is not None:
+            self.selfmon.stop()
+        if self._selfmon_driver is not None:
+            self._selfmon_driver.stop()
+        if self._selfmon_stream is not None:
+            try:
+                self._selfmon_stream.close()
+            except OSError:
+                pass
         if self.grpc_server is not None:
             self.grpc_server.stop()
         if self.detector is not None:
@@ -909,6 +1057,14 @@ def main(argv=None) -> int:
     p.add_argument("--gateway-port", type=int)
     p.add_argument("--device",
                    help="torch device of the backend (default: cuda)")
+    p.add_argument("--self-monitor", action="store_true", default=None,
+                   help="ingest this node's own metrics into the reserved "
+                        "__selfmon__ dataset (PromQL over its own "
+                        "telemetry)")
+    p.add_argument("--rules-file",
+                   help="Prometheus-style recording/alerting rule file "
+                        "evaluated in-process (validate with python -m "
+                        "filodb_tpu_torch.rules --check)")
     p.add_argument("--seed-dev-data", action="store_true",
                    help="generate dev series on startup")
     args = p.parse_args(argv)
@@ -917,7 +1073,7 @@ def main(argv=None) -> int:
         with open(args.config) as f:
             config.update(json.load(f))
     for k in ("port", "num_shards", "dataset", "data_dir", "stream_dir",
-              "gateway_port", "device"):
+              "gateway_port", "device", "self_monitor", "rules_file"):
         v = getattr(args, k)
         if v is not None:
             config[k.replace("_", "-")] = v

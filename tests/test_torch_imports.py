@@ -55,6 +55,11 @@ SERVING_MODULES = (
     "filodb_tpu_torch.parallel.cluster",
     "filodb_tpu_torch.parallel.membership",
     "filodb_tpu_torch.parallel.discovery",
+    # recording rules, alerting and self-monitoring
+    "filodb_tpu_torch.obs.writeback", "filodb_tpu_torch.obs.selfmon",
+    "filodb_tpu_torch.rules", "filodb_tpu_torch.rules.loader",
+    "filodb_tpu_torch.rules.notify", "filodb_tpu_torch.rules.engine",
+    "filodb_tpu_torch.rules.__main__",
 )
 
 

@@ -422,9 +422,7 @@ def test_routes_of_features_off_answer_as_the_reference(path, code):
 # a value that turns each refused key's feature on
 REFUSED_ON = {
     "mesh-enabled": True, "mesh-tile-serving": True,
-    "raw-retention-s": 3600, "flush-downsample": True,
-    "self-monitor": True, "rules": {"groups": []},
-    "rules-file": "/nonexistent/rules.yaml", "worker-id": 0,
+    "raw-retention-s": 3600, "flush-downsample": True, "worker-id": 0,
     "accept-port": 9000, "accept-fd": 3, "bus-port": 9001,
     "profiler-enabled": True,
 }
@@ -551,15 +549,24 @@ CLUSTER_KEYS = {
     "peer-retry-attempts", "peer-retry-base-delay-s",
     "breaker-failure-threshold", "breaker-reset-s", "query-timeout-s",
 }
+# the keys of recording rules (ROADMAP A.1.6) and self-monitoring (A.1.7):
+# honoured, with the reference's defaults
+RULES_KEYS = {"rules", "rules-file", "rules-eval-span-steps",
+              "rules-webhook-url", "self-monitor", "self-monitor-interval-s",
+              "self-monitor-flush-ticks"}
+# the supervisor's keys (A.1.5): still refused
+SUPERVISOR_KEYS = {"worker-id", "accept-port", "accept-fd", "bus-port"}
 
 
 @pytest.mark.parametrize("key", sorted(J_DEFAULTS))
 def test_every_reference_config_key_is_honoured_refused_or_listed(key):
     places = [key in psrv.DEFAULTS, key in psrv.REFUSED, key in psrv.INERT]
     assert places.count(True) == 1, (key, places)
-    if key in CLUSTER_KEYS:
+    if key in CLUSTER_KEYS | RULES_KEYS:
         assert key in psrv.DEFAULTS
         assert psrv.DEFAULTS[key] == J_DEFAULTS[key]
+    if key in SUPERVISOR_KEYS:
+        assert psrv.REFUSED[key] == "A.1.5 supervisor"
     if key in psrv.REFUSED:
         assert psrv.REFUSED[key].startswith("A.")
     if key in psrv.INERT:
@@ -640,6 +647,37 @@ def test_metric_families_match_the_jax_server_at_the_defaults():
         jax_srv.stop()
     assert pf == (jf - ABSENT_FAMILIES) | EXTRA_FAMILIES
     assert DEFAULT_ON_FAMILIES <= pf
+
+
+# families of the rules engine, its notifier and the self-monitoring loop
+RULES_ON_FAMILIES = {
+    "filodb_rules_active", "filodb_rule_group_interval_seconds",
+    "filodb_rule_group_rules", "filodb_selfmon_alive",
+    "filodb_selfmon_interval_seconds", "filodb_selfmon_ticks_total",
+    "filodb_selfmon_samples_ingested_total",
+    "filodb_selfmon_series_last_tick", "filodb_selfmon_tick_seconds",
+    "filodb_selfmon_last_tick_age_seconds",
+}
+
+
+def test_metric_families_match_the_jax_server_with_rules_and_self_monitor():
+    _reset_registries()
+    cfg = {"port": 0, "self-monitor": True,
+           "rules": {"groups": [{"name": "g", "interval": "1h", "rules": [
+               {"record": "job:x:rate5m",
+                "expr": "sum by (job) (rate(http_requests_total[5m]))"},
+               {"alert": "Hot", "expr": "up == 0"}]}]}}
+    srv = psrv.FiloServer({**cfg, **CPU}).start()
+    jax_srv = JServer({**cfg, "gc-freeze": False}).start()
+    try:
+        for s in (srv, jax_srv):
+            s.selfmon.collect_once()
+        pf, jf = _families(srv), _families(jax_srv)
+    finally:
+        srv.stop()
+        jax_srv.stop()
+    assert pf == (jf - ABSENT_FAMILIES) | EXTRA_FAMILIES
+    assert (DEFAULT_ON_FAMILIES | RULES_ON_FAMILIES) <= pf
 
 
 # -- the write path: both servers with data-dir, stream-dir and gateway ---
