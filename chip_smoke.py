@@ -92,14 +92,31 @@ non-zero exit):
      (node0 owns 0-1, node1 2-3) on phase 8's directories, peers and the
      gRPC plane: the grouped rate entering node0 and node1 (the peer's
      series fetched over gRPC into the entry node's tiles and group-sum),
-     one job's rate and the irregular rate into the tail (the extract on
-     the entry node), a same-metric join pushed down to both nodes and a
-     series fan-out, each held to the oracle and to server B's answer;
-     then node1 stopped without a drain (detection), restarted (recovery)
-     and drained into node0 (planned handoff), the grouped rate after
-     each (the `cluster` line);
+     one job's rate and the irregular rate into the tail entering each
+     node (the extract on the entry node), a same-metric join pushed down
+     to both nodes and a series fan-out, each held to the oracle and to
+     server B's answer; then node1 stopped without a drain (detection),
+     restarted (recovery) and drained into node0 (planned handoff), the
+     grouped rate after each (the `cluster` line);
+ 11. the supervisor: `python -m filodb_tpu_torch.standalone.supervisor`
+     as a subprocess, two worker processes of the port's server on the
+     card behind one public port, on a copy of phase 8's directories made
+     before phase 9 (so the workers start from what phase 9's nodes
+     started from) with phase 9's node config and one 60 s time()
+     recording rule: phase 9's grouped, job and irregular rates entering
+     each worker's private port and the public port, each private answer
+     bit for bit phase 9's entering the same ordinal, the public one
+     equal to one of them, all within the oracle's bounds; the
+     device-dispatch spans (&explain=trace) and the merged /debug/traces
+     and /metrics of both workers; /admin/invalidate; kill -9 of worker
+     0 (respawn, the rule evaluator handed to worker 1 and back, its
+     grouped answer again bit for bit); SIGTERM of the supervisor (a
+     drain, exit 0, no worker left) (the `supervisor` line);
   then the `kernels` line: launches (phase 4, and phases 5-10 as
-  `launches_phase5` to `launches_phase10`), max error, kernel and plain
+  `launches_phase5` to `launches_phase10`; phase 11's `launches_phase11`
+  is null: a launch inside a worker process is not counted from here,
+  and `launches_phase11_evidence` names what holds the route instead),
+  max error, kernel and plain
   times (CUDA events over warmed launches; `device_ms` by CUDA-graph
   replay, without the host's cost of a call) and the least time the card
   could take, at the phase-3 shapes, and for the group-sum also at the
@@ -124,6 +141,7 @@ Phase 9: each answer as phase 7's; the per-series and irregular rates
 equal to server B's bit for bit, the grouped rate within the group-sum
 tolerance of B's; the join within rtol 2e-5 of the range its sides'
 branch variants span; no downgrade from gRPC to HTTP on either node.
+Phase 11: each answer as phase 9's, and equal to it bit for bit.
 Phase 10: the job rates within rtol 1e-5 of the integer-rule oracle (on
 a tick that did not take the fused group-sum, plus the knife spread) and
 of the uncached HTTP answer; the alert's active set decided by the
@@ -133,7 +151,8 @@ within rtol 1e-5 of a branch variant of the oracle.
 
 Standard output: the card's name and power limit after phase 1, then each
 phase's JSON line as the phase ends (`functions` with `queries`,
-`serving`, `server`, `rules`, `durability`, `cluster`), then the `kernels`
+`serving`, `server`, `rules`, `durability`, `cluster`, `supervisor`), then
+the `kernels`
 line, and last {"ok": true, "device": {...}}. The script exits non-zero,
 printing no result, when there is no CUDA device.
 """
@@ -1003,10 +1022,10 @@ class LaunchClasses:
             setattr(kn, name, self._count(name, fn))
         execute = batcher._execute
 
-        def run_at(key, p, run_batch, queued):
+        def run_at(key, p, run_batch, queued, **kw):
             self.local.priority = p.priority
             try:
-                return execute(key, p, run_batch, queued)
+                return execute(key, p, run_batch, queued, **kw)
             finally:
                 self.local.priority = None
         batcher._execute = run_at
@@ -1435,9 +1454,10 @@ DOOR_WAIT_S = 60.0      # bound on a burst member's wait at the batcher's
                         # door
 CLIENTS = 16            # free-running engine clients
 CLIENT_WARM = 1         # first queries of each client, left out (warm-up)
-CLIENT_QUERIES = 2      # queries of each client that are measured (cut
-                        # from 10 to make room for phase 7, then from 3
-                        # for phase 9; at 1 no steady window formed)
+CLIENT_QUERIES = 1      # queries of each client that are measured (cut
+                        # from 10 to make room for phase 7, from 3 for
+                        # phase 9, from 2 for phase 11; the steady window
+                        # is then reported when it forms, not asserted)
 WAIT_S = 300.0          # bound on every wait of phase 6
 REBUILD_QUERIES = 4     # concurrent queries sent while a rebuild runs
 
@@ -2812,6 +2832,13 @@ CLUSTER_DETECT_S = 0.25
 # the pushed-down join's Exec reply must exceed grpcio's default receive
 # limit, so that phase 9 holds the message-size repair (ROADMAP C.15)
 JOIN_REPLY_MIN_BYTES = 4 << 20
+# jobs (of G, 512 series each) in phase 9's join: cut from all 16 to make
+# room for phase 11; 6 jobs' node1 half still replies about 5.3 MB
+JOIN_JOBS = 6
+# the queries phases 9 to 11 share
+Q_GROUPED = "sum by (job) (rate(http_requests_total[5m]))"
+Q_IRR = "rate(irregular_total[5m])"
+Q_JOB = 'rate(http_requests_total{job="job3"}[5m])'
 
 
 def free_port() -> int:
@@ -3048,23 +3075,30 @@ def phase_cluster(rows: dict, wdir: dict, answers_b: list,
             r["vs_b_max_abs"] = close_grouped(g, answers_b[0][1],
                                               f"{q1} vs server B")
             assert r["launches"]["counter_groupsum"] >= 1, r
+        answers = {("node0", q1): g1a, ("node1", q1): g1b}
+        wants = {q1: want1}
         # 2. one job's per-series rate into the tail, 3. the irregular
-        # rate into the tail (the extract kernel on the entry node)
-        for q, b_ix in (('rate(http_requests_total{job="job3"}[5m])', 2),
-                        ("rate(irregular_total[5m])", 3)):
+        # rate into the tail (the extract kernel on the entry node), each
+        # entering node0, then node1 (phase 11 holds its workers to both)
+        for q, b_ix in ((Q_JOB, 2), (Q_IRR, 3)):
             assert answers_b[b_ix][0] == q
-            g, r, _ = cluster_query(n0, "node0", q, start, te, wire)
-            want = json_order(oracle.execute(parse_query_range(
+            wants[q] = json_order(oracle.execute(parse_query_range(
                 q, TimeStepParams(start, step, te))))
-            r["oracle"] = check_engine_answer(q, g, want, variants)
-            r["vs_b_bit_equal"] = same_answer(g, answers_b[b_ix][1])
-            assert r["vs_b_bit_equal"], f"{q}: differs from server B's"
-            readings.append(r)
-        assert readings[-1]["launches"]["window_extract"] >= 1, readings[-1]
-        # 4. a same-metric join with no `on`, over all 8,192 series:
+            for node, name in ((n0, "node0"), (n1, "node1")):
+                g, r, _ = cluster_query(node, name, q, start, te, wire)
+                r["oracle"] = check_engine_answer(q, g, wants[q], variants)
+                r["vs_b_bit_equal"] = same_answer(g, answers_b[b_ix][1])
+                assert r["vs_b_bit_equal"], \
+                    f"{q} into {name}: differs from server B's"
+                if q == Q_IRR:
+                    assert r["launches"]["window_extract"] >= 1, r
+                answers[(name, q)] = g
+                readings.append(r)
+        # 4. a same-metric join with no `on`, over JOIN_JOBS jobs' series:
         # pushed down to both nodes (pinning _ws_/_ns_ prunes shards), its
         # Exec reply above grpcio's 4 MiB default (the C.15 repair)
-        sel = 'http_requests_total{_ws_="demo",_ns_="App-0"}'
+        sel = ('http_requests_total{_ws_="demo",_ns_="App-0",'
+               f'job=~"job[0-{JOIN_JOBS - 1}]"}}')
         qj = f"rate({sel}[5m]) / rate({sel}[5m] offset 1m)"
         ex = n0.http.make_planner("timeseries").materialize(
             parse_query_range(qj, TimeStepParams(start, step, fe)))
@@ -3173,7 +3207,367 @@ def phase_cluster(rows: dict, wdir: dict, answers_b: list,
     log(f"phase 9: {secs:.1f} s; times {json.dumps(times)}; kernel "
         f"launches {launches}; query-timeout-s {WAIT_S} (default "
         f"{DEFAULTS['query-timeout-s']}: raised, ROADMAP C.17)")
-    return {"launches": launches, "errs": errs, "cluster": cluster}
+    return {"launches": launches, "errs": errs, "cluster": cluster,
+            "answers": answers, "oracle": wants, "variants": variants,
+            "grid": (start, fe, te)}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the supervisor, two worker processes sharing the card
+# ---------------------------------------------------------------------------
+
+# worker processes of phase 11; never 0, which means one worker (and one
+# CUDA context) per core
+SUP_WORKERS = 2
+# the rule group that shows the election: the reference failover test's
+# time() recording rule, at 60 s (wall-clock ticks of phase 7's
+# 8,192-series rules would compete with the cold queries)
+SUP_RULES = {"groups": [{"name": "fo", "interval": "60s", "rules": [
+    {"record": "fo:tick:value", "expr": "time()"}]}]}
+# phase 11's health-fail-threshold; None keeps the supervisor's default
+SUP_HEALTH_FAIL_THRESHOLD = None
+# (query, grid end) of phase 11, as phase 9 ran them into both nodes
+SUP_QUERIES = ((Q_GROUPED, "fe"), (Q_JOB, "te"), (Q_IRR, "te"))
+
+
+def supervisor_config(wdir: dict, port: int, run_dir: str) -> dict:
+    """Phase 11's base config: phase 9's node config less the keys the
+    supervisor derives for each worker (port, num-nodes, node-ordinal,
+    peers), so the workers are phase 9's nodes, and query-timeout-s stays
+    raised to WAIT_S for phase 9's reason (ROADMAP C.17); SUP_WORKERS
+    workers behind the public `port`, the election's rule group, and
+    `device` left unset (the card)."""
+    base = cluster_config(wdir["data"], wdir["stream"], [0, 0], 0)
+    for k in ("port", "num-nodes", "node-ordinal", "peers"):
+        del base[k]
+    base.update({"serving-workers": SUP_WORKERS, "port": port,
+                 "run-dir": run_dir, "rules": SUP_RULES})
+    if SUP_HEALTH_FAIL_THRESHOLD is not None:
+        base["health-fail-threshold"] = SUP_HEALTH_FAIL_THRESHOLD
+    return base
+
+
+def poll(pred, what: str, seen: Optional[dict] = None) -> float:
+    """Poll `pred` until true, at most WAIT_S; a refused connection or an
+    unreadable answer counts as false -> seconds waited. `seen`, which
+    `pred` may fill, goes into the timeout's message."""
+    t0 = time.perf_counter()
+    last = None
+    while True:
+        try:
+            if pred():
+                return time.perf_counter() - t0
+        except (OSError, ValueError, KeyError) as e:
+            last = repr(e)
+        assert time.perf_counter() - t0 < WAIT_S, \
+            f"timed out: {what} (last error {last}; last seen {seen})"
+        time.sleep(0.05)
+
+
+def get_json(port: int, path: str, params: Optional[dict] = None):
+    code, body, _ = http_get(port, path, params or {})
+    if code != 200:
+        raise ValueError(f"{path}: HTTP {code}: {body[:300]!r}")
+    return json.loads(body)
+
+
+def worker_serving(ports, i: int, seen: dict) -> bool:
+    """Worker i's view: every shard active with its ordinal owner, and
+    its sibling's gRPC address learnt (what it shows goes into `seen`)."""
+    st = get_json(ports[i], "/api/v1/cluster/timeseries/status")["data"]
+    owners = [f"node{s * SUP_WORKERS // len(st)}" for s in range(len(st))]
+    h = get_json(ports[i], "/__health")
+    seen[f"worker{i}"] = {"shards": st, "grpc_peers": h["grpc_peers"],
+                          "down_peers": h["down_peers"]}
+    return all(e["status"] == "active" for e in st) \
+        and [e["address"] for e in st] == owners \
+        and all(f"node{j}" in h["grpc_peers"]
+                for j in range(SUP_WORKERS) if j != i)
+
+
+def rules_active(port: int) -> float:
+    return scrape(port)["filodb_rules_active"]
+
+
+def worker_query(port: int, entry: str, q: str, grid, trace: bool):
+    """One query over HTTP with &cache=false (and &explain=trace) ->
+    (grid, reading)."""
+    start, end = grid
+    params = {"query": q, "start": start, "end": end,
+              "step": STEP // 1000, "cache": "false"}
+    if trace:
+        params["explain"] = "trace"
+    payload, ms, nbytes = http_json(
+        port, "/promql/timeseries/api/v1/query_range", params)
+    r = {"q": q, "entry": entry, "wall_ms": ms, "bytes": nbytes}
+    if trace:
+        spans = payload["trace"]["spans"]
+        r["spans"] = sorted({sp["name"] for sp in spans})
+        r["dispatch_paths"] = sorted({
+            sp.get("tags", {}).get("path", "") for sp in spans
+            if sp["name"] == "device-dispatch"})
+    log(f"phase 11: {entry} {q} to {end}: {ms:.1f} ms, {nbytes} bytes"
+        + (f", dispatch paths {r['dispatch_paths']}" if trace else ""))
+    return grid_from_json(payload, start, end, STEP // 1000), r
+
+
+def start_supervisor(cfg: dict, run_dir: str):
+    """`python -m filodb_tpu_torch.standalone.supervisor` as a subprocess
+    (its stderr and its workers' go to this script's) -> (process, its
+    startup line, seconds to that line)."""
+    import select
+
+    path = os.path.join(run_dir, "supervisor.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "filodb_tpu_torch.standalone.supervisor",
+         "--config", path], cwd=REPO, stdout=subprocess.PIPE)
+    buf = b""
+    while b"\n" not in buf:
+        assert proc.poll() is None, \
+            f"the supervisor exited with {proc.returncode} at start-up"
+        assert time.perf_counter() - t0 < WAIT_S, \
+            "no startup line from the supervisor"
+        if select.select([proc.stdout], [], [], 0.5)[0]:
+            buf += proc.stdout.read1(4096)
+    return proc, json.loads(buf.split(b"\n", 1)[0]), \
+        time.perf_counter() - t0
+
+
+def end_supervisor(proc, pids) -> None:
+    """Stop a supervisor this phase started and left running (a failed
+    check): SIGTERM, then SIGKILL for it and every worker pid known."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+    for pid in pids:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def phase_supervisor(wdir: dict, p9: dict, smi: str) -> dict:
+    """Phase 11: `python -m filodb_tpu_torch.standalone.supervisor` runs
+    SUP_WORKERS worker processes of the port's server on the card behind
+    one public port, on a copy of the directories phase 9's nodes started
+    from (made before phase 9), with phase 9's node config: worker 0 owns
+    shards 0-1 and worker 1 shards 2-3, as node0 and node1 did. Checked:
+    both workers ready and on the bus; phase 9's grouped, job and
+    irregular rates entering worker 0's private port, worker 1's, then the
+    public port (&cache=false), each private answer bit for bit phase 9's
+    answer entering the same ordinal (which launched both kernels and held
+    them against their plain versions: the oracle route would not
+    reproduce those bits) and the public one equal to one of them, all
+    within the oracle's bounds; the device-dispatch spans of the private
+    answers (&explain=trace) and the merged /debug/traces of both workers;
+    the merged /metrics; /admin/invalidate on both workers; kill -9 of
+    worker 0 (the respawn, the rule evaluator handed to worker 1 and
+    back, worker 0's grouped answer again bit for bit); SIGTERM of the
+    supervisor (worker 0 drained into worker 1, both stopped, exit 0, no
+    worker left). Launches inside the workers cannot be counted from
+    here: the bit-equal answers and the spans are the route's evidence."""
+    import signal
+
+    from filodb_tpu_torch.standalone.server import DEFAULTS
+    from filodb_tpu_torch.standalone.supervisor import SUPERVISOR_DEFAULTS
+
+    t_phase = time.perf_counter()
+    start, fe, te = p9["grid"]
+    ends = {"fe": fe, "te": te}
+    run_dir = os.path.join(os.path.dirname(wdir["data"]), "run")
+    os.makedirs(run_dir, exist_ok=True)
+    cfg = supervisor_config(wdir, free_port(), run_dir)
+    proc, line, line_s = start_supervisor(cfg, run_dir)
+    sup, pub = line["supervisor_port"], line["port"]
+    ports = [w["port"] for w in line["workers"]]
+    times = {"supervisor_line_s": line_s}
+    pids: set = set()
+    try:
+        # 1. both workers ready (their startup lines) and on the bus
+        ready_at = {}
+
+        def all_ready():
+            h = get_json(sup, "/__health")
+            for k, w in h["workers"].items():
+                if w["pid"]:
+                    pids.add(w["pid"])
+                if w["ready"] and k not in ready_at:
+                    ready_at[k] = time.perf_counter() - t_phase
+            return len(ready_at) == SUP_WORKERS \
+                and h["bus_connected"] == list(range(SUP_WORKERS))
+        poll(all_ready, "both workers ready and on the bus")
+        serving_at, seen = {}, {}
+        for i in range(SUP_WORKERS):
+            poll(lambda: worker_serving(ports, i, seen),
+                 f"worker {i} serving with its sibling's shards", seen)
+            serving_at[str(i)] = time.perf_counter() - t_phase
+        health = get_json(sup, "/__health")
+        first_pids = {k: w["pid"] for k, w in health["workers"].items()}
+        assert all(w["restarts"] == 0 for w in health["workers"].values()), \
+            health
+        workers = {k: {"port": ports[int(k)], "pid": first_pids[k],
+                       "ready_s": ready_at[k], "serving_s": serving_at[k]}
+                   for k in first_pids}
+        log(f"phase 11: supervisor :{sup}, public :{pub}, workers "
+            f"{json.dumps(workers)}")
+        # 2-3. the queries through each entry point
+        readings, mine = [], {}
+        entries = [(f"worker{i}", ports[i], f"node{i}")
+                   for i in range(SUP_WORKERS)] + [("public", pub, None)]
+        for entry, port, node in entries:
+            for q, end_key in SUP_QUERIES:
+                g, r = worker_query(port, entry, q, (start, ends[end_key]),
+                                    trace=node is not None)
+                r["oracle"] = check_engine_answer(q, g, p9["oracle"][q],
+                                                  p9["variants"])
+                if node is not None:
+                    r["vs_phase9_bit_equal"] = same_answer(
+                        g, p9["answers"][(node, q)])
+                    assert r["vs_phase9_bit_equal"], \
+                        f"{q} into {entry}: differs from phase 9's into {node}"
+                    assert "device-eval" in r["spans"] or q == Q_GROUPED, r
+                    if q == Q_IRR:
+                        assert "packed" in r["dispatch_paths"], r
+                    mine[(node, q)] = g
+                else:
+                    r["equals_phase9_of"] = [
+                        n for n in (f"node{i}" for i in range(SUP_WORKERS))
+                        if same_answer(g, p9["answers"][(n, q)])]
+                    assert r["equals_phase9_of"], \
+                        f"{q} through the public port: equals neither worker's"
+                readings.append(r)
+        traces = get_json(sup, "/debug/traces")
+        traced_workers = sorted({e["worker"] for e in traces["data"]})
+        assert traced_workers == list(range(SUP_WORKERS)), traced_workers
+        # 4. the merged /metrics (a worker's election gauge is set while
+        # one exposition builds and shown by the next: polled)
+        snap = {}
+
+        def elected():
+            snap["m"] = scrape(sup)
+            return all(snap["m"].get(f'filodb_rules_active{{worker="{i}"}}')
+                       == (1 if i == 0 else 0) for i in range(SUP_WORKERS))
+        poll(elected, "worker 0 the elected evaluator in /metrics")
+        m = snap["m"]
+        merged = {
+            "workers": m["filodb_supervisor_workers"],
+            "bus_connected_workers":
+                m["filodb_supervisor_bus_connected_workers"]}
+        for i in range(SUP_WORKERS):
+            lb = f'{{worker="{i}"}}'
+            merged[f"worker{i}"] = {
+                "ordinal": m["filodb_worker_ordinal" + lb],
+                "device_execute_count":
+                    m["filodb_device_execute_seconds_count" + lb],
+                "rules_active": m["filodb_rules_active" + lb]}
+        assert merged["workers"] == merged["bus_connected_workers"] \
+            == SUP_WORKERS, merged
+        for i in range(SUP_WORKERS):
+            w = merged[f"worker{i}"]
+            assert w["ordinal"] == i and w["device_execute_count"] > 0 \
+                and w["rules_active"] == (1 if i == 0 else 0), merged
+        log(f"phase 11: merged /metrics {json.dumps(merged)}")
+        # 5. /admin/invalidate reaches every worker
+        inv = "filodb_plan_cache_invalidations_total{{worker=\"{}\"}}"
+        before = [m[inv.format(i)] for i in range(SUP_WORKERS)]
+        code, body, _ = http_post(sup, "/admin/invalidate?reason=phase11",
+                                  b"{}", "application/json")
+        assert code == 200, body[:300]
+        times["invalidate_s"] = poll(
+            lambda: all(scrape(sup)[inv.format(i)] > before[i]
+                        for i in range(SUP_WORKERS)),
+            "the invalidation on every worker")
+        # 6. kill -9 of worker 0: respawn, hand-over and return
+        t_kill = time.perf_counter()
+        os.kill(first_pids["0"], signal.SIGKILL)
+        since = {}
+
+        def mark(name, pred, what):
+            poll(pred, what, seen)
+            since[name] = time.perf_counter() - t_kill
+
+        def restarted():
+            ws = get_json(sup, "/__health")["workers"]
+            return ws["0"]["restarts"] == 1 and ws["1"]["restarts"] == 0
+        mark("restart_counted_s", restarted, "the supervisor's respawn")
+        mark("handover_s", lambda: rules_active(ports[1]) == 1,
+             "worker 1 taking the rule evaluation over")
+
+        def ready_again():
+            w = get_json(sup, "/__health")["workers"]["0"]
+            if w["pid"]:
+                pids.add(w["pid"])
+            return w["ready"] and w["pid"] != first_pids["0"]
+        mark("ready_s", ready_again, "worker 0 ready again")
+        mark("takeback_s", lambda: rules_active(ports[0]) == 1
+             and rules_active(ports[1]) == 0,
+             "worker 0 taking the rule evaluation back")
+        mark("serving_s", lambda: worker_serving(ports, 0, seen)
+             and worker_serving(ports, 1, seen), "worker 0 serving again")
+        g, r = worker_query(ports[0], "worker0 (respawned)", Q_GROUPED,
+                            (start, fe), trace=False)
+        r["vs_before_kill_bit_equal"] = same_answer(
+            g, mine[("node0", Q_GROUPED)])
+        assert r["vs_before_kill_bit_equal"], \
+            "worker 0's grouped answer after the respawn differs"
+        r["oracle"] = check_engine_answer(Q_GROUPED, g,
+                                          p9["oracle"][Q_GROUPED],
+                                          p9["variants"])
+        readings.append(r)
+        health = get_json(sup, "/__health")
+        restarts = {k: w["restarts"] for k, w in health["workers"].items()}
+        assert restarts == {"0": 1, "1": 0}, restarts
+        election = get_json(ports[1], "/api/v1/rules",
+                            {"debug": 1, "__local__": 1})
+        log(f"phase 11: after kill -9 of worker 0: {json.dumps(since)}")
+        # 7. SIGTERM: worker 0 drains into worker 1, both stop, exit 0
+        last_pids = {k: w["pid"] for k, w in health["workers"].items()}
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=WAIT_S)
+        times["stop_s"] = time.perf_counter() - t0
+        assert rc == 0, f"the supervisor exited with {rc}"
+        survivors = []
+        for pid in pids:
+            try:
+                os.kill(pid, 0)
+                survivors.append(pid)
+            except ProcessLookupError:
+                pass
+        assert survivors == [], f"worker pids alive after the stop: " \
+            f"{survivors}"
+    finally:
+        end_supervisor(proc, pids)
+    secs = time.perf_counter() - t_phase
+    out = {
+        "seconds": secs, "times": times, "workers": workers,
+        "respawn": dict(since, pid=last_pids["0"]),
+        "restarts": restarts, "queries": readings,
+        "traced_workers": traced_workers, "merged_metrics": merged,
+        "election_log_worker1": (election.get("data") or {}).get("debug"),
+        "route": "each private answer bit for bit phase 9's, whose "
+                 "queries launched both kernels (in-process counts there); "
+                 "device-dispatch spans in the workers' traces; launches "
+                 "inside a worker are not counted from here",
+        "serving_workers": SUP_WORKERS,
+        "query_timeout_s": {"used": cfg["query-timeout-s"],
+                            "default": DEFAULTS["query-timeout-s"]},
+        "health_fail_threshold": {
+            "used": cfg.get("health-fail-threshold",
+                            SUPERVISOR_DEFAULTS["health-fail-threshold"]),
+            "default": SUPERVISOR_DEFAULTS["health-fail-threshold"]},
+        "card": smi}
+    log(f"phase 11: {secs:.1f} s; times {json.dumps(times)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3188,8 +3582,6 @@ SELFMON_STEP_S = 15
 REC_JOB = "job:http_requests:rate5m"
 REC_IRR = "irregular:rate5m"
 ALERT = "JobRequestRateHigh"
-Q_GROUPED = "sum by (job) (rate(http_requests_total[5m]))"
-Q_IRR = "rate(irregular_total[5m])"
 
 
 def rule_ticks() -> list:
@@ -3814,9 +4206,19 @@ def main() -> int:
         emit("durability", write["durability"])
         gc.collect()
         torch.cuda.empty_cache()
+        # phase 9 drains, stops and restarts nodes on wdir: phase 11's
+        # workers start from a copy of what phase 9's nodes start from
+        sdir = {d: os.path.join(root, "supervisor", d) for d in wdir}
+        for d in wdir:
+            shutil.copytree(wdir[d], sdir[d])
         cluster = run_phase(9, "cluster", phase_cluster, data, wdir,
                             write.pop("answers_b"), smi)
         emit("cluster", cluster["cluster"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        supervised = run_phase(11, "supervisor", phase_supervisor, sdir,
+                               cluster, smi)
+        emit("supervisor", supervised)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = []
@@ -3829,6 +4231,9 @@ def main() -> int:
         r["launches_phase8"] = write["launches"][kname]
         r["launches_phase9"] = cluster["launches"][kname]
         r["launches_phase10"] = rules["launches"][kname]
+        # inside the worker processes a launch cannot be counted from here
+        r["launches_phase11"] = None
+        r["launches_phase11_evidence"] = supervised["route"]
         r["max_abs_err"] = max(r["max_abs_err"], eng["errs"][kname],
                                fns["errs"].get(kname, 0.0),
                                srv["errs"].get(kname, 0.0),

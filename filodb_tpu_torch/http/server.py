@@ -157,7 +157,8 @@ class FiloHttpServer:
                  tracer: Optional[Tracer] = None,
                  slow_query_ms: float = 1000.0,
                  slow_query_capacity: int = 128,
-                 peer_fanout_workers: int = 0):
+                 peer_fanout_workers: int = 0,
+                 worker_id: Optional[int] = None):
         self.shards_by_dataset = shards_by_dataset
         self.backend = backend
         self.shard_mapper = shard_mapper
@@ -217,6 +218,12 @@ class FiloHttpServer:
         else:
             import os
             self.fanout_workers = min(32, max(2, os.cpu_count() or 2))
+        # process-sharded serving: this worker's ordinal under the
+        # supervisor (None outside one), exported as a gauge so a scrape
+        # of the private port tells the workers apart; the BusClient of
+        # its control plane is set by the standalone server
+        self.worker_id = worker_id
+        self.bus_client = None
         # the GatewayServer behind /api/v1/ingest/influx (the remote
         # ingest edge with an ack channel); None = no gateway here
         self.gateway = None
@@ -354,6 +361,8 @@ class FiloHttpServer:
         self.httpd = _Server((host, port), Handler)
         self.port = self.httpd.server_port
         self._thread: Optional[threading.Thread] = None
+        # extra accept edges (add_listener): (socket, accept thread)
+        self._extra_listeners: list = []
 
     # -- lifecycle --------------------------------------------------------
     def start(self) -> None:
@@ -361,7 +370,39 @@ class FiloHttpServer:
                                         daemon=True, name="accept-edge")
         self._thread.start()
 
+    def add_listener(self, sock) -> None:
+        """Attach an extra listening socket (the shared public accept edge
+        of a supervised worker: bound with SO_REUSEPORT, or inherited from
+        the supervisor where the platform lacks it). Its connections are
+        handled by the same per-connection handler threads as the private
+        port: one HTTP surface, two accept edges."""
+        def accept_loop():
+            while True:
+                try:
+                    conn, addr = sock.accept()
+                except OSError:
+                    return          # socket closed by stop()
+                try:
+                    # ThreadingMixIn starts the handler thread
+                    self.httpd.process_request(conn, addr)
+                except Exception:   # noqa: BLE001 — the edge must not die
+                    try:
+                        conn.close()
+                    except OSError:
+                        pass
+        t = threading.Thread(
+            target=accept_loop, daemon=True,
+            name=f"accept-edge-{len(self._extra_listeners)}")
+        self._extra_listeners.append((sock, t))
+        sock.settimeout(None)
+        t.start()
+
     def stop(self) -> None:
+        for sock, _t in self._extra_listeners:
+            try:
+                sock.close()
+            except OSError:
+                pass
         self.httpd.shutdown()
         self.httpd.server_close()
 
@@ -461,7 +502,7 @@ class FiloHttpServer:
             epochs: Dict[str, int] = {}
             quarantined: Dict[str, int] = {}
             integrity_ro: List[str] = []
-            for lst in self.shards_by_dataset.values():
+            for lst in self.user_shard_lists():
                 for i, s in enumerate(lst):
                     n = getattr(s, "shard_num", i)
                     if self.shard_mapper is not None:
@@ -836,7 +877,7 @@ class FiloHttpServer:
         if self.shard_mapper is None:
             return
         from filodb_tpu_torch.parallel.shardmapper import ShardStatus
-        local = {n for lst in self.shards_by_dataset.values()
+        local = {n for lst in self.user_shard_lists()
                  for n in (getattr(s, "shard_num", i)
                            for i, s in enumerate(lst))}
         for sh, owner in sorted(e.owners.items()):
@@ -1241,6 +1282,17 @@ class FiloHttpServer:
         # shard groups (local trackers only know local shards)
         planner.metering = self.tenant_metering
         return planner
+
+    def user_shard_lists(self) -> List[list]:
+        """The shard lists of the user datasets: the shards the mapper
+        routes. An internal dataset's one shard is numbered by worker
+        ordinal (``__rules__``, ``__selfmon__``), so its number would
+        collide with a user shard's in the health gossip and the bus's
+        watermark beats: a node restarting beside a sibling with rules
+        would read the sibling's internal shard 1 as a claim on user shard
+        1 and defer it (ROADMAP C.19; the reference advertises them)."""
+        return [lst for ds, lst in self.shards_by_dataset.items()
+                if ds not in INTERNAL_DATASETS]
 
     def invalidate_plan_cache(self, reason: str = "schema") -> None:
         """Explicit plan-cache invalidation hook. Topology changes flow
@@ -2148,6 +2200,20 @@ class FiloHttpServer:
         "filodb_peer_fanout_workers":
             "Metadata/cardinality peer fan-out concurrency "
             "(peer-fanout-workers knob; auto = host core count)",
+        "filodb_worker_ordinal":
+            "This process's worker ordinal in a supervisor deployment",
+        "filodb_bus_events_published_total":
+            "Control-plane events this worker published to the "
+            "supervisor bus",
+        "filodb_bus_events_applied_total":
+            "Control-plane events this worker applied from the "
+            "supervisor bus (topology/schema invalidations, "
+            "watermark gossip, worker lifecycle hints)",
+        "filodb_bus_reconnects_total":
+            "Reconnects of this worker's bus client to the supervisor",
+        "filodb_bus_connected":
+            "1 while the worker's bus client is connected to the "
+            "supervisor's control plane",
         "filodb_tenant_time_series_total": "Per-tenant series count",
         "filodb_tenant_time_series_active":
             "Per-tenant actively-ingesting series count",
@@ -2331,6 +2397,15 @@ class FiloHttpServer:
         emit("stale_routing_retries_total", {},
              self.stale_routing_retries)
         emit("peer_fanout_workers", {}, self.fanout_workers)
+        if self.worker_id is not None:
+            emit("worker_ordinal", {}, int(self.worker_id))
+        bus = self.bus_client
+        if bus is not None:
+            bs = bus.metrics_snapshot()
+            emit("bus_events_published_total", {}, bs["published"])
+            emit("bus_events_applied_total", {}, bs["applied"])
+            emit("bus_reconnects_total", {}, bs["reconnects"])
+            emit("bus_connected", {}, bs["connected"])
         if self.detector is not None:
             emit("detector_thread_wedged", {},
                  1 if self.detector.thread_wedged else 0)

@@ -20,6 +20,10 @@ Concurrent queries go through a micro-batcher (``query/batcher.py``) that
 runs same-shaped dispatches as one, and the tile cache serves the previous
 snapshot's tiles across a flush while the rebuild runs in the background.
 
+A query's trace carries the reference's device spans (``device-eval``
+with its path, ``pack``, ``device-dispatch`` with its path and batch
+size), and each dispatch is timed into ``filodb_device_execute_seconds``.
+
 Other functions (deriv, predict_linear, holt_winters, mad_over_time, ...)
 return None, and the engine's numpy oracle answers them. Entry points run
 on CUDA unless the caller passes ``device="cpu"``.
@@ -34,6 +38,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from filodb_tpu_torch.obs import metrics as obs_metrics
+from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.query import kernels as kn
 from filodb_tpu_torch.query import qos
 from filodb_tpu_torch.query import tilestore as tst
@@ -59,6 +65,9 @@ DEVICE_FUNCS = frozenset({
 
 _ENDPOINT_RATE = {"rate": (True, True), "increase": (True, False),
                   "delta": (False, False)}
+
+_DEV_HELP = ("Wall seconds per device dispatch (kernel submission + "
+             "device compute + the batch's one host sync)")
 
 
 def _next_pow2(n: int, lo: int = 8) -> int:
@@ -590,12 +599,17 @@ class TorchBackend:
         if self.batcher is not None:
             self.batcher.enter()
         try:
-            aligned = self._try_aligned(series, func, steps, params.step_ms,
-                                        window_ms, offset_ms)
-            if aligned is not None:
-                return GridResult(steps, keys, aligned)
-            out = self._general(series, func, steps, params.step_ms,
-                                window_ms, offset_ms, func_args)
+            with obs_trace.span("device-eval", func=func,
+                                series=len(series)) as sp:
+                aligned = self._try_aligned(series, func, steps,
+                                            params.step_ms, window_ms,
+                                            offset_ms)
+                if aligned is not None:
+                    sp.tag(path="aligned")
+                    return GridResult(steps, keys, aligned)
+                sp.tag(path="packed")
+                out = self._general(series, func, steps, params.step_ms,
+                                    window_ms, offset_ms, func_args)
         finally:
             if self.batcher is not None:
                 self.batcher.exit()
@@ -799,22 +813,35 @@ class TorchBackend:
         w0e = int(steps[0] - offset_ms)
         w0s = w0e - int(window_ms)
         step = int(steps[1] - steps[0]) if nsteps > 1 else 1
-        run = functools.partial(self._aligned_run, tiles, func, family,
-                                nsteps, step, window_ms, offset_ms)
+        args = (tiles, func, family, nsteps, step, window_ms, offset_ms)
         b = self.batcher
         if b is not None and b.enabled:
             # id(tiles) is safe in the key: members hold the tiles, so the
             # id cannot be recycled while the batch is open
             key = ("aligned", id(tiles), func, nsteps, step, window_ms,
                    family)
-            return b.submit(key, (w0s, w0e, steps, tiles), run)
-        return run([(w0s, w0e, steps, tiles)]).get(0)
+            return b.submit(key, (w0s, w0e, steps, tiles),
+                            functools.partial(self._aligned_run, *args))
+        with obs_metrics.timed("filodb_device_execute_seconds", _DEV_HELP), \
+                obs_trace.span("device-dispatch", path="aligned"):
+            return self._aligned_run_inner(
+                *args, [(w0s, w0e, steps, tiles)]).get(0)
 
     def _aligned_run(self, tiles, func: str, family, nsteps: int, step: int,
                      window_ms: int, offset_ms: int,
                      members) -> SplitResult:
-        """One aligned batch: B = 1 takes the scalar evaluator, B >= 2 one
-        batched evaluation computing every member's grid."""
+        """One aligned batch from the batcher: B = 1 takes the scalar
+        evaluator, B >= 2 one batched evaluation computing every member's
+        grid (its host copy happens in the members' ``device-sync``)."""
+        with obs_metrics.timed("filodb_device_execute_seconds", _DEV_HELP), \
+                obs_trace.span("device-dispatch", path="aligned",
+                               batch=len(members)):
+            return self._aligned_run_inner(tiles, func, family, nsteps, step,
+                                           window_ms, offset_ms, members)
+
+    def _aligned_run_inner(self, tiles, func: str, family, nsteps: int,
+                           step: int, window_ms: int, offset_ms: int,
+                           members) -> SplitResult:
         counters = func in _COUNTER_FUNCS
         if not counters:
             self._count("aligned_evals")
@@ -858,8 +885,9 @@ class TorchBackend:
         series = clip_series(series, w0s, int(steps[-1] - offset_ms))
         # the instant selector keeps NaNs: a stale marker makes its step
         # stale
-        ts, vals, lens = pack_series(series,
-                                     drop_nan=func != "last_sample")
+        with obs_trace.span("pack", series=len(series)):
+            ts, vals, lens = pack_series(series,
+                                         drop_nan=func != "last_sample")
         scalar = float(func_args[0]) if func_args else 0.0
         w_bound = (_window_sample_bound(series, window_ms, ts.shape[1])
                    if func in _GATHER_FUNCS else 0)
@@ -874,8 +902,10 @@ class TorchBackend:
                                    w_bound)
             return b.submit(key, member, functools.partial(
                 self._packed_run, func, t_bucket, scalar))
-        return self._packed_single(func, ts, vals, lens, w0s, w0e, step,
-                                   nsteps, scalar, w_bound)
+        with obs_metrics.timed("filodb_device_execute_seconds", _DEV_HELP), \
+                obs_trace.span("device-dispatch", path="packed"):
+            return self._packed_single(func, ts, vals, lens, w0s, w0e, step,
+                                       nsteps, scalar, w_bound)
 
     def _packed_single(self, func: str, ts, vals, lens, w0s: int, w0e: int,
                        step: int, nsteps: int, scalar: float,
@@ -915,6 +945,13 @@ class TorchBackend:
         A batch of one takes the single-query path (and so the
         boundary-extract kernel for the rate family). Eager PyTorch
         compiles nothing, so the stack is not padded to a bucket."""
+        with obs_metrics.timed("filodb_device_execute_seconds", _DEV_HELP), \
+                obs_trace.span("device-dispatch", path="packed",
+                               batch=len(members)):
+            return self._packed_run_inner(func, t_bucket, scalar, members)
+
+    def _packed_run_inner(self, func: str, t_bucket: int, scalar: float,
+                          members) -> SplitResult:
         if len(members) == 1:
             m = members[0]
             out = self._packed_single(func, m.ts, m.vals, m.lens, m.w0s,

@@ -27,6 +27,12 @@ On the CPU the compute of a dispatch runs on the thread that makes it,
 so leaders execute inline there (``use_executor`` resolves from the
 device) and gather by yielding the interpreter lock a few times.
 
+Telemetry, as the reference records it: a parked member's
+``batcher-queue-wait`` and ``device-sync`` spans, a ``batcher-dispatch``
+event per dispatch (in the submitter's trace, also on the executor
+thread), and the histograms ``filodb_batcher_batch_size`` and
+``filodb_batcher_queue_wait_seconds``.
+
 Failure semantics: an exception in a batched dispatch fails every
 member. Priority classes (``query/qos.py``) order the executor's queue;
 a batch runs at the best class among its members at queue time.
@@ -45,9 +51,16 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from filodb_tpu_torch.obs import metrics as obs_metrics
+from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.query import qos
 
 _log = logging.getLogger(__name__)
+
+_QWAIT_HELP = ("Wall seconds a query spent parked on the micro-batcher "
+               "(executor queueing + residual gather window); 0 for "
+               "inline single-query dispatches")
+_OCC_HELP = "Members per micro-batch dispatch (batch occupancy)"
 
 # defaults of MicroBatcher's gather_window_s and max_batch
 GATHER_WINDOW_S = 1e-3  # residual gather window at an idle executor
@@ -163,6 +176,8 @@ class BatchStats:
             self.by_size[size] = self.by_size.get(size, 0) + 1
             self.by_priority[priority] = \
                 self.by_priority.get(priority, 0) + size
+        obs_metrics.observe("filodb_batcher_batch_size", _OCC_HELP,
+                            float(size), obs_metrics.OCCUPANCY_BUCKETS)
 
     def snapshot(self) -> Dict[str, object]:
         with self._lock:
@@ -244,6 +259,8 @@ class MicroBatcher:
         if not self.enabled:
             res = run_batch([member])
             self.stats.record(1, 0, prio)
+            obs_metrics.observe("filodb_batcher_queue_wait_seconds",
+                                _QWAIT_HELP, 0.0)
             return res.get(0)
         idx = None
         with self._lock:
@@ -266,12 +283,18 @@ class MicroBatcher:
             return self._wait(p, idx)
         if not concurrent:
             # lone request: single-query path, inline
+            obs_metrics.observe("filodb_batcher_queue_wait_seconds",
+                                _QWAIT_HELP, 0.0)
             return self._execute(key, p, run_batch, queued=False)
         if self.use_executor:
             # leader under concurrency: queue the OPEN batch; arrivals
-            # keep joining until the executor picks it up
+            # keep joining until the executor picks it up. The trace
+            # context hops threads with the closure, so the spans recorded
+            # on the executor land in the submitter's trace.
+            tctx = obs_trace.capture()
             self.executor.submit(
-                lambda: self._execute(key, p, run_batch, queued=True),
+                lambda: self._execute(key, p, run_batch, queued=True,
+                                      tctx=tctx),
                 priority=p.priority)
             return self._wait(p, 0)
         # CPU: gather by yielding the interpreter lock a few times, then
@@ -282,15 +305,24 @@ class MicroBatcher:
             if len(p.members) >= self.max_batch:
                 break
             time.sleep(0)
+        obs_metrics.observe("filodb_batcher_queue_wait_seconds",
+                            _QWAIT_HELP, 0.0)
         return self._execute(key, p, run_batch, queued=False)
 
     def _wait(self, p: _Pending, idx: int) -> np.ndarray:
-        return p.future.result().get(idx)
+        t0 = time.perf_counter()
+        with obs_trace.span("batcher-queue-wait"):
+            res = p.future.result()
+        obs_metrics.observe("filodb_batcher_queue_wait_seconds",
+                            _QWAIT_HELP, time.perf_counter() - t0)
+        with obs_trace.span("device-sync"):
+            return res.get(idx)
 
     def _execute(self, key: object, p: _Pending, run_batch,
-                 queued: bool) -> Optional[np.ndarray]:
+                 queued: bool, tctx=None) -> Optional[np.ndarray]:
         """Close and run one batch; on the executor thread when
-        ``queued`` (the leader parks on the future), inline otherwise."""
+        ``queued`` (the leader parks on the future), inline otherwise;
+        ``tctx`` is the submitting thread's trace context."""
         wait_ns = 0
         if queued and self.executor.idle():
             # idle executor: hold the batch open for the residual gather
@@ -306,8 +338,15 @@ class MicroBatcher:
             if self._pending.get(key) is p:
                 del self._pending[key]
             members = list(p.members)
+            active = self._active
         try:
-            res = run_batch(members)
+            with obs_trace.use(tctx):
+                # occupancy at dispatch: members sharing this submission
+                # and query threads inside the backend when it closed
+                obs_trace.event("batcher-dispatch", size=len(members),
+                                active=active, priority=p.priority,
+                                queued=queued)
+                res = run_batch(members)
         except BaseException as e:  # noqa: BLE001 — fail all members
             self.stats.record(len(members), wait_ns, p.priority)
             p.future.set_exception(e)
@@ -318,4 +357,5 @@ class MicroBatcher:
         p.future.set_result(res)
         if queued:
             return None
-        return res.get(0)
+        with obs_trace.span("device-sync"):
+            return res.get(0)

@@ -15,6 +15,14 @@ in the reference; its address is gossiped through the health body) or
 HTTP, detects dead peers, adopts their shards after
 ``shard-reassign-grace-s`` and hands its own off on ``POST /admin/drain``.
 
+Under the supervisor (``standalone/supervisor.py``) the node is one worker
+process: ``worker-id`` is its ordinal, it accepts on the shared public port
+(``accept-port`` with SO_REUSEPORT, or the inherited ``accept-fd``) beside
+its private port, and its control-plane client (``bus-port``) publishes its
+topology transitions and watermarks to its siblings and applies theirs,
+the supervisor's schema invalidations and worker lifecycle hints (a
+sibling's exit or return re-elects the rule evaluator).
+
 With ``self-monitor`` the node ingests its own metrics into the reserved
 ``__selfmon__`` dataset; with ``rules`` or ``rules-file`` it evaluates
 Prometheus rule groups through its own serving path (and so through the
@@ -47,7 +55,9 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import logging
 import os
+import socket
 import sys
 import threading
 import time
@@ -259,6 +269,26 @@ DEFAULTS = {
     "rules": None,
     "rules-eval-span-steps": 8,
     "rules-webhook-url": None,
+    # process-sharded serving (standalone/supervisor.py), normally derived
+    # by the supervisor for each worker process:
+    #   worker-id:   this process's worker ordinal (None = standalone)
+    #   accept-port: the shared public port, bound here with SO_REUSEPORT
+    #                so the kernel balances connections across workers
+    #   accept-host: the address accept-port binds
+    #   accept-fd:   an inherited listening socket's fd (the fallback
+    #                where SO_REUSEPORT is missing: the supervisor binds
+    #                once and every worker accepts on the shared socket)
+    #   bus-port:    the supervisor's control plane (standalone/bus.py):
+    #                topology, schema and watermark events fan out to
+    #                every sibling so per-process caches stay coherent
+    "worker-id": None,
+    "accept-port": None,
+    "accept-host": "127.0.0.1",
+    "accept-fd": None,
+    "bus-port": None,
+    # cadence of this worker's watermark/backfill gossip on the bus (the
+    # detector's health-body gossip remains the backstop)
+    "bus-watermark-interval-s": 0.25,
 }
 
 # config keys whose modules are not ported yet -> the ROADMAP item that
@@ -268,10 +298,6 @@ REFUSED = {
     "mesh-tile-serving": "A.11 mesh and distributed",
     "raw-retention-s": "A.10 downsampling",
     "flush-downsample": "A.10 downsampling",
-    "worker-id": "A.1.5 supervisor",
-    "accept-port": "A.1.5 supervisor",
-    "accept-fd": "A.1.5 supervisor",
-    "bus-port": "A.1.5 supervisor",
     "profiler-enabled": "A.9 device observability",
 }
 
@@ -287,14 +313,7 @@ INERT = {
                            "refused (A.9)",
     "profiler-top-n": "tunes the profiler: profiler-enabled is refused "
                       "(A.9)",
-    "accept-host": "read only with accept-port (refused, A.1.5)",
-    "bus-watermark-interval-s": "read only with bus-port (refused, "
-                                "A.1.5)",
 }
-
-
-# keys that are on for any value but None (worker 0, fd 0)
-_ON_UNLESS_NONE = ("worker-id", "accept-fd")
 
 
 def _refused(key: str, value, config: Dict) -> bool:
@@ -303,9 +322,24 @@ def _refused(key: str, value, config: Dict) -> bool:
     if key == "mesh-tile-serving":
         # serves only on the mesh: on when mesh-enabled is on as well
         return bool(value) and bool(config.get("mesh-enabled"))
-    if key in _ON_UNLESS_NONE:
-        return value is not None
     return bool(value)
+
+
+def bind_reuseport(host: str, port: int):
+    """A listening socket on (host, port) with SO_REUSEPORT, or None where
+    the platform lacks it (the supervisor then binds once and passes the
+    fd to every worker)."""
+    if not hasattr(socket, "SO_REUSEPORT"):
+        return None
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    try:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        s.bind((host, int(port)))
+        s.listen(128)
+    except OSError:
+        s.close()
+        raise
+    return s
 
 
 class FiloServer:
@@ -366,6 +400,12 @@ class FiloServer:
         self.rules = None
         self._rules_stream = None
         self._rules_driver = None
+        # the shared public accept edge's port (None outside a supervisor)
+        # and the control-plane client with its watermark-gossip thread
+        self.accept_port: Optional[int] = None
+        self.bus_client = None
+        self._bus_tick_thread: Optional[threading.Thread] = None
+        self._bus_tick_stop = threading.Event()
 
     def _make_qos_budgets(self) -> TenantBudgets:
         """Per-tenant token-bucket budgets from the qos-* knobs (rate 0
@@ -658,7 +698,26 @@ class FiloServer:
             slow_query_ms=float(self.config.get("slow-query-ms",
                                                 1000.0)),
             peer_fanout_workers=int(self.config.get(
-                "peer-fanout-workers", 0) or 0))
+                "peer-fanout-workers", 0) or 0),
+            worker_id=self.config.get("worker-id"))
+        # the shared public accept edge: bound here with SO_REUSEPORT (the
+        # kernel balances connections across the workers) or inherited
+        # from the supervisor; both feed the private port's handlers
+        accept_sock = None
+        if self.config.get("accept-fd") is not None:
+            accept_sock = socket.socket(fileno=int(self.config["accept-fd"]))
+        elif self.config.get("accept-port"):
+            accept_sock = bind_reuseport(
+                str(self.config["accept-host"]),
+                int(self.config["accept-port"]))
+            if accept_sock is None:
+                raise RuntimeError(
+                    "accept-port needs SO_REUSEPORT, which this platform "
+                    "lacks: the supervisor passes a listening fd instead "
+                    "(accept-fd)")
+        if accept_sock is not None:
+            self.accept_port = accept_sock.getsockname()[1]
+            self.http.add_listener(accept_sock)
         # elastic membership: wire the planned-handoff coordinator BEFORE
         # the HTTP edge starts serving, so an adopt/hand-back request
         # arriving the instant the health endpoint answers finds it ready
@@ -692,6 +751,8 @@ class FiloServer:
             # the health body advertises this node's down-view (quorum
             # input) and served-shard statuses (gossip) to its peers
             self.http.detector = self.detector
+        if self.config.get("bus-port"):
+            self._start_bus()
         meter_s = float(self.config.get("tenant-metering-interval-s", 0))
         if meter_s > 0 and self.card_trackers:
             self.tenant_metering = TenantMetering(
@@ -714,6 +775,147 @@ class FiloServer:
             t0, t1, t2 = gc.get_threshold()
             gc.set_threshold(t0, t1, max(t2, 100))
         return self
+
+    # -- control plane (standalone/bus.py) --------------------------------
+    def _start_bus(self) -> None:
+        """Connect to the supervisor's bus: local mapper transitions go to
+        the siblings the instant they commit, the siblings' are applied to
+        the local mapper (whose subscribers invalidate the caches), schema
+        invalidations arrive host-wide, and watermark/backfill gossip beats
+        faster than the health-body path."""
+        from filodb_tpu_torch.standalone.bus import BusClient, wait_connected
+        bc = BusClient(int(self.config["bus-port"]),
+                       int(self.config.get("worker-id") or 0), self.node_id)
+        bc.on("topology", self._bus_apply_topology)
+        bc.on("schema", self._bus_apply_schema)
+        bc.on("watermarks", self._bus_apply_watermarks)
+        bc.on("worker-exit", self._bus_apply_worker_exit)
+        bc.on("worker-up", self._bus_apply_worker_up)
+        self.bus_client = bc.start()
+        # connected before the startup line goes out: the supervisor's
+        # worker-up for this worker, which announces it to the rule
+        # election, follows that line and is not replayed
+        wait_connected(bc)
+        self.http.bus_client = bc
+        self.mapper.subscribe(self._bus_publish_topology)
+        tick_s = float(self.config["bus-watermark-interval-s"])
+        if tick_s > 0:
+            self._bus_tick_thread = threading.Thread(
+                target=self._bus_watermark_run, args=(tick_s,),
+                daemon=True, name="bus-watermark-tick")
+            self._bus_tick_thread.start()
+
+    def _bus_publish_topology(self, ev) -> None:
+        """ShardMapper subscriber: ship every locally witnessed transition
+        to the siblings. ``BusClient.publish`` does nothing on the bus
+        reader thread (the apply-republish loop breaker) and on a transport
+        failure (the detector's gossip converges)."""
+        bc = self.bus_client
+        if bc is None:
+            return
+        bc.publish({"type": "topology", "shard": int(ev.shard),
+                    "status": ev.status.value, "node": ev.node,
+                    "epoch": self.mapper.topology_epoch})
+
+    def _bus_apply_topology(self, ev: Dict) -> None:
+        """A sibling witnessed a shard transition: converge the local
+        mapper, which fires this worker's own subscribers and so the
+        plan/results-cache invalidation. An event already converged is
+        dropped without touching the caches, and so is one that names
+        THIS node: it is the ground truth for its own shards. A sibling's
+        failure detector that flips them DOWN while this worker is slow
+        to answer (start-up, a long host-bound query) would otherwise mark
+        them DOWN here too, advertise that in the health body, and keep
+        them DOWN everywhere once the detector sees the worker back
+        (ROADMAP C.21; the reference applies it)."""
+        try:
+            shard = int(ev.get("shard", -1))
+            st = ShardStatus(str(ev.get("status")))
+        except (TypeError, ValueError):
+            return
+        if not 0 <= shard < self.mapper.num_shards:
+            return
+        node = ev.get("node")
+        if node == self.node_id:
+            return
+        if self.mapper.status(shard) is st \
+                and self.mapper.node_of(shard) == node:
+            return
+        self.mapper.update(shard, st, node)
+
+    def _bus_apply_schema(self, ev: Dict) -> None:
+        self.http.invalidate_plan_cache(str(ev.get("reason") or "schema-bus"))
+
+    def _bus_apply_watermarks(self, ev: Dict) -> None:
+        """Sibling watermark/backfill gossip into the per-peer sink the
+        failure detector fills from health bodies, so the results cache's
+        freshness horizon tracks sibling ingest at bus latency."""
+        origin = str(ev.get("origin") or "")
+        if not origin or origin == self.node_id:
+            return
+
+        def ints(raw):
+            try:
+                return {int(k): int(v) for k, v in (raw or {}).items()}
+            except (TypeError, ValueError):
+                return {}
+        self.http.peer_watermarks[origin] = {
+            "watermarks": ints(ev.get("watermarks")),
+            "epochs": ints(ev.get("backfill_epochs")),
+            "topo_epoch": int(ev.get("topo_epoch") or 0),
+        }
+
+    @staticmethod
+    def _worker_ordinal(node: str) -> Optional[int]:
+        try:
+            return int(node.removeprefix("node"))
+        except ValueError:
+            return None
+
+    def _bus_apply_worker_exit(self, ev: Dict) -> None:
+        """The supervisor reaped a sibling: the detector drops it at once,
+        and if it was the rule evaluator the next-lowest alive ordinal
+        takes over at its next boundary."""
+        node = str(ev.get("node") or "")
+        if self.detector is not None and node:
+            self.detector.note_peer_exit(node)
+        ordinal = self._worker_ordinal(node)
+        if self.rules is not None and ordinal is not None:
+            self.rules.note_worker_exit(ordinal)
+
+    def _bus_apply_worker_up(self, ev: Dict) -> None:
+        node = str(ev.get("node") or "")
+        if self.detector is not None and node:
+            self.detector.note_peer_up(node)
+        ordinal = self._worker_ordinal(node)
+        if self.rules is not None and ordinal is not None:
+            self.rules.note_worker_up(ordinal)
+
+    def _bus_gossip_once(self) -> None:
+        """One watermark/backfill beat onto the bus (the per-shard fields
+        the health body advertises)."""
+        watermarks: Dict[str, int] = {}
+        epochs: Dict[str, int] = {}
+        for lst in self.http.user_shard_lists():
+            for i, s in enumerate(lst):
+                n = getattr(s, "shard_num", i)
+                wm = getattr(s, "ingest_watermark_ms", None)
+                if wm is not None:
+                    watermarks[str(n)] = int(wm)
+                epochs[str(n)] = int(getattr(
+                    s, "ingest_backfill_epoch", 0) or 0)
+        self.bus_client.publish({
+            "type": "watermarks", "watermarks": watermarks,
+            "backfill_epochs": epochs,
+            "topo_epoch": self.mapper.topology_epoch})
+
+    def _bus_watermark_run(self, interval_s: float) -> None:
+        while not self._bus_tick_stop.wait(interval_s):
+            try:
+                self._bus_gossip_once()
+            except Exception:   # noqa: BLE001 — the gossip must not die
+                logging.getLogger(__name__).exception(
+                    "bus watermark gossip failed")
 
     # -- reserved internal datasets (selfmon + rules write-back) ----------
     def _setup_internal_dataset(self, dataset: str, subdir: str):
@@ -806,6 +1008,9 @@ class FiloServer:
             num_workers=int(self.config.get("num-nodes", 1) or 1),
             span_steps=int(self.config["rules-eval-span-steps"]),
             notifier=notifier,
+            # a supervised worker stands by until its own worker-up
+            # broadcast (the hand-over in one bus beat); a process without
+            # a bus is announced from birth
             announced=not self.config.get("bus-port"))
         self.http.rules = self.rules
         # topology and schema invalidations reach the engine's rule-plan
@@ -997,7 +1202,8 @@ class FiloServer:
         edge, the trace exporter and, when the server built the backend,
         its device executor (a backend passed in belongs to the
         caller). The rules engine and the self-monitoring loop stop
-        first, each with its internal driver and stream."""
+        first, each with its internal driver and stream, then the
+        control-plane client and its gossip thread."""
         if self.rules is not None:
             self.rules.stop()
         if self._rules_driver is not None:
@@ -1016,6 +1222,11 @@ class FiloServer:
                 self._selfmon_stream.close()
             except OSError:
                 pass
+        self._bus_tick_stop.set()
+        if self._bus_tick_thread is not None:
+            self._bus_tick_thread.join(timeout=5)
+        if self.bus_client is not None:
+            self.bus_client.stop()
         if self.grpc_server is not None:
             self.grpc_server.stop()
         if self.detector is not None:
@@ -1088,8 +1299,13 @@ def main(argv=None) -> int:
     gw = server.gateway.port if server.gateway is not None else None
     gp = server.grpc_server.port if server.grpc_server is not None \
         else None
-    print(json.dumps({"port": server.port, "gateway_port": gw,
-                      "grpc_port": gp}), flush=True)
+    line = {"port": server.port, "gateway_port": gw, "grpc_port": gp}
+    if server.accept_port is not None:
+        line["accept_port"] = server.accept_port
+        line["worker_id"] = server.config.get("worker-id")
+    # the FIRST line on standard output: the supervisor marks a worker
+    # ready at its first newline
+    print(json.dumps(line), flush=True)
     print(f"filodb-torch server listening on :{server.port}",
           file=sys.stderr)
     try:

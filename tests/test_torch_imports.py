@@ -60,6 +60,9 @@ SERVING_MODULES = (
     "filodb_tpu_torch.rules", "filodb_tpu_torch.rules.loader",
     "filodb_tpu_torch.rules.notify", "filodb_tpu_torch.rules.engine",
     "filodb_tpu_torch.rules.__main__",
+    # the supervisor, its control-plane bus, and the CLI
+    "filodb_tpu_torch.standalone", "filodb_tpu_torch.standalone.bus",
+    "filodb_tpu_torch.standalone.supervisor", "filodb_tpu_torch.cli",
 )
 
 
@@ -147,6 +150,24 @@ def test_the_offline_tools_load_no_torch():
         "import filodb_tpu_torch.fsck, filodb_tpu_torch.ingest\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'filodb_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_supervisor_and_the_cli_load_no_torch_or_numpy():
+    """The supervisor process is a process manager and a text-format
+    aggregator: it (and the CLI) import neither torch nor numpy."""
+    code = (
+        "import sys\n"
+        "import filodb_tpu_torch.standalone.supervisor\n"
+        "import filodb_tpu_torch.standalone.bus, filodb_tpu_torch.cli\n"
+        "from filodb_tpu_torch.standalone import Supervisor\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'numpy', 'jax', 'filodb_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -422,8 +422,7 @@ def test_routes_of_features_off_answer_as_the_reference(path, code):
 # a value that turns each refused key's feature on
 REFUSED_ON = {
     "mesh-enabled": True, "mesh-tile-serving": True,
-    "raw-retention-s": 3600, "flush-downsample": True, "worker-id": 0,
-    "accept-port": 9000, "accept-fd": 3, "bus-port": 9001,
+    "raw-retention-s": 3600, "flush-downsample": True,
     "profiler-enabled": True,
 }
 # mesh tile serving turns on only together with the mesh
@@ -436,6 +435,20 @@ def test_unported_config_keys_are_refused(key):
     with pytest.raises(ValueError, match=key):
         psrv.FiloServer({key: REFUSED_ON[key], **ON_WITH.get(key, {}),
                          "device": "cpu"})
+
+
+# a value that turns each supervisor key on (ROADMAP A.1.5: honoured)
+SUPERVISOR_ON = {"worker-id": 0, "accept-port": 9000,
+                 "accept-host": "127.0.0.2", "accept-fd": 3,
+                 "bus-port": 9001, "bus-watermark-interval-s": 0.5}
+
+
+@pytest.mark.parametrize("key", sorted(SUPERVISOR_ON))
+def test_supervisor_config_keys_are_honoured(key):
+    assert set(SUPERVISOR_ON) == SUPERVISOR_KEYS
+    assert not set(SUPERVISOR_ON) & (set(psrv.REFUSED) | set(psrv.INERT))
+    srv = psrv.FiloServer({key: SUPERVISOR_ON[key], "device": "cpu"})
+    assert srv.config[key] == SUPERVISOR_ON[key]
 
 
 def test_config_keys_at_their_off_values_are_accepted():
@@ -554,19 +567,18 @@ CLUSTER_KEYS = {
 RULES_KEYS = {"rules", "rules-file", "rules-eval-span-steps",
               "rules-webhook-url", "self-monitor", "self-monitor-interval-s",
               "self-monitor-flush-ticks"}
-# the supervisor's keys (A.1.5): still refused
-SUPERVISOR_KEYS = {"worker-id", "accept-port", "accept-fd", "bus-port"}
+# the supervisor's keys (A.1.5): honoured, with the reference's defaults
+SUPERVISOR_KEYS = {"worker-id", "accept-port", "accept-host", "accept-fd",
+                   "bus-port", "bus-watermark-interval-s"}
 
 
 @pytest.mark.parametrize("key", sorted(J_DEFAULTS))
 def test_every_reference_config_key_is_honoured_refused_or_listed(key):
     places = [key in psrv.DEFAULTS, key in psrv.REFUSED, key in psrv.INERT]
     assert places.count(True) == 1, (key, places)
-    if key in CLUSTER_KEYS | RULES_KEYS:
+    if key in CLUSTER_KEYS | RULES_KEYS | SUPERVISOR_KEYS:
         assert key in psrv.DEFAULTS
         assert psrv.DEFAULTS[key] == J_DEFAULTS[key]
-    if key in SUPERVISOR_KEYS:
-        assert psrv.REFUSED[key] == "A.1.5 supervisor"
     if key in psrv.REFUSED:
         assert psrv.REFUSED[key].startswith("A.")
     if key in psrv.INERT:
@@ -678,6 +690,54 @@ def test_metric_families_match_the_jax_server_with_rules_and_self_monitor():
         jax_srv.stop()
     assert pf == (jf - ABSENT_FAMILIES) | EXTRA_FAMILIES
     assert (DEFAULT_ON_FAMILIES | RULES_ON_FAMILIES) <= pf
+
+
+# spans of the reference with no counterpart in the port -> why:
+#   kernel-build: an XLA evaluator build per dispatch-table key; eager
+#     PyTorch builds none;
+#   executable: the device profiler's event naming the XLA executable of
+#     each dispatch (obs/devprof.py, ROADMAP A.9)
+ABSENT_SPANS = {"kernel-build", "executable"}
+# families that appear once a query ran: the same build, timed
+ABSENT_QUERY_FAMILIES = {"filodb_kernel_build_seconds"}
+# the device telemetry a query records in both packages (ROADMAP C.18)
+DEVICE_QUERY_FAMILIES = {
+    "filodb_device_execute_seconds", "filodb_batcher_batch_size",
+    "filodb_batcher_queue_wait_seconds"}
+
+
+def _span_shape(trace):
+    """Span names, and the path tags of the device dispatches."""
+    names = {sp["name"] for sp in trace["spans"]}
+    paths = sorted(sp.get("tags", {}).get("path", "")
+                   for sp in trace["spans"]
+                   if sp["name"] in ("device-eval", "device-dispatch"))
+    return names, paths
+
+
+@pytest.mark.parametrize("query,end", [
+    ("rate(http_requests_total[5m])", TAIL_END),
+    ("rate(irregular_total[5m])", FLUSHED_END)],
+    ids=["aligned-and-tail", "packed"])
+def test_a_traced_query_records_the_reference_spans_and_families(
+        servers, query, end):
+    """After one traced query the port's span names (device-eval, pack,
+    device-dispatch with its path, batcher-dispatch, device-sync) and its
+    /metrics families equal the JAX server's, less the listed absences."""
+    _reset_registries()
+    got, pd, jd = _both(servers, "/promql/timeseries/api/v1/query_range",
+                        query=query, start=START, end=end, step=60,
+                        explain="trace", cache="false")
+    assert got == 200
+    (pn, pp), (jn, jp) = _span_shape(pd["trace"]), _span_shape(jd["trace"])
+    assert {"device-eval", "device-dispatch", "batcher-dispatch",
+            "device-sync"} <= pn
+    assert pn == jn - ABSENT_SPANS
+    assert pp == jp
+    pf, jf = (_families(s) for s in servers)
+    assert DEVICE_QUERY_FAMILIES <= pf
+    assert pf == (jf - ABSENT_FAMILIES - ABSENT_QUERY_FAMILIES) \
+        | EXTRA_FAMILIES
 
 
 # -- the write path: both servers with data-dir, stream-dir and gateway ---
