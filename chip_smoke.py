@@ -20,10 +20,10 @@ non-zero exit):
      5 m window and 60 s step over T = 470 steps and 16 groups, at three
      grid phases, held against a numpy f64 oracle on an 8,192-series
      subset; the group-sum timed there and at the shape phase 4 sends it
-     (8,192 series, T = 469); the boundary extract at 65,536 x 512 samples
-     x 128 windows;
-  4. the engine end to end (the main path): a TimeSeriesShard with 8,192
-     flushed counter series, an unflushed 30-sample tail and 1,024 series of
+     (S_ENGINE = 4,096 series, T = 469); the boundary extract at 65,536 x
+     512 samples x 128 windows;
+  4. the engine end to end (the main path): a TimeSeriesShard with 4,096
+     flushed counter series, an unflushed 30-sample tail and 512 series of
      irregular cadence, queried through parse_query_range +
      QueryEngine(backend=TorchBackend()) and checked against the same
      engine's numpy oracle; kernel launch counts are reset just before and
@@ -77,7 +77,7 @@ non-zero exit):
      through the memstore and a FlatFileColumnStore; server A on the card
      over that data-dir, a fresh stream-dir and a gateway (WRITE_CONFIG:
      fsync per append, no timed flush) takes the counters' 30-sample tail
-     through POST /api/v1/ingest/influx, one POST of 8,192 lines per
+     through POST /api/v1/ingest/influx, one POST of 4,096 lines per
      scrape, and an irregular tail through the TCP gateway; its grouped
      sum and average of rate (the fused group-sum), one job's rate into
      the tail and the irregular rate into the tail (the boundary extract)
@@ -112,8 +112,33 @@ non-zero exit):
      0 (respawn, the rule evaluator handed to worker 1 and back, its
      grouped answer again bit for bit); SIGTERM of the supervisor (a
      drain, exit 0, no worker left) (the `supervisor` line);
-  then the `kernels` line: launches (phase 4, and phases 5-10 as
-  `launches_phase5` to `launches_phase10`; phase 11's `launches_phase11`
+ 12. downsampling and the raw/downsample tiering, on its own copy of
+     phase 8's data-dir (taken with phase 11's copy, before phase 9) and
+     fresh stream logs: (a) the B.7 device functions at
+     bench_downsample.py's batch shape, 8,192 x 16,384 samples (10 s +/-2
+     s) made on the card from --seed: the reshape fast path at 5 m, the
+     aligned cascade to 1 h, the gather path (w_bound 64) at 5 m and the
+     counter emit mask, the fast path held against the gather path on
+     every row and 64 rows against the numpy oracle (the mask against its
+     rule), each timed by CUDA events beside its byte bound and peak
+     memory; (b) phase 5's 4,096 gauges backfilled into the copy, then
+     DownsamplerJob over its 4 shards at 5 m and 1 h on the card, 64
+     gauges held against downsample_gauge_oracle and 64 counters (16
+     irregular) against the emit rule, from the raw rows; (c) a
+     FiloServer on the card over the copy with raw-retention-s set from
+     the wall clock (the boundary about 4 h before the data's last
+     sample) and flush-downsample on: over HTTP the grouped rate, one
+     job's irregular rate, the gauges' avg and max over 30 m at a 300 s
+     step across the 8 h, and max over 2 h at 3,600 s wholly beyond
+     retention (the 1 h resolution); each answer's StitchExec recorded,
+     the boundary read from its raw side's plan, each side held against
+     the numpy oracle over that side's rows, each side's launches
+     counted (at least one on the ds side); then 1,024 counters' tails
+     through POST /api/v1/ingest/influx, a clean stop (the flush), and
+     every ds sample emitted read back from the 5 m and 1 h datasets
+     (the `downsample` line);
+  then the `kernels` line: launches (phase 4, and phases 5-10 and 12 as
+  `launches_phase5` to `launches_phase12`; phase 11's `launches_phase11`
   is null: a launch inside a worker process is not counted from here,
   and `launches_phase11_evidence` names what holds the route instead),
   max error, kernel and plain
@@ -142,6 +167,14 @@ equal to server B's bit for bit, the grouped rate within the group-sum
 tolerance of B's; the join within rtol 2e-5 of the range its sides'
 branch variants span; no downgrade from gRPC to HTTP on either node.
 Phase 11: each answer as phase 9's, and equal to it bit for bit.
+Phase 12: the B.7 functions' counts, minima, maxima, last values, last
+timestamps and emit mask bit for bit (fast path against gather path,
+and against the oracle), sums within rtol 1e-12 (the reference test's
+bound); the job's ds rows likewise against the oracle and the emit rule;
+each side of a tiered answer within rtol 1e-5 of the numpy oracle over
+that side's rows, the grouped rate's knife-edge cells allowed their
+branch spread (check_tier_answer); the emitted ds samples exactly the
+flush rule's.
 Phase 10: the job rates within rtol 1e-5 of the integer-rule oracle (on
 a tick that did not take the fused group-sum, plus the knife spread) and
 of the uncached HTTP answer; the alert's active set decided by the
@@ -151,8 +184,8 @@ within rtol 1e-5 of a branch variant of the oracle.
 
 Standard output: the card's name and power limit after phase 1, then each
 phase's JSON line as the phase ends (`functions` with `queries`,
-`serving`, `server`, `rules`, `durability`, `cluster`, `supervisor`), then
-the `kernels`
+`serving`, `server`, `rules`, `durability`, `cluster`, `supervisor`,
+`downsample`), then the `kernels`
 line, and last {"ok": true, "device": {...}}. The script exits non-zero,
 printing no result, when there is no CUDA device.
 """
@@ -183,7 +216,10 @@ N_FULL = 2_880
 T_FULL = 470
 G = 16
 S_ORACLE = 8_192
-S_ENGINE = 8_192
+# counter (and gauge) series of the engine phases 4-12: cut from 8,192 when
+# the whole run outgrew the 1,200 s limit on a slower host (ROADMAP C.14);
+# the cold first query of each server is host-bound and linear in it
+S_ENGINE = 4_096
 KNIFE_MS = 8
 J_MS = 2_000
 
@@ -659,7 +695,8 @@ def phase_real_size(gen, dev, bw: float, f32_rate: float) -> dict:
 
 
 ENGINE_TAIL = 30
-ENGINE_IRREGULAR = 1_024
+# irregular-cadence series (10 s +/-6 s): cut from 1,024 with S_ENGINE
+ENGINE_IRREGULAR = 512
 
 
 def engine_rows(rng: np.random.Generator, S: int) -> dict:
@@ -1452,7 +1489,8 @@ BURST_ROUNDS = 1        # bursts of each key with the batcher on (cut
                         # from 2 to keep phase 6 near 90 s)
 DOOR_WAIT_S = 60.0      # bound on a burst member's wait at the batcher's
                         # door
-CLIENTS = 16            # free-running engine clients
+CLIENTS = 8             # free-running engine clients (cut from 16 to
+                        # make room for phase 12)
 CLIENT_WARM = 1         # first queries of each client, left out (warm-up)
 CLIENT_QUERIES = 1      # queries of each client that are measured (cut
                         # from 10 to make room for phase 7, from 3 for
@@ -2031,11 +2069,11 @@ SERVER_CLIENT_QUERIES = 1   # queries of each client, over phase 6's mix
 # with its reason
 SERVER_CONFIG = {
     "num-shards": 4, "port": 0,
-    # one query scans 23.6 M samples here: the default 1,000,000 answers
+    # one query scans 11.8 M samples here: the default 1,000,000 answers
     # 422 (asserted first, on an HTTP edge at the default over the same
     # shards)
     "query-sample-limit": 0,
-    # a per-series answer at 8,192 series holds a slot 8-10 s (its JSON
+    # a per-series answer at 8,192 series held a slot 8-10 s (its JSON
     # encode), longer than the default 5 s wait: 8 clients on 4 slots got
     # 429 at the default
     "admission-wait-s": 120.0,
@@ -2299,7 +2337,7 @@ def start_server(rows: dict, loops: dict):
     from filodb_tpu_torch.standalone.server import DEFAULTS, FiloServer
 
     t0 = time.perf_counter()
-    for key, why in (("query-sample-limit", "23.6 M samples a query"),
+    for key, why in (("query-sample-limit", "11.8 M samples a query"),
                      ("admission-wait-s", "a per-series answer holds a "
                       "slot 8-10 s")):
         log(f"phase 7: config {key} = {SERVER_CONFIG[key]} (default "
@@ -2476,11 +2514,14 @@ def dir_bytes(root: str) -> int:
                for d, _, files in os.walk(root) for f in files)
 
 
-def backfill(data_dir: str, rows: dict) -> dict:
-    """Phase 4's flushed history (the counters and the irregular series)
-    written into a fresh data-dir through the port's memstore with a
-    FlatFileColumnStore, routed to the 4 shards as the gateway routes, as
-    a previous run's flushes would leave it."""
+def backfill(data_dir: str, rows: dict,
+             series=(("counters", "prom-counter"),
+                     ("irregular", "prom-counter"))) -> dict:
+    """Phase 4's flushed history (by default the counters and the
+    irregular series: `series` names the rows and their schema) written
+    into a data-dir through the port's memstore with a FlatFileColumnStore,
+    routed to the 4 shards as the gateway routes, as a previous run's
+    flushes would leave it."""
     from filodb_tpu_torch import state
     from filodb_tpu_torch.core.memstore import TimeSeriesMemStore
     from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS, DatasetRef
@@ -2495,8 +2536,8 @@ def backfill(data_dir: str, rows: dict) -> dict:
         store.setup(ref, shard, num_groups=DEFAULTS["groups-per-shard"],
                     max_chunk_rows=DEFAULTS["max-chunks-size"])
     n = 0
-    for key in ("counters", "irregular"):
-        n += state.load_into_store(store, ref, rows[key], "prom-counter",
+    for key, schema in series:
+        n += state.load_into_store(store, ref, rows[key], schema,
                                    True, num_shards=4, spread=1)
     cs.close()
     return {"samples": n, "seconds": time.perf_counter() - t0,
@@ -2832,9 +2873,9 @@ CLUSTER_DETECT_S = 0.25
 # the pushed-down join's Exec reply must exceed grpcio's default receive
 # limit, so that phase 9 holds the message-size repair (ROADMAP C.15)
 JOIN_REPLY_MIN_BYTES = 4 << 20
-# jobs (of G, 512 series each) in phase 9's join: cut from all 16 to make
-# room for phase 11; 6 jobs' node1 half still replies about 5.3 MB
-JOIN_JOBS = 6
+# jobs (of G, S_ENGINE / G = 256 series each) in phase 9's join: 12 jobs'
+# 3,072 series, whose node1 half replied about 5.2 MB at 6 jobs of 512
+JOIN_JOBS = 12
 # the queries phases 9 to 11 share
 Q_GROUPED = "sum by (job) (rate(http_requests_total[5m]))"
 Q_IRR = "rate(irregular_total[5m])"
@@ -3098,7 +3139,7 @@ def phase_cluster(rows: dict, wdir: dict, answers_b: list,
         # pushed down to both nodes (pinning _ws_/_ns_ prunes shards), its
         # Exec reply above grpcio's 4 MiB default (the C.15 repair)
         sel = ('http_requests_total{_ws_="demo",_ns_="App-0",'
-               f'job=~"job[0-{JOIN_JOBS - 1}]"}}')
+               f'job=~"{"|".join(f"job{j}" for j in range(JOIN_JOBS))}"}}')
         qj = f"rate({sel}[5m]) / rate({sel}[5m] offset 1m)"
         ex = n0.http.make_planner("timeseries").materialize(
             parse_query_range(qj, TimeStepParams(start, step, fe)))
@@ -3221,7 +3262,7 @@ def phase_cluster(rows: dict, wdir: dict, answers_b: list,
 SUP_WORKERS = 2
 # the rule group that shows the election: the reference failover test's
 # time() recording rule, at 60 s (wall-clock ticks of phase 7's
-# 8,192-series rules would compete with the cold queries)
+# S_ENGINE-series rules would compete with the cold queries)
 SUP_RULES = {"groups": [{"name": "fo", "interval": "60s", "rules": [
     {"record": "fo:tick:value", "expr": "time()"}]}]}
 # phase 11's health-fail-threshold; None keeps the supervisor's default
@@ -4108,6 +4149,687 @@ def phase_rules(srv, rows: dict, sink, span_start: int, smi: str) -> dict:
     return {"launches": run["launches"], "errs": run["errs"], "rules": out}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: downsampling and the raw/downsample tiering
+# ---------------------------------------------------------------------------
+
+DS_S = 8_192            # 12(a): bench_downsample.py's batch, S x N samples
+DS_N = 16_384           # (134 M), made on the card
+DS_RES = (300_000, 3_600_000)   # the reference's downsample-resolutions
+DS_W_BOUND = 64         # the gather path's samples-per-period cap
+DS_ORACLE_ROWS = 64     # 12(a): rows held against the numpy oracle
+DS_CHECK_SERIES = 64    # 12(b): series of each schema held to the oracle
+DS_TAIL_SERIES = 1_024  # 12(c): counters whose tails go through influx
+TIER_STEP_S = 300       # 12(c): the tiered queries' step over the 8 h
+TIER_RAW_S = 4 * 3_600  # 12(c): raw retention ends ~4 h before the data
+DS_DATASET = "timeseries"
+
+
+def tier_queries():
+    """(PromQL, start s, end s, step s) of phase 12(c): four queries over
+    the whole 8 h at a 300 s step (30 m windows: the 5 m resolution), and
+    one wholly beyond raw retention at a 3,600 s step with 2 h windows
+    (the 1 h resolution)."""
+    start = BASE // 1000 + 1_800
+    end = (BASE + (N_FULL - 10) * DT) // 1000
+    b = BASE // 1000
+    return [
+        ("sum by (job) (rate(http_requests_total[30m]))", start, end,
+         TIER_STEP_S),
+        ('rate(irregular_total{job="job3"}[30m])', start, end, TIER_STEP_S),
+        (f"avg_over_time({GAUGE}[30m])", start, end, TIER_STEP_S),
+        (f"max_over_time({GAUGE}[30m])", start, end, TIER_STEP_S),
+        (f"max_over_time({GAUGE}[2h])", b + 7_200, b + 5 * 3_600, 3_600),
+    ]
+
+
+def ds_batch(gen, dev, counter: bool):
+    """[DS_S, DS_N] samples on the card at DT +/- J_MS: int64 ms
+    timestamps and f64 values, a gauge (normal about 50, sd 10, as
+    bench_downsample.py) or a counter (cumsum of uniform [0, 5), reset
+    half-way in one row in 97) -> (ts, vals, lens)."""
+    jit = torch.randint(-J_MS, J_MS + 1, (DS_S, DS_N), generator=gen,
+                        device=dev, dtype=torch.int64)
+    ts = BASE + torch.arange(DS_N, device=dev,
+                             dtype=torch.int64)[None, :] * DT + jit
+    del jit
+    if counter:
+        vals = torch.cumsum(torch.rand((DS_S, DS_N), generator=gen,
+                                       device=dev, dtype=torch.float64)
+                            * 5.0, dim=1)
+        vals[::97, DS_N // 2:] -= vals[::97, DS_N // 2 - 1:DS_N // 2].clone()
+    else:
+        vals = torch.randn((DS_S, DS_N), generator=gen, device=dev,
+                           dtype=torch.float64) * 10.0 + 50.0
+    lens = torch.full((DS_S,), DS_N, dtype=torch.int32, device=dev)
+    return ts, vals, lens
+
+
+def emit_mask_rule(ts: np.ndarray, vals: np.ndarray, base: int, res: int,
+                   nperiods: int) -> np.ndarray:
+    """The batch job's counter rule on one sorted row (numpy): the last
+    sample of every period and both sides of every drop, in periods
+    [0, nperiods)."""
+    p = (ts - base) // res
+    last = np.ones(ts.size, bool)
+    last[:-1] = p[1:] != p[:-1]
+    drop = vals[1:] < vals[:-1]
+    side = np.zeros(ts.size, bool)
+    side[:-1] |= drop
+    side[1:] |= drop
+    return (last | side) & (p >= 0) & (p < nperiods)
+
+
+def flush_counter_rule(ts: np.ndarray, vals: np.ndarray,
+                       res: int) -> np.ndarray:
+    """Flush-time emission's counter rule on one chunk (numpy): its first
+    and last samples, every period's first and last, and both sides of
+    every drop."""
+    p = (ts - (int(ts[0]) // res) * res) // res
+    keep = np.zeros(ts.size, bool)
+    keep[[0, -1]] = True
+    cut = np.nonzero(np.diff(p))[0]
+    keep[cut] = keep[cut + 1] = True
+    drop = np.nonzero(np.diff(vals) < 0)[0]
+    keep[drop] = keep[drop + 1] = True
+    return keep
+
+
+def ds_bound(name: str, S: int, N: int, P: int, bw: float):
+    """(bytes, least ms) of one B.7 call: each input read once, each
+    output written once.
+      gauge paths (fast, gather): [S, N] int64 ts + f64 values + int32
+        lens in, 6 [S, P] outputs (5 f64, 1 int64) out;
+      cascade_gauge_aligned: 6 [S, P] in (N here is the coarse Q),
+        6 [S, Q] out;
+      counter_emit_mask: ts + values + lens in, a [S, N] bool mask out."""
+    if name == "cascade_gauge_aligned":
+        nbytes = 48 * S * P + 48 * S * N
+    elif name == "counter_emit_mask":
+        nbytes = 16 * S * N + 4 * S + S * N
+    else:
+        nbytes = 16 * S * N + 4 * S + 48 * S * P
+    return nbytes, 1e3 * nbytes / bw
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal element for element, NaN where the other is NaN."""
+    if a.dtype.is_floating_point:
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return bool(torch.equal(a, b))
+
+
+def close_sums(a: torch.Tensor, b: torch.Tensor, rtol: float = 1e-12
+               ) -> float:
+    """Max relative difference of two sum outputs (NaN at the same
+    places); raises past rtol."""
+    assert bool((torch.isnan(a) == torch.isnan(b)).all()), "sum NaNs differ"
+    ok = ~torch.isnan(b)
+    rel = ((a - b).abs() / b.abs().clamp_min(1e-300))[ok]
+    err = float(rel.max()) if rel.numel() else 0.0
+    assert err <= rtol, f"sums differ by rtol {err}"
+    return err
+
+
+def ds_functions(gen, dev, bw: float) -> dict:
+    """Phase 12(a): the B.7 device functions at bench_downsample.py's
+    batch shape, checked (the fast path against the gather path on every
+    row, DS_ORACLE_ROWS rows against the numpy oracle, the emit mask
+    against its rule) and timed by CUDA events over warmed calls."""
+    from filodb_tpu_torch.downsample import kernels as dk
+
+    out = {}
+    res5, res1h = DS_RES
+    ts, vals, lens = ds_batch(gen, dev, counter=False)
+    t_lo, t_hi = int(ts[:, 0].min()), int(ts[:, -1].max())
+    base5, base1h = (t_lo // res5) * res5, (t_lo // res1h) * res1h
+    P = (t_hi - base5) // res5 + 1
+    nper1h = (t_hi - base1h) // res1h + 1
+    lead = (base5 - base1h) // res5
+    cad = (BASE, DT)
+    calls = {
+        "downsample_gauge_fast": lambda: dk.downsample_gauge_fast(
+            ts, vals, lens, base5, res5, P, cadence=cad),
+        "downsample_gauge_tiles": lambda: dk.downsample_gauge_tiles(
+            ts, vals, lens, base5, res5, P, DS_W_BOUND),
+    }
+    torch.cuda.synchronize()
+    fast = calls["downsample_gauge_fast"]()
+    gather = calls["downsample_gauge_tiles"]()
+    coarse = dk.cascade_gauge_aligned(fast, res1h // res5, lead)
+    calls["cascade_gauge_aligned"] = lambda: dk.cascade_gauge_aligned(
+        fast, res1h // res5, lead)
+    # the fast path against the gather path on every row: bit for bit but
+    # the sums (rtol 1e-12)
+    sum_err = close_sums(fast[0], gather[0])
+    for k, name in enumerate(("count", "min", "max", "last_v", "last_ts")):
+        assert same_bits(fast[k + 1], gather[k + 1]), \
+            f"fast and gather paths differ in {name}"
+    rows = np.linspace(0, DS_S - 1, DS_ORACLE_ROWS).astype(np.int64)
+    ts_h, v_h = ts[rows].cpu().numpy(), vals[rows].cpu().numpy()
+    f_h = [a[rows].cpu().numpy() for a in fast]
+    c_h = [a[rows].cpu().numpy() for a in coarse]
+    Q = c_h[0].shape[1]
+    oracle_err = 0.0
+    for i in range(rows.size):
+        for got, base, res, nper in ((f_h, base5, res5, P),
+                                     (c_h, base1h, res1h, nper1h)):
+            o = dk.downsample_gauge_oracle(ts_h[i], v_h[i], base, res, nper)
+            n = min(nper, got[0].shape[1])
+            has = o[1][:n] > 0
+            assert np.array_equal(got[1][i][:n], o[1][:n]), "counts"
+            for k in (2, 3, 4, 5):
+                assert np.array_equal(got[k][i][:n][has], o[k][:n][has]), k
+            rel = np.abs(got[0][i][:n][has] - o[0][:n][has]) \
+                / np.abs(o[0][:n][has])
+            oracle_err = max(oracle_err, float(rel.max()))
+    assert oracle_err <= 1e-12, f"sums vs the oracle: rtol {oracle_err}"
+    del gather
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
+        ms = time_ms(fn, reps=5, warm=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30 - resident
+        shape_n, shape_p = (Q, P) if name == "cascade_gauge_aligned" \
+            else (DS_N, P)
+        nbytes, bound = ds_bound(name, DS_S, shape_n, shape_p, bw)
+        out[name] = {"ms": ms, "bound_ms": bound, "bytes": nbytes,
+                     "bound_share": bound / ms, "peak_gib": peak}
+    del fast, coarse, ts, vals
+    torch.cuda.empty_cache()
+    ts, vals, lens = ds_batch(gen, dev, counter=True)
+    mask = dk.counter_emit_mask(ts, vals, lens, base5, res5, P)
+    m_h = mask[rows].cpu().numpy()
+    ts_h, v_h = ts[rows].cpu().numpy(), vals[rows].cpu().numpy()
+    for i in range(rows.size):
+        assert np.array_equal(m_h[i], emit_mask_rule(ts_h[i], v_h[i], base5,
+                                                     res5, P)), "emit mask"
+    kept = int(mask.sum())
+    del mask
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    ms = time_ms(lambda: dk.counter_emit_mask(ts, vals, lens, base5, res5,
+                                              P), reps=5, warm=1)
+    nbytes, bound = ds_bound("counter_emit_mask", DS_S, DS_N, P, bw)
+    out["counter_emit_mask"] = {
+        "ms": ms, "bound_ms": bound, "bytes": nbytes,
+        "bound_share": bound / ms,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 - resident}
+    del ts, vals, lens
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        log(f"phase 12: {name} at [{DS_S}, {DS_N}]: {r['ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.3f} ms ({r['bytes'] / 1e9:.3f} GB at "
+            f"{bw / 1e12:.2f} TB/s, {100 * r['bound_share']:.1f} %), peak "
+            f"{r['peak_gib']:.2f} GiB above what was resident")
+    return {"shape": [DS_S, DS_N], "periods_5m": P, "periods_1h": Q,
+            "counter_kept": kept, "fast_vs_gather_sum_rtol": sum_err,
+            "oracle_rows": int(rows.size), "oracle_sum_rtol": oracle_err,
+            "functions": out}
+
+
+def read_ds_rows(data_dir: str, res: int, wanted) -> dict:
+    """{(metric, instance): (ts, [data columns])} of the wanted series in
+    the <dataset>_ds_<res> dataset of the data-dir, decoded from its
+    chunks."""
+    from filodb_tpu_torch.core.record import PartKey
+    from filodb_tpu_torch.core.schemas import DEFAULT_SCHEMAS
+    from filodb_tpu_torch.downsample import ds_dataset
+    from filodb_tpu_torch.memory import vectors as bv
+    from filodb_tpu_torch.store import FlatFileColumnStore
+
+    cs = FlatFileColumnStore(data_dir)
+    name = ds_dataset(DS_DATASET, res)
+    out = {}
+    for shard in range(WRITE_CONFIG["num-shards"]):
+        for e in cs.scan_part_keys(name, shard):
+            lm = PartKey.from_bytes(e.part_key).label_map
+            key = (lm["_metric_"], lm["instance"])
+            if wanted is not None and key not in wanted:
+                continue
+            schema = DEFAULT_SCHEMAS.by_id(
+                PartKey.from_bytes(e.part_key).schema_id)
+            chunks = cs.read_chunks(name, shard, e.part_key)
+            ts = np.concatenate([bv.decode_longs(c.vectors[0])
+                                 for c in chunks])
+            order = np.argsort(ts, kind="stable")
+            cols = [np.concatenate([bv.decode_doubles(c.vectors[j + 1])
+                                    for c in chunks])[order]
+                    for j in range(len(schema.data_columns))]
+            out[key] = (ts[order], cols)
+    cs.close()
+    return out
+
+
+class JobSplit:
+    """Wall seconds of the downsampler job by stage, by
+    time.perf_counter around the calls (the calls unchanged): chunk reads
+    from the column store, chunk decode, the device functions
+    (synchronised), the output shards' flush (ds chunk encode and write),
+    and the fsyncs among all of it (with their count)."""
+
+    def __init__(self):
+        from filodb_tpu_torch.core.memstore import TimeSeriesShard
+        from filodb_tpu_torch.downsample import kernels as dk
+        from filodb_tpu_torch.memory import vectors as bv
+        from filodb_tpu_torch.store import FlatFileColumnStore
+
+        self.secs = {"read_s": 0.0, "decode_s": 0.0, "device_s": 0.0,
+                     "flush_s": 0.0, "fsync_s": 0.0}
+        self.fsyncs = 0
+        targets = [(FlatFileColumnStore, "read_chunks", "read_s", False),
+                   (bv, "decode_longs", "decode_s", False),
+                   (bv, "decode_doubles", "decode_s", False),
+                   (TimeSeriesShard, "flush_all", "flush_s", False),
+                   (os, "fsync", "fsync_s", False)]
+        targets += [(dk, n, "device_s", True) for n in (
+            "downsample_gauge_tiles", "downsample_gauge_fast",
+            "cascade_gauge_aligned", "counter_emit_mask")]
+        self.originals = []
+        for obj, name, label, sync in targets:
+            fn = getattr(obj, name)
+            self.originals.append((obj, name, fn))
+            setattr(obj, name, self._wrap(fn, label, sync))
+
+    def _wrap(self, fn, label, sync):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                self.secs[label] += time.perf_counter() - t0
+                if label == "fsync_s":
+                    self.fsyncs += 1
+        return call
+
+    def restore(self) -> None:
+        for obj, name, fn in self.originals:
+            setattr(obj, name, fn)
+
+    def split(self, total_s: float) -> dict:
+        s = dict(self.secs, fsyncs=self.fsyncs, total_s=total_s)
+        s["other_host_s"] = (total_s - s["read_s"] - s["decode_s"]
+                             - s["device_s"] - s["flush_s"])
+        return s
+
+
+def ds_job(data_dir: str, rows: dict) -> dict:
+    """Phase 12(b): phase 5's gauges backfilled into the copy of phase 8's
+    data-dir, then DownsamplerJob over all 4 shards at both resolutions on
+    the card; DS_CHECK_SERIES gauges held against downsample_gauge_oracle
+    and as many counters (a quarter of them irregular) against the emit
+    rule, both computed from the raw rows."""
+    from filodb_tpu_torch.downsample import DownsamplerJob
+    from filodb_tpu_torch.downsample import kernels as dk
+    from filodb_tpu_torch.store import FlatFileColumnStore
+
+    bf = backfill(data_dir, rows, series=(("gauges", "gauge"),))
+    log(f"phase 12: gauge backfill {bf['samples']} samples in "
+        f"{bf['seconds']:.1f} s")
+    before = dir_bytes(data_dir)
+    cs = FlatFileColumnStore(data_dir)
+    split = JobSplit()
+    t0 = time.perf_counter()
+    try:
+        job = DownsamplerJob(cs, resolutions=DS_RES)
+        stats = [job.run(DS_DATASET, s)
+                 for s in range(WRITE_CONFIG["num-shards"])]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        split.restore()
+    cs.close()
+    out = {"seconds": secs, "backfill_s": bf["seconds"],
+           "backfill_samples": bf["samples"],
+           "partitions_read": sum(s.partitions_read for s in stats),
+           "samples_read": sum(s.samples_read for s in stats),
+           "samples_written": sum(s.samples_written for s in stats),
+           "chunks_written": sum(s.chunks_written for s in stats),
+           "bytes_on_disk": dir_bytes(data_dir) - before,
+           "split": split.split(secs)}
+    n_c = DS_CHECK_SERIES - DS_CHECK_SERIES // 4
+    pick_g = np.linspace(0, len(rows["gauges"]) - 1,
+                         DS_CHECK_SERIES).astype(int)
+    pick_c = np.linspace(0, len(rows["counters"]) - 1, n_c).astype(int)
+    pick_i = np.linspace(0, len(rows["irregular"]) - 1,
+                         DS_CHECK_SERIES - n_c).astype(int)
+    gauges = {(lab["_metric_"], lab["instance"]): (t, v) for lab, t, v in
+              (rows["gauges"][i] for i in pick_g)}
+    counters = {(lab["_metric_"], lab["instance"]): (t, v) for lab, t, v in
+                [rows["counters"][i] for i in pick_c]
+                + [rows["irregular"][i] for i in pick_i]}
+    sum_err = 0.0
+    for res in DS_RES:
+        got = read_ds_rows(data_dir, res, set(gauges) | set(counters))
+        for key, (t, v) in gauges.items():
+            base = (int(t[0]) // res) * res
+            o = dk.downsample_gauge_oracle(t, v, base, res,
+                                           (int(t[-1]) - base) // res + 1)
+            has = o[1] > 0
+            gts, (mn, mx, sm, cnt, avg) = got[key]
+            assert np.array_equal(gts, o[5][has]), (key, res, "ts")
+            for name, a, b in (("min", mn, o[2]), ("max", mx, o[3]),
+                               ("count", cnt, o[1])):
+                assert np.array_equal(a, b[has]), (key, res, name)
+            for a, b in ((sm, o[0][has]), (avg, o[0][has] / o[1][has])):
+                sum_err = max(sum_err, float(np.max(np.abs(a - b)
+                                                    / np.abs(b))))
+        for key, (t, v) in counters.items():
+            m = emit_mask_rule(t, v, (int(t[0]) // res) * res, res, 1 << 40)
+            gts, (gv,) = got[key]
+            assert np.array_equal(gts, t[m]) and np.array_equal(gv, v[m]), \
+                (key, res)
+    assert sum_err <= 1e-12, f"ds sums vs the oracle: rtol {sum_err}"
+    out["checked"] = {"gauges": len(gauges), "counters": len(counters),
+                      "sum_rtol": sum_err}
+    log(f"phase 12: DownsamplerJob over {out['partitions_read']} "
+        f"partitions, {out['samples_read']} samples in {secs:.1f} s -> "
+        f"{out['samples_written']} ds samples, {out['chunks_written']} "
+        f"chunks, {out['bytes_on_disk']} bytes; split {out['split']}")
+    return out
+
+
+def check_tier_answer(q: str, got, want, variants=None) -> dict:
+    """One side of a tiered answer against the engine's numpy oracle over
+    that side's rows (rtol 1e-5). For the grouped counter rate, the cells
+    where a series' extrapolation branch is a knife edge are allowed the
+    spread of that series' branch variants summed over its group, as
+    check_engine_answer allows them: a side may mix the fused group-sum
+    (which decides on integer ms) with per-series rates (decided in f64),
+    so no variant is singled out; the oracle itself must lie within that
+    spread of the integer-rule oracle."""
+    assert [dict(k) for k in got.keys] == [dict(k) for k in want.keys], q
+    gv, wv = got.values, want.values
+    assert gv.shape == wv.shape, (q, gv.shape, wv.shape)
+    nan = np.isnan(wv)
+    assert np.array_equal(np.isnan(gv), nan), q
+    assert np.isfinite(gv).any(), q
+    allow = np.zeros(wv.shape)
+    out = {"knife_cells": 0}
+    if variants is not None:
+        spread = np.nan_to_num(np.nanmax(variants, axis=0)
+                               - np.nanmin(variants, axis=0), nan=0.0)
+        gid = np.arange(variants.shape[1]) % G
+        jobs = [int(k["job"][3:]) for k in got.keys]
+        allow = _group_sum(spread, gid)[:, jobs].T
+        nom = _group_sum(variants[0], gid)[:, jobs].T
+        assert (nan | (np.abs(wv - nom) <= 1e-9 * np.abs(nom) + allow
+                       + 1e-9)).all(), f"{q}: the oracles disagree"
+        out["knife_cells"] = int(((allow > 0) & ~nan).sum())
+    err = np.abs(gv - wv)
+    assert (nan | (err <= 1e-5 * np.abs(wv) + allow + 1e-9)).all(), \
+        f"{q}: max abs err {np.nanmax(err)}"
+    with np.errstate(all="ignore"):
+        out["max_rel_err"] = float(np.nanmax(err / np.abs(wv)))
+    return out
+
+
+def padded_rows(series: dict, keys) -> tuple:
+    """[S, N] (ts, values) of the given series in order, each row padded
+    past its end (timestamps 2^60, values held) for _oracle_rates."""
+    n = max(series[k][0].size for k in keys)
+    ts = np.full((len(keys), n), 1 << 60, np.int64)
+    vals = np.empty((len(keys), n))
+    for i, k in enumerate(keys):
+        t, v = series[k]
+        ts[i, :t.size], vals[i, :t.size], vals[i, t.size:] = t, v, v[-1]
+    return ts, vals
+
+
+class TierCapture:
+    """Records, while it is on, the exec each planner materializes, the
+    ds store's lookups that found no mapping, and the kernel launches
+    made inside each side's LocalEngineExec (ds: its shards are a
+    downsample dataset's)."""
+
+    def __init__(self):
+        from filodb_tpu_torch.downsample.store import \
+            DownsampledTimeSeriesStore
+        from filodb_tpu_torch.query import kernels as kn
+        from filodb_tpu_torch.query import planner as qp
+
+        self.kn, self.qp, self.store_cls = kn, qp, DownsampledTimeSeriesStore
+        self.execs, self.fallbacks = [], 0
+        self.side = {"ds": {}, "raw": {}}
+        self.orig = (qp.QueryPlanner.materialize, qp.LocalEngineExec.execute,
+                     DownsampledTimeSeriesStore.plan_query)
+        mat, exe, plan_query = self.orig
+        cap = self
+
+        def materialize(planner, plan):
+            ex = mat(planner, plan)
+            cap.execs.append(ex)
+            return ex
+
+        def execute(ex):
+            before = dict(kn.LAUNCHES)
+            out = exe(ex)
+            side = "ds" if any("_ds_" in s.ref.dataset
+                               for s in ex.shards) else "raw"
+            for k, n in kn.LAUNCHES.items():
+                cap.side[side][k] = cap.side[side].get(k, 0) \
+                    + n - before.get(k, 0)
+            return out
+
+        def lookup(store, plan, window_ms, step_ms):
+            got = plan_query(store, plan, window_ms, step_ms)
+            if got is None:
+                cap.fallbacks += 1
+            return got
+
+        qp.QueryPlanner.materialize = materialize
+        qp.LocalEngineExec.execute = execute
+        DownsampledTimeSeriesStore.plan_query = lookup
+
+    def restore(self) -> None:
+        (self.qp.QueryPlanner.materialize, self.qp.LocalEngineExec.execute,
+         self.store_cls.plan_query) = self.orig
+
+
+def narrowed(plan, label: str, value: str):
+    """The plan with label=value added to every raw selector's filters."""
+    import dataclasses
+
+    from filodb_tpu_torch.core.index import ColumnFilter
+    from filodb_tpu_torch.query import logical as lp
+
+    if isinstance(plan, lp.RawSeriesPlan):
+        return dataclasses.replace(plan, filters=tuple(plan.filters) + (
+            ColumnFilter.eq(label, value),))
+    changes = {}
+    for f in getattr(plan, "__dataclass_fields__", ()):
+        v = getattr(plan, f)
+        if hasattr(v, "__dataclass_fields__") \
+                and not isinstance(v, ColumnFilter):
+            changes[f] = narrowed(v, label, value)
+    return dataclasses.replace(plan, **changes) if changes else plan
+
+
+def tier_query(srv, cap, rows, ds_counters, q, s, e, step) -> dict:
+    """One tiered query over HTTP (&cache=false): its StitchExec, the
+    boundary read from the raw side's plan, each side held against the
+    numpy oracle over that side's rows, each side's kernel launches."""
+    from types import SimpleNamespace
+
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.query.planner import StitchExec, plan_range
+
+    cap.execs.clear()
+    cap.side = {"ds": {}, "raw": {}}
+    payload, ms, nbytes = http_json(
+        srv.port, "/promql/timeseries/api/v1/query_range",
+        {"query": q, "start": s, "end": e, "step": step, "cache": "false"})
+    stitched = [x for x in cap.execs if isinstance(x, StitchExec)]
+    assert len(stitched) == 1, f"{q}: {[type(x).__name__ for x in cap.execs]}"
+    ex = stitched[0]
+    tree = ex.plan_tree()
+    got = grid_from_json(payload, s, e, step)
+    T = got.values.shape[1]
+    ds_end = plan_range(ex.ds_exec.plan)[2]
+    if ex.raw_exec is not None:
+        boundary = plan_range(ex.raw_exec.plan)[0]
+        assert ds_end == boundary - step * 1000, (q, ds_end, boundary)
+    else:
+        boundary = e * 1000 + step * 1000
+        assert ds_end == e * 1000, (q, ds_end)
+    k_b = (boundary - s * 1000) // (step * 1000)
+    assert 0 < k_b <= T, (q, k_b, T)
+    by_key = {tuple(sorted(k.items())): i for i, k in enumerate(got.keys)}
+    r = {"q": q, "ms": ms, "bytes": nbytes, "boundary_ms": boundary,
+         "ds_steps": int(k_b), "raw_steps": int(T - k_b),
+         "resolution_ms": int(ex.ds_exec.shards[0].ref.dataset
+                              .rsplit("_", 1)[1]),
+         "launches_ds": dict(cap.side["ds"]),
+         "launches_raw": dict(cap.side["raw"])}
+    grouped = q.startswith("sum by (job) (rate(http_requests_total")
+    sides = [("ds", ex.ds_exec, 0, k_b, s * 1000)]
+    if ex.raw_exec is not None:
+        sides.append(("raw", ex.raw_exec, k_b, T, boundary))
+    # the gauges' oracle loops per window: held on part="p0" (one gauge
+    # in GAUGE_PARTS), as phase 5 holds its order statistics
+    sub = GAUGE in q
+    shown_rows = np.isfinite(got.values).any(axis=1) if not sub else \
+        np.asarray([k.get("part") == "p0" for k in got.keys])
+    for name, side, c0, c1, w0e in sides:
+        t_or = time.perf_counter()
+        plan = narrowed(side.plan, "part", "p0") if sub else side.plan
+        want = json_order(QueryEngine(side.shards).execute(plan))
+        r[f"oracle_{name}_s"] = time.perf_counter() - t_or
+        rows_g = [by_key[tuple(sorted(k.items()))] for k in want.keys]
+        # every series with a value on this side is in the side's oracle
+        shown = np.isfinite(got.values[:, c0:c1]).any(axis=1) & shown_rows
+        assert int(shown.sum()) == len(rows_g), (q, name)
+        part = SimpleNamespace(keys=want.keys,
+                               values=got.values[rows_g][:, c0:c1])
+        variants = None
+        if grouped:
+            if name == "raw":
+                vts, vv = rows["ts"][:, :N_FULL], rows["vals"][:, :N_FULL]
+            else:
+                vts, vv = ds_counters
+            variants = _oracle_rates(vts, vv, w0e, c1 - c0,
+                                     knife_ms=KNIFE_MS, window=1_800_000,
+                                     step=step * 1000)
+        r[f"oracle_{name}"] = check_tier_answer(q, part, want, variants)
+    log(f"phase 12: {q}: {tree}")
+    log(f"phase 12: {q}: {json.dumps(r)}")
+    return r
+
+
+def tier_server(wdir: dict, rows: dict) -> dict:
+    """Phase 12(c): a FiloServer on the card over the data-dir with
+    raw-retention-s set from the wall clock (the boundary about 4 h before
+    the data's last sample) and flush-downsample on; the tiered queries
+    over HTTP; then the counter tails of DS_TAIL_SERIES series through
+    POST /api/v1/ingest/influx, a flush (a clean stop), and the emitted
+    ds samples read back from the 5 m and 1 h datasets."""
+    from filodb_tpu_torch.query import kernels as kn
+    from filodb_tpu_torch.standalone.server import FiloServer
+
+    retention_s = int(time.time()) - (BASE // 1000 + TIER_RAW_S)
+    t0 = time.perf_counter()
+    srv = FiloServer(dict(WRITE_CONFIG, **{
+        "data-dir": wdir["data"], "stream-dir": wdir["stream"],
+        "raw-retention-s": retention_s, "flush-downsample": True}))
+    srv.start()
+    wait_for(lambda: all(srv.mapper.status(s).value == "active"
+                         for s in range(WRITE_CONFIG["num-shards"])),
+             "shards active")
+    start_s = time.perf_counter() - t0
+    counters = rows["counters"]
+    keys = [("http_requests_total", f"i{i}") for i in range(len(counters))]
+    ds_rows = read_ds_rows(wdir["data"], DS_RES[0], set(keys))
+    ds_counters = padded_rows({k: (ds_rows[k][0], ds_rows[k][1][0])
+                               for k in keys}, keys)
+    del ds_rows
+    cap = TierCapture()
+    calls, originals = record_kernel_calls()
+    kn.reset_launches()
+    out = {"server_start_s": start_s, "retention_s": retention_s}
+    try:
+        try:
+            out["queries"] = [tier_query(srv, cap, rows, ds_counters, *qq)
+                              for qq in tier_queries()]
+            launches = dict(kn.LAUNCHES)
+        finally:
+            restore_kernels(originals)
+            cap.restore()
+        out["fallbacks"] = cap.fallbacks
+        # the tails of DS_TAIL_SERIES counters, one POST per scrape
+        tails = rows["counter_tails"][:DS_TAIL_SERIES]
+        t1 = time.perf_counter()
+        for k in range(ENGINE_TAIL):
+            body = "\n".join(influx_line(lab, t[k], v[k])
+                             for lab, t, v in tails).encode()
+            code, resp, _ = http_post(srv.port, "/api/v1/ingest/influx",
+                                      body, "text/plain")
+            assert code == 200, (k, code, resp[:300])
+        wait_for(lambda: drivers_caught_up(srv), "drivers caught up")
+        out["tail_ingest_s"] = time.perf_counter() - t1
+    finally:
+        t2 = time.perf_counter()
+        srv.stop()      # the drivers flush: flush-time ds emission
+        out["stop_flush_s"] = time.perf_counter() - t2
+    emitted = sum(s.flush_downsampler.samples_emitted
+                  for s in srv.store.shards(srv.ref))
+    assert emitted > 0, "flush-time emission wrote nothing"
+    back = 0
+    for res in DS_RES:
+        got = read_ds_rows(wdir["data"], res,
+                           {(lab["_metric_"], lab["instance"])
+                            for lab, _, _ in tails})
+        for lab, t, v in tails:
+            gts, (gv,) = got[(lab["_metric_"], lab["instance"])]
+            new = gts >= t[0]
+            keep = flush_counter_rule(t, v, res)
+            assert np.array_equal(gts[new], t[keep]) \
+                and np.array_equal(gv[new], v[keep]), (lab, res)
+            back += int(new.sum())
+    assert back == emitted, (back, emitted)
+    out.update(samples_emitted=emitted, read_back=back)
+    errs = check_kernel_calls(calls, originals, "phase 12")
+    for name in ("counter_groupsum", "window_extract"):
+        assert launches.get(name, 0) > 0, \
+            f"{name} was not launched in phase 12"
+    ds_total = sum(sum(r["launches_ds"].values()) for r in out["queries"])
+    assert ds_total > 0, "no kernel launched on the ds side"
+    out["launches"] = launches
+    log(f"phase 12: {len(out['queries'])} tiered queries, launches "
+        f"{launches} ({ds_total} on the ds side), {cap.fallbacks} "
+        f"fallbacks to raw; {emitted} ds samples emitted at the flush, "
+        f"all read back")
+    return {"launches": launches, "errs": errs, "server": out}
+
+
+def phase_downsample(gen, dev, rows: dict, wdir: dict, bw: float,
+                     smi: str) -> dict:
+    """Phase 12: (a) the B.7 device functions at full width, (b) the
+    batch job over phase 8's column store (a copy) with phase 5's gauges
+    added, (c) the tiered server over that data-dir."""
+    t0 = time.perf_counter()
+    fns = ds_functions(gen, dev, bw)
+    fns["seconds"] = time.perf_counter() - t0
+    job = ds_job(wdir["data"], rows)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    srv = tier_server(wdir, rows)
+    srv["server"]["seconds"] = time.perf_counter() - t1
+    secs = time.perf_counter() - t0
+    log(f"phase 12: {secs:.1f} s (functions {fns['seconds']:.1f} s, "
+        f"tiered server {srv['server']['seconds']:.1f} s)")
+    return {"launches": srv["launches"], "errs": srv["errs"],
+            "downsample": {"seconds": secs, "functions": fns, "job": job,
+                           "tiered": srv["server"], "card": smi}}
+
+
 def emit(key: str, value) -> None:
     """One result line on standard output, as its phase ends."""
     print(json.dumps({key: value}), flush=True)
@@ -4207,10 +4929,15 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         # phase 9 drains, stops and restarts nodes on wdir: phase 11's
-        # workers start from a copy of what phase 9's nodes start from
+        # workers start from a copy of what phase 9's nodes start from,
+        # and phase 12 from a copy of the data-dir (its own counter tails
+        # come over HTTP into fresh stream logs)
         sdir = {d: os.path.join(root, "supervisor", d) for d in wdir}
         for d in wdir:
             shutil.copytree(wdir[d], sdir[d])
+        tdir = {d: os.path.join(root, "downsample", d) for d in wdir}
+        shutil.copytree(wdir["data"], tdir["data"])
+        os.makedirs(tdir["stream"])
         cluster = run_phase(9, "cluster", phase_cluster, data, wdir,
                             write.pop("answers_b"), smi)
         emit("cluster", cluster["cluster"])
@@ -4219,6 +4946,13 @@ def main() -> int:
         supervised = run_phase(11, "supervisor", phase_supervisor, sdir,
                                cluster, smi)
         emit("supervisor", supervised)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen12 = torch.Generator(device=dev)
+        gen12.manual_seed(args.seed)
+        ds = run_phase(12, "downsample", phase_downsample, gen12, dev, data,
+                       tdir, bw, smi)
+        emit("downsample", ds["downsample"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = []
@@ -4234,7 +4968,9 @@ def main() -> int:
         # inside the worker processes a launch cannot be counted from here
         r["launches_phase11"] = None
         r["launches_phase11_evidence"] = supervised["route"]
+        r["launches_phase12"] = ds["launches"].get(kname, 0)
         r["max_abs_err"] = max(r["max_abs_err"], eng["errs"][kname],
+                               ds["errs"].get(kname, 0.0),
                                fns["errs"].get(kname, 0.0),
                                srv["errs"].get(kname, 0.0),
                                server["errs"].get(kname, 0.0),

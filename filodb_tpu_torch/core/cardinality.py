@@ -25,6 +25,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
+from filodb_tpu_torch.lint.locks import single_writer
+
 
 SHARD_KEY_LABELS = ("_ws_", "_ns_", "_metric_")
 MAX_DEPTH = len(SHARD_KEY_LABELS)
@@ -54,6 +56,8 @@ class CardinalityRecord:
                 "childrenQuota": self.quota}
 
 
+@single_writer("prefix-tree nodes belong to one shard's tracker "
+               "(see CardinalityTracker)")
 @dataclass
 class _Node:
     ts_count: int = 0
@@ -62,6 +66,9 @@ class _Node:
     children: Dict[str, "_Node"] = field(default_factory=dict)
 
 
+@single_writer("one tracker per shard: quota setup runs before the "
+               "shard serves, counts mutate only on the shard's owning "
+               "thread; metering reads are racy-by-design snapshots")
 class CardinalityTracker:
     """Prefix tree of series counts with quota enforcement
     (CardinalityTracker.scala:38)."""

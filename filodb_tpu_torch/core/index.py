@@ -17,6 +17,8 @@ from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Set
 
 import numpy as np
 
+from filodb_tpu_torch.lint.locks import single_writer
+
 
 # sentinel for "still ingesting" (PartKeyLuceneIndex endTime semantics)
 END_TIME_INGESTING = (1 << 62)
@@ -59,6 +61,8 @@ def _full_match(pattern: str, value: str) -> bool:
     return re.fullmatch(pattern, value) is not None
 
 
+@single_writer("one index per shard, mutated only by the shard's "
+               "owning thread (ingest driver / pre-driver bootstrap)")
 class TagIndex:
     """Inverted index for one shard: label -> value -> set(part_id), plus
     per-part start/end times (the ``__startTime__``/``__endTime__`` doc values

@@ -36,6 +36,8 @@ import numpy as np
 
 from filodb_tpu_torch.core.index import (END_TIME_INGESTING, ColumnFilter, TagIndex)
 from filodb_tpu_torch.core.record import PartKey, RecordContainer
+from filodb_tpu_torch.lint.caches import cache_registry, event_source, publishes
+from filodb_tpu_torch.lint.locks import guarded_by, single_writer
 from filodb_tpu_torch.core.schemas import (ColumnType, DataSchema, DatasetRef,
                                      Schemas)
 from filodb_tpu_torch.memory import histogram as bh
@@ -75,6 +77,12 @@ def _is_hist(buf: bytes) -> bool:
 # read time (decoded prefix extends to len(chunks), a merge entry is
 # keyed by (n_chunks, tail_len)) — graftlint requires the read hooks to
 # keep consulting the chunk-set event source.
+@cache_registry("partition-decode", keyed=("column",),
+                validated_by={"chunk-set": ("read_full",
+                                            "hist_drop_rows")})
+@cache_registry("partition-merge", keyed=("column",),
+                validated_by={"chunk-set": ("read_full",)})
+@guarded_by("_cache_lock", "_decode_cache", "_merge_cache")
 class TimeSeriesPartition:
     """One time series in one shard (memstore/TimeSeriesPartition.scala:64).
 
@@ -224,6 +232,7 @@ class TimeSeriesPartition:
             return self.chunks[0].start_ts
         return int(self._ts_buf[0][0]) if self._buf_rows else None
 
+    @publishes("chunk-set")
     def switch_buffers(self) -> Optional[ChunkSetInfo]:
         """Encode the current write buffer into an immutable chunk
         (TimeSeriesPartition.scala:229 switchBuffers / :248 encodeOneChunkset).
@@ -300,6 +309,7 @@ class TimeSeriesPartition:
         with self._cache_lock:
             return self._decoded_chunk_arrays_locked(col_index, col)
 
+    @event_source("chunk-set")
     def _decoded_chunk_arrays_locked(self, col_index: int, col):
         """Body of _decoded_chunk_arrays; caller holds ``_cache_lock``.
 
@@ -488,6 +498,8 @@ class TimeSeriesPartition:
         return len(self.chunks)
 
 
+@single_writer("per-shard counters: mutated only by the shard's owning "
+               "thread (ingest driver, or bootstrap strictly before it)")
 @dataclass
 class ShardStats:
     """Kamon-equivalent gauges (TimeSeriesShardStats, TimeSeriesShard.scala:41).
@@ -506,6 +518,12 @@ class ShardStats:
     quota_dropped_series: int = 0   # new series rejected by cardinality
 
 
+@single_writer("shard state is mutated only by the shard's single "
+               "writer (the per-shard ingest thread; adopt/crash "
+               "bootstrap runs strictly before the driver starts — the "
+               "membership protocol pins the handoff happens-before); "
+               "query threads read immutable snapshots, ODP page-in "
+               "rides _odp_lock")
 class TimeSeriesShard:
     """One shard: partKey -> partition map + tag index + flush groups
     (memstore/TimeSeriesShard.scala:258)."""
@@ -517,9 +535,6 @@ class TimeSeriesShard:
                  column_store: Optional[object] = None,
                  card_tracker: Optional[object] = None,
                  flush_downsampler: Optional[object] = None):
-        # flush-time downsampling is not ported (ROADMAP A.10)
-        if flush_downsampler is not None:
-            raise NotImplementedError("flush_downsampler is not ported")
         self.ref = ref
         self.schemas = schemas
         self.shard_num = shard_num
@@ -642,6 +657,8 @@ class TimeSeriesShard:
     # the watermark/backfill-epoch mutation publishers: pull events —
     # the results cache re-reads them via its @event_source functions
     # on every lookup rather than being pushed to
+    @publishes("watermark")
+    @publishes("backfill-epoch")
     def ingest(self, container: RecordContainer, offset: int = -1) -> int:
         """Ingest one record container (TimeSeriesShard.scala:871).
         Returns number of rows ingested.
@@ -794,6 +811,7 @@ class TimeSeriesShard:
         return -1 if lo is None else lo
 
     # -- persistence / recovery -------------------------------------------
+    @publishes("watermark")
     def bootstrap_from_store(self) -> int:
         """Rebuild the tag index + partition shells from persisted partkeys
         and load checkpoint offsets (IndexBootstrapper.scala:43; recovery
@@ -945,6 +963,7 @@ class TimeSeriesShard:
             return 0
         return self.evict_partitions(cutoff_ts=cutoff)
 
+    @publishes("watermark")
     def evict_partitions(self, cutoff_ts: int) -> int:
         """Evict series whose data ended before cutoff
         (PartitionEvictionPolicy / EvictablePartIdQueueSet equivalents).

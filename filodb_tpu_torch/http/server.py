@@ -58,6 +58,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
 from filodb_tpu_torch.http import prom_json
+from filodb_tpu_torch.lint.caches import publishes
 from filodb_tpu_torch.ingest import health as ingest_health
 from filodb_tpu_torch.obs import SELFMON_DATASET
 from filodb_tpu_torch.obs import events as obs_events
@@ -135,6 +136,8 @@ class FiloHttpServer:
                  shard_mapper: Optional[object] = None,
                  spread: int = 1,   # MUST match ingest spread (default-spread)
                  host: str = "127.0.0.1", port: int = 0,
+                 ds_store_by_dataset: Optional[Dict[str, object]] = None,
+                 raw_retention_ms: int = 0,
                  query_limits: Optional[QueryLimits] = None,
                  spread_provider: Optional[object] = None,
                  node_id: Optional[str] = None,
@@ -163,6 +166,10 @@ class FiloHttpServer:
         self.backend = backend
         self.shard_mapper = shard_mapper
         self.spread = spread
+        # raw/downsample tiering: dataset -> DownsampledTimeSeriesStore,
+        # and the raw retention past which the planner stitches it in
+        self.ds_store_by_dataset = ds_store_by_dataset or {}
+        self.raw_retention_ms = raw_retention_ms
         self.query_limits = query_limits
         self.spread_provider = spread_provider
         self.node_id = node_id
@@ -1054,7 +1061,8 @@ class FiloHttpServer:
            past the freshness horizon (costs nothing; correctness
            invalidators still apply — stale, never wrong);
         2. **downsample** — re-plan at a coarser step through the
-           normal materialize path;
+           normal materialize path, and so through the raw/downsample
+           tiering where a ds store is set;
         3. **partial** — evaluate only the newest slice of the range
            and return it via the partial-results plumbing.
 
@@ -1221,6 +1229,7 @@ class FiloHttpServer:
         prom_json.attach_degraded(out, res, engine.stats)
         return out
 
+    @publishes("dispatch-scope")
     def make_planner(self, ds: str, local_dispatch: bool = False,
                      deadline: Optional[Deadline] = None,
                      allow_partial: bool = False,
@@ -1267,6 +1276,8 @@ class FiloHttpServer:
                                resilience=self.resilience,
                                shard_mapper=self.shard_mapper,
                                spread=self.spread,
+                               ds_store=self.ds_store_by_dataset.get(ds),
+                               raw_retention_ms=self.raw_retention_ms,
                                limits=self.query_limits,
                                spread_provider=self.spread_provider,
                                node_id=self.node_id, peers=peers,
@@ -1294,6 +1305,7 @@ class FiloHttpServer:
         return [lst for ds, lst in self.shards_by_dataset.items()
                 if ds not in INTERNAL_DATASETS]
 
+    @publishes("schema")
     def invalidate_plan_cache(self, reason: str = "schema") -> None:
         """Explicit plan-cache invalidation hook. Topology changes flow
         in automatically via ShardMapper events; callers that change a

@@ -295,8 +295,7 @@ class LogIngestionStream(IngestionStream):
                 raise
             self._unsynced_bytes += len(data)
             if fsync:
-                # single-writer WAL: the lock IS the producer/consumer
-                # serialization; group commit bounds the fsync window
+                # graftlint: disable=lock-blocking-reachable (single-writer WAL: the lock IS the producer/consumer serialization; group commit bounds the fsync window)
                 self._maybe_fsync_locked()
             hdr = integrity.FRAME_HDR.size if self.integrity_frames else 0
             self._records.append(integrity.ScanRecord(
@@ -335,7 +334,7 @@ class LogIngestionStream(IngestionStream):
         """Force-fsync any unsynced tail (checkpoint barriers)."""
         with self._lock:
             if self._write_f is not None:
-                # checkpoint barrier: readers must not observe the log mid-sync
+                # graftlint: disable=lock-blocking-reachable (checkpoint barrier: readers must not observe the log mid-sync)
                 self._maybe_fsync_locked(force=True)
 
     # -- consumer side ----------------------------------------------------
@@ -486,7 +485,7 @@ class LogIngestionStream(IngestionStream):
             if self._write_f is not None:
                 # sync the group-commit tail: a clean close must not
                 # leave the durability window open
-                # close-time tail sync; no reader may race the handle teardown
+                # graftlint: disable=lock-blocking-reachable (close-time tail sync; no reader may race the handle teardown)
                 self._maybe_fsync_locked(force=True)
                 self._write_f.close()
                 self._write_f = None

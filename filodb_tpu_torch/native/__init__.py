@@ -61,6 +61,7 @@ def load_nibblepack() -> Optional[ctypes.CDLL]:
         lib_path = os.path.join(_BUILD_DIR, _LIB_NAME)
         fresh = (os.path.exists(lib_path)
                  and os.path.getmtime(lib_path) >= os.path.getmtime(_SRC))
+        # graftlint: disable=lock-blocking-reachable (one-time native build on first use; the lock exists to prevent duplicate concurrent compiles)
         if not fresh and not _build(lib_path):
             return None
         try:

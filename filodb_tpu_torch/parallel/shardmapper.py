@@ -19,6 +19,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 from filodb_tpu_torch.core.record import ingestion_shard, query_shards
+from filodb_tpu_torch.lint.caches import publishes
 
 
 class ShardStatus(enum.Enum):
@@ -103,6 +104,7 @@ class ShardMapper:
     # funnels through here (membership handoff, crash reassignment, bus
     # convergence, admin transfer); it reaches every registered cache's
     # topology hook through the subscription chain.
+    @publishes("topology-epoch")
     def update(self, shard: int, status: ShardStatus,
                node: Optional[str] = None, progress_pct: int = 0) -> None:
         # the transition (multi-field ShardState write + epoch bump) is

@@ -38,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from filodb_tpu_torch.lint.caches import cache_registry
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.query import kernels as kn
@@ -535,6 +536,16 @@ def _selection_ident(series) -> Optional[Tuple]:
 _COUNTER_FUNCS = ("rate", "increase", "delta")
 
 
+# cache inventory (the port's own declaration): the tile cache is keyed by
+# the selection's snapshot keys, which embed (dataset, shard, part_id,
+# num_chunks), so a flush that publishes chunks changes the key and
+# invalidates nothing. Unlike the reference's device-tile cache, the
+# previous snapshot's entry for the same selection identity keeps
+# serving across the flush (``_tile_ident``), its ``cov_min_ms`` sending
+# the steps past its coverage to the packed path, until the rebuild on
+# the batcher's executor lands (``_tile_entry``).
+@cache_registry("device-tile",
+                keyed=("selection-snapshot", "chunk-set"))
 class TorchBackend:
     """Pluggable device backend for QueryEngine, in PyTorch.
 

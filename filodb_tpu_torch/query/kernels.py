@@ -137,6 +137,7 @@ def build_kernels() -> Dict[str, ctypes.CDLL]:
                 BUILD_LOG[name] = "cached"
                 continue
             tmp = f"{lib}.{os.getpid()}.tmp"
+            # graftlint: disable=lock-blocking-call (one-time kernel build on first use: a second caller must wait for the first build under the lock and never start a second nvcc of the same source)
             proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -31,6 +31,7 @@ import threading
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
+from filodb_tpu_torch.lint.caches import cache_registry
 
 
 def _cacheable(plan) -> bool:
@@ -50,7 +51,13 @@ def range_abstracted_key(dataset: str, query: str, step_ms: int) -> Tuple:
 # parsed plans are topology- and schema-dependent ONLY — the evaluation
 # range is abstracted out of the key, so watermark/backfill events
 # cannot affect an entry. Topology and schema changes reach `invalidate`
-# (the ShardMapper subscription and the explicit schema hook).
+# (the ShardMapper subscription and the explicit schema hook). Every
+# @publishes of these events must reach `invalidate` through the call
+# graph, or the linter fails.
+@cache_registry("plan",
+                invalidated_by={"topology-epoch": "invalidate",
+                                "schema": "invalidate"},
+                keyed=("dataset", "query-text", "step"))
 class PlanCache:
     """LRU of parsed logical plans, keyed (dataset, query, step_ms)."""
 

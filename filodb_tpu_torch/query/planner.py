@@ -19,8 +19,15 @@ is forwarded there. DOWN shards route to a buddy replica when one is
 configured. The per-query deadline and ``allow_partial`` act on these
 remote paths, as in the reference.
 
+Raw/downsample tiering (LongTimeRangePlanner.scala:30): with a
+``ds_store`` and ``raw_retention_ms``, a plan whose step windows reach
+before ``now - raw_retention_ms`` splits into a downsample-side exec over
+the ds store's shards and a raw-side exec, stitched on the step grid
+(``StitchExec``). Downsampled chunks are ordinary chunks, so both sides run
+through the same engine, backend and kernels.
+
 Not ported yet: the mesh lowerings (`MeshTileExec`, `MeshAggregateExec`,
-ROADMAP A.11) and the raw/downsample tiering (A.10).
+ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import numpy as np
 
 from filodb_tpu_torch.core.index import ColumnFilter
 from filodb_tpu_torch.core.record import shard_key_hash
+from filodb_tpu_torch.lint.caches import publishes
 from filodb_tpu_torch.query import logical as lp
 from filodb_tpu_torch.query.engine import METRIC_LABELS, QueryEngine
 from filodb_tpu_torch.query.model import (GridResult, QueryError,
@@ -92,6 +100,14 @@ def walk_leaf_filters(plan) -> List[Tuple[ColumnFilter, ...]]:
     return out
 
 
+@dataclass
+class PlannerParams:
+    """(core/query/QueryContext PlannerParams equivalent)."""
+    spread: int = 0
+    sample_limit: int = 0       # 0 = unlimited (guardrails layer)
+    series_limit: int = 0
+
+
 def plan_range(plan) -> Optional[Tuple[int, int, int, int, int]]:
     """(start_ms, step_ms, end_ms, min_window_ms, max_lookback_ms) of the
     evaluation grid shared by all periodic nodes, or None when the plan has
@@ -121,8 +137,27 @@ def plan_range(plan) -> Optional[Tuple[int, int, int, int, int]]:
     return s, st, e, window[0], lookback[0]
 
 
+def _collect_at(plan) -> Tuple[List[int], int]:
+    """(@-pinned instants, total periodic-node count) under a plan."""
+    ats: List[int] = []
+    count = [0]
+
+    def visit(p):
+        if isinstance(p, (lp.PeriodicSeries,
+                          lp.PeriodicSeriesWithWindowing)):
+            count[0] += 1
+            if p.at_ms is not None:
+                ats.append(p.at_ms)
+            return True
+        return False
+
+    walk_plan_tree(plan, visit)
+    return ats, count[0]
+
+
 # plan node types whose evaluation range lp_replace_range can rewrite —
-# the plan and results caches rebase only these shapes
+# only these shapes may be split across the raw/downsample boundary (and
+# the plan and results caches rebase only these)
 _SPLITTABLE = (
     lp.PeriodicSeries, lp.PeriodicSeriesWithWindowing, lp.Aggregate,
     lp.BinaryJoin, lp.ScalarVectorBinaryOperation, lp.ApplyInstantFunction,
@@ -150,6 +185,55 @@ def _splittable(plan) -> bool:
             if not _splittable(v):
                 return False
     return True
+
+
+def stitch_grids(first: GridResult, second: GridResult) -> GridResult:
+    """Merge two grid results onto the union step grid, matching series by
+    label key; on a shared step the first's non-NaN sample wins
+    (StitchRvsExec.scala:116 / :105 merge semantics)."""
+    if first.num_series == 0 and first.steps.size == 0:
+        return second
+    if second.num_series == 0 and second.steps.size == 0:
+        return first
+    steps = np.union1d(first.steps, second.steps)
+    hist = first.is_hist() or second.is_hist()
+    if hist:
+        les = first.bucket_les if first.is_hist() else second.bucket_les
+        if (first.is_hist() and second.is_hist()
+                and not np.array_equal(first.bucket_les,
+                                       second.bucket_les)):
+            raise QueryError("cannot stitch histogram results with "
+                             "different bucket schemes")
+        nb = les.size
+    key_ix: Dict[Tuple, int] = {}
+    keys: List[Dict[str, str]] = []
+    rows: List[np.ndarray] = []
+    hrows: List[np.ndarray] = []
+    for side in (first, second):
+        if side.num_series == 0:
+            continue
+        pos = np.searchsorted(steps, side.steps)
+        for i, k in enumerate(side.keys):
+            fk = tuple(sorted(k.items()))
+            j = key_ix.get(fk)
+            if j is None:
+                j = len(keys)
+                key_ix[fk] = j
+                keys.append(dict(k))
+                rows.append(np.full(steps.size, np.nan))
+                if hist:
+                    hrows.append(np.full((steps.size, nb), np.nan))
+            cur = rows[j][pos]
+            rows[j][pos] = np.where(np.isnan(cur), side.values[i], cur)
+            if hist and side.is_hist():
+                curh = hrows[j][pos]
+                hrows[j][pos] = np.where(np.isnan(curh),
+                                         side.hist_values[i], curh)
+    values = np.vstack([r[None] for r in rows]) if rows else \
+        np.zeros((0, steps.size))
+    hv = np.stack(hrows) if hist and hrows else None
+    return GridResult(steps, keys, values, hist_values=hv,
+                      bucket_les=les if hist else None)
 
 
 class ExecPlan:
@@ -277,6 +361,32 @@ class LocalEngineExec(ExecPlan):
                 f"plan={type(self.plan).__name__})")
 
 
+@dataclass
+class StitchExec(ExecPlan):
+    """Raw/downsample time split: the downsample exec covers the steps
+    whose lookback windows fall beyond raw retention, the raw exec covers
+    the recent steps; results merge on the step grid
+    (LongTimeRangePlanner.scala:30 + StitchRvsExec.scala:116)."""
+    ds_exec: Optional[ExecPlan]
+    raw_exec: Optional[ExecPlan]
+
+    def execute(self):
+        parts = [e.execute() for e in (self.ds_exec, self.raw_exec)
+                 if e is not None]
+        parts = [p for p in parts if isinstance(p, GridResult)]
+        if not parts:
+            raise QueryError("stitch produced no grid results")
+        if len(parts) == 1:
+            return parts[0]
+        return stitch_grids(parts[0], parts[1]).absorb_degraded(*parts)
+
+    def plan_tree(self, indent: int = 0) -> str:
+        pads = " " * indent
+        kids = [e.plan_tree(indent + 2)
+                for e in (self.ds_exec, self.raw_exec) if e is not None]
+        return f"{pads}StitchExec(\n" + "\n".join(kids) + ")"
+
+
 class QueryPlanner:
     """materialize(LogicalPlan) -> ExecPlan (QueryPlanner.scala:17;
     SingleClusterPlanner.scala:52). Also the execution facade the HTTP
@@ -288,6 +398,9 @@ class QueryPlanner:
                  spread: int = 1,   # system default-spread; must match ingest
                  shard_key_columns: Tuple[str, ...] = ("_ws_", "_ns_"),
                  metric_column: str = "_metric_",
+                 ds_store: Optional[object] = None,
+                 raw_retention_ms: int = 0,
+                 now_ms=None,
                  limits: Optional[QueryLimits] = None,
                  spread_provider: Optional[object] = None,
                  node_id: Optional[str] = None,
@@ -318,6 +431,11 @@ class QueryPlanner:
         self.spread_provider = spread_provider
         self.shard_key_columns = tuple(shard_key_columns)
         self.metric_column = metric_column
+        # raw/downsample tiering (LongTimeRangePlanner.scala:30): queries
+        # reaching beyond `now - raw_retention_ms` split to the ds_store
+        self.ds_store = ds_store
+        self.raw_retention_ms = int(raw_retention_ms)
+        self.now_ms = now_ms        # int | callable | None (= wall clock)
         self.limits = limits        # per-query guardrails (None = off)
         # multi-process: this node's id + peer node_id -> base URL; shard
         # numbers the mapper assigns to peers dispatch remotely
@@ -565,6 +683,8 @@ class QueryPlanner:
     # remote-group twin of the memstore's watermark/backfill publishers:
     # gossip-stamped attributes the results cache reads exactly like
     # local shard state
+    @publishes("watermark")
+    @publishes("backfill-epoch")
     def _stamp_peer_freshness(self, grp, node: str,
                               group: Sequence[int]) -> None:
         """Stamp a remote shard group with the peer's gossiped ingest
@@ -594,13 +714,20 @@ class QueryPlanner:
     # -- materialization -------------------------------------------------
     def materialize(self, plan) -> ExecPlan:
         """(SingleClusterPlanner.scala:253). Cross-cluster partition
-        routing first, then whole-query pushdown to the one peer owning
-        every shard, then shard-aligned join pushdown; everything else
-        runs on this node over the pruned shard subset, with peers'
-        shards as remote shard groups."""
+        routing first, then raw/downsample tiering (LongTimeRangePlanner),
+        then whole-query pushdown to the one peer owning every shard, then
+        shard-aligned join pushdown; everything else runs on this node
+        over the pruned shard subset, with peers' shards as remote shard
+        groups."""
         fed = self._try_partition_routing(plan)
         if fed is not None:
             return fed
+        tiered = self._try_tiering(plan)
+        if tiered is not None:
+            return tiered
+        return self._materialize_raw(plan)
+
+    def _materialize_raw(self, plan) -> ExecPlan:
         pushed = self._try_remote_pushdown(plan)
         if pushed is not None:
             return pushed
@@ -836,3 +963,88 @@ class QueryPlanner:
                                 f"partition:{url}", url, self.dataset,
                                 stats=self.stats, local_only=False,
                                 **self._exec_kw())
+
+    # -- raw/downsample tiering (LongTimeRangePlanner.scala:30) -----------
+    def _earliest_raw_ms(self) -> int:
+        import time as _time
+        if callable(self.now_ms):
+            now = int(self.now_ms())
+        elif self.now_ms is not None:
+            now = int(self.now_ms)
+        else:
+            now = int(_time.time() * 1000)
+        return now - self.raw_retention_ms
+
+    def _try_tiering(self, plan) -> Optional[ExecPlan]:
+        """Split a plan whose step windows reach beyond raw retention into
+        a downsample-side exec and a raw-side exec, stitched. Returns None
+        when tiering doesn't apply (all-raw, untierable shape, or no exact
+        downsample mapping: those answer from the raw store)."""
+        from filodb_tpu_torch.query.engine import lp_replace_range
+
+        if self.ds_store is None or self.raw_retention_ms <= 0:
+            return None
+        if lp.is_metadata_plan(plan) or lp.is_scalar_plan(plan):
+            return None
+        rng = plan_range(plan)
+        if rng is None:
+            return None
+        start, step, end, window, lookback = rng
+        earliest_raw = self._earliest_raw_ms()
+        ats, n_periodic = _collect_at(plan)
+        if ats:
+            # @-pinned selectors read at the pinned instant, not the grid:
+            # when every selector is pinned beyond raw retention, the whole
+            # plan routes to the downsample tier (no split: @ evaluates at
+            # one instant and broadcasts)
+            if len(ats) != n_periodic:
+                return None                 # mixed pinned/unpinned: raw
+            if min(ats) - lookback >= earliest_raw:
+                return None                 # pinned data still in raw
+            if max(ats) - lookback >= earliest_raw:
+                # instants straddle the boundary: the ds tier may not
+                # cover the recent one yet -> answer from raw
+                return None
+            eff_step = step if step > 0 else max(window, 1)
+            picked = self.ds_store.plan_query(plan, max(window, 1),
+                                              eff_step)
+            if picked is None:
+                return None
+            ds_shards, ds_rewritten = picked
+            return StitchExec(
+                ds_exec=LocalEngineExec(ds_rewritten, ds_shards,
+                                        self.backend, self.stats,
+                                        self.limits),
+                raw_exec=None)
+        if start - lookback >= earliest_raw:
+            return None                                  # fully in raw
+        if not _splittable(plan):
+            return None
+        # first step whose whole lookback window sits inside raw retention
+        if step > 0 and end - lookback >= earliest_raw:
+            k = -((start - lookback - earliest_raw) // step)   # ceil div
+            boundary = start + k * step
+        elif end - lookback >= earliest_raw:
+            boundary = start                             # single instant, raw
+        else:
+            boundary = None                              # fully beyond raw
+        if boundary is not None and boundary <= start:
+            return None                                  # fully in raw
+        if boundary is None:
+            ds_plan = plan
+        else:
+            ds_plan = lp_replace_range(plan, start, step, boundary - step)
+        # instant queries (step<=0) have a single evaluation: resolution
+        # choice is governed by the window alone
+        eff_step = step if step > 0 else max(window, 1)
+        picked = self.ds_store.plan_query(ds_plan, max(window, 1), eff_step)
+        if picked is None:
+            return None     # no exact ds mapping: answer from raw only
+        ds_shards, ds_rewritten = picked
+        ds_exec = LocalEngineExec(ds_rewritten, ds_shards, self.backend,
+                                  self.stats, self.limits)
+        raw_exec = None
+        if boundary is not None and boundary <= end:
+            raw_plan = lp_replace_range(plan, boundary, step, end)
+            raw_exec = self._materialize_raw(raw_plan)
+        return StitchExec(ds_exec=ds_exec, raw_exec=raw_exec)

@@ -67,6 +67,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from filodb_tpu_torch.lint.caches import cache_registry, event_source
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.query.model import GridResult
@@ -103,6 +104,7 @@ def result_cacheable(plan) -> bool:
     return not found[0]
 
 
+@event_source("dispatch-scope")
 def dispatch_scope(engine) -> bool:
     """The engine's dispatch scope as a cache-key component: a
     ``dispatch=local`` / gRPC ``local_only`` evaluation (the pushdown
@@ -111,6 +113,7 @@ def dispatch_scope(engine) -> bool:
     return bool(getattr(engine, "local_dispatch", False))
 
 
+@event_source("watermark")
 def shards_watermark(shards: Sequence[object]) -> Optional[int]:
     """Freshness input: min ingest watermark over the engine's local
     shards that HAVE ingested, or None when none exposes one (pure
@@ -139,6 +142,7 @@ def shards_watermark(shards: Sequence[object]) -> Optional[int]:
     return int(min(wms))
 
 
+@event_source("watermark")
 def watermark_coverage(shards: Sequence[object]) -> int:
     """How many shards in the scope CONTRIBUTE a watermark (have
     ingested). Cached alongside the extent and checked on lookup: a
@@ -163,6 +167,7 @@ def watermark_coverage(shards: Sequence[object]) -> int:
     return total
 
 
+@event_source("backfill-epoch")
 def shards_epoch(shards: Sequence[object]) -> int:
     """Sum of the local shards' backfill epochs. A per-partition OOO
     guard cannot stop a NEW (or re-created/evicted-then-dropped) series
@@ -175,6 +180,7 @@ def shards_epoch(shards: Sequence[object]) -> int:
                for s in shards)
 
 
+@event_source("integrity-quarantine")
 def shards_quarantine(shards: Sequence[object]) -> int:
     """Unresolved quarantined-record count over the engine's local
     shards (the storage-integrity rail). A shard whose durable files
@@ -412,8 +418,20 @@ class RangeSession:
 # topology/schema events PUSH through the plan-cache listener chain to
 # `invalidate`; watermark, backfill-epoch, dispatch-scope, and
 # integrity-quarantine are PULL events — both serving entry points
-# must keep reading their functions (shards_watermark/
+# must keep reading their @event_source functions (shards_watermark/
 # watermark_coverage, shards_epoch, dispatch_scope, shards_quarantine).
+@cache_registry("results",
+                invalidated_by={"topology-epoch": "invalidate",
+                                "schema": "invalidate"},
+                validated_by={"watermark": ("begin", "stale_serve"),
+                              "backfill-epoch": ("begin",
+                                                 "stale_serve"),
+                              "dispatch-scope": ("begin",
+                                                 "stale_serve"),
+                              "integrity-quarantine": ("begin",
+                                                       "stale_serve")},
+                keyed=("dataset", "query-text", "step", "grid-phase",
+                       "dispatch-scope"))
 class ResultCache:
     """Byte-accounted LRU of :class:`CachedExtent`, keyed
     ``(dataset, query, step, start % step, local_dispatch)``.

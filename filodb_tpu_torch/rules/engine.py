@@ -64,6 +64,7 @@ import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from filodb_tpu_torch.lint.caches import cache_registry
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query_range
@@ -105,6 +106,15 @@ def _render_template(text: str, value, labels: Dict[str, str]) -> str:
         lambda m: str(labels.get(m.group(1), "")), out)
 
 
+# inventory declaration: the per-rule parsed-plan cache is topology- and
+# schema-dependent exactly like the server's PlanCache (the evaluation
+# range is rebased out of the key) — every @publishes of these events
+# must reach `invalidate_plans` through the plan cache's listener chain
+# (the standalone server registers it with add_invalidation_listener).
+@cache_registry("rule-plans",
+                invalidated_by={"topology-epoch": "invalidate_plans",
+                                "schema": "invalidate_plans"},
+                keyed=("dataset", "query-text", "step"))
 class RulesEngine:
     """The per-process rules scheduler (a declared thread root).
 

@@ -111,6 +111,15 @@ DEFAULTS = {
     # round-robin, or every this-many stream records (None = by time)
     "flush-interval-s": 2.0,
     "flush-every-records": None,
+    # raw retention in seconds; queries reaching further back split to the
+    # downsample tier (LongTimeRangePlanner). Requires data-dir (the ds
+    # tier reads downsampler-job output from the ColumnStore). None = off.
+    "raw-retention-s": None,
+    # downsample resolutions in ms (conf multi-resolution config)
+    "downsample-resolutions": [300_000, 3_600_000],
+    # emit downsample records during flush (ShardDownsampler.scala:40);
+    # requires data-dir. The batch job remains for backfill + histograms.
+    "flush-downsample": False,
     # per-shard resident-sample budget; exceeded -> evict least-recently
     # written partitions to ODP shells (with data-dir) or drop them
     # (memory-only). 0 = no cap.
@@ -296,8 +305,6 @@ DEFAULTS = {
 REFUSED = {
     "mesh-enabled": "A.11 mesh and distributed",
     "mesh-tile-serving": "A.11 mesh and distributed",
-    "raw-retention-s": "A.10 downsampling",
-    "flush-downsample": "A.10 downsampling",
     "profiler-enabled": "A.9 device observability",
 }
 
@@ -305,8 +312,6 @@ REFUSED = {
 # and that change nothing here -> why. Each only tunes a feature that is
 # refused above (so it is off), or acts in the reference only there too.
 INERT = {
-    "downsample-resolutions": "tunes downsampling: raw-retention-s and "
-                              "flush-downsample are refused (A.10)",
     "profiler-hz": "tunes the profiler: profiler-enabled is refused "
                    "(A.9)",
     "profiler-max-stacks": "tunes the profiler: profiler-enabled is "
@@ -456,6 +461,16 @@ class FiloServer:
         # threads too: every mutation rides _reassign_lock
         with self._reassign_lock:
             self.card_trackers[shard] = tracker
+        # flush-time downsample emission into the column store's
+        # <dataset>_ds_<res> datasets (ShardDownsampler.scala:40)
+        fds = None
+        if self.config.get("flush-downsample") \
+                and self.store.column_store is not None:
+            from filodb_tpu_torch.downsample.flush import FlushDownsampler
+            fds = FlushDownsampler(
+                self.store.column_store, self.config["dataset"], shard,
+                DEFAULT_SCHEMAS,
+                resolutions=tuple(self.config["downsample-resolutions"]))
         # with a column store the shard bootstraps its part keys (as ODP
         # shells) and its checkpoints from it
         return self.store.setup(
@@ -463,7 +478,8 @@ class FiloServer:
             num_groups=self.config["groups-per-shard"],
             max_chunk_rows=self.config["max-chunks-size"],
             bootstrap=self.store.column_store is not None,
-            card_tracker=tracker)
+            card_tracker=tracker,
+            flush_downsampler=fds)
 
     def _stream(self, shard: int) -> LogIngestionStream:
         """The durable stream log of one shard (shared by every node of
@@ -656,6 +672,17 @@ class FiloServer:
                 self.mapper.update(shard, ShardStatus(st), claimer)
             except ValueError:
                 self.mapper.update(shard, ShardStatus.ACTIVE, claimer)
+        # raw/downsample tiering: queries reaching before now - retention
+        # read the ds datasets of the column store
+        ds_stores: Dict[str, object] = {}
+        retention_ms = 0
+        if (self.config.get("raw-retention-s")
+                and self.store.column_store is not None):
+            from filodb_tpu_torch.downsample import DownsampledTimeSeriesStore
+            retention_ms = int(self.config["raw-retention-s"]) * 1000
+            ds_stores[self.ref.dataset] = DownsampledTimeSeriesStore(
+                self.store.column_store, self.ref.dataset, n,
+                resolutions=tuple(self.config["downsample-resolutions"]))
         peers = {k: v for k, v in
                  dict(self.config.get("peers") or {}).items()
                  if k != self.node_id}
@@ -664,6 +691,8 @@ class FiloServer:
             backend=self.backend, shard_mapper=self.mapper,
             spread=int(self.config.get("default-spread", 1)),
             port=self.config["port"],
+            ds_store_by_dataset=ds_stores,
+            raw_retention_ms=retention_ms,
             query_limits=QueryLimits(
                 series_limit=int(self.config.get("query-series-limit", 0)),
                 sample_limit=int(self.config.get("query-sample-limit", 0))),

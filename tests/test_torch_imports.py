@@ -63,6 +63,17 @@ SERVING_MODULES = (
     # the supervisor, its control-plane bus, and the CLI
     "filodb_tpu_torch.standalone", "filodb_tpu_torch.standalone.bus",
     "filodb_tpu_torch.standalone.supervisor", "filodb_tpu_torch.cli",
+    # downsampling, the raw/downsample tiering's store, the ops jobs and
+    # the declaration decorators
+    "filodb_tpu_torch.downsample", "filodb_tpu_torch.downsample.kernels",
+    "filodb_tpu_torch.downsample.job", "filodb_tpu_torch.downsample.flush",
+    "filodb_tpu_torch.downsample.store", "filodb_tpu_torch.jobs",
+    "filodb_tpu_torch.jobs.index_migration",
+    "filodb_tpu_torch.jobs.chunk_copier", "filodb_tpu_torch.jobs.cardbuster",
+    "filodb_tpu_torch.lint", "filodb_tpu_torch.lint.threads",
+    "filodb_tpu_torch.lint.locks", "filodb_tpu_torch.lint.caches",
+    "filodb_tpu_torch.lint.hotpath", "filodb_tpu_torch.lint.contracts",
+    "filodb_tpu_torch.lint.capacity",
 )
 
 
@@ -188,3 +199,35 @@ def test_backend_defaults_to_cuda_and_refuses_without_it(monkeypatch):
     with pytest.raises(RuntimeError):
         AlignedTiles([{}], 0, 10, [[True]], [[0.0]], [[1.0]])
     assert TorchBackend(device="cpu").device.type == "cpu"
+
+
+def test_downsampler_job_defaults_to_cuda_and_refuses_without_it(
+        monkeypatch, tmp_path):
+    from filodb_tpu_torch.downsample import DownsamplerJob
+    from filodb_tpu_torch.store import FlatFileColumnStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cs = FlatFileColumnStore(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DownsamplerJob(cs)
+    assert DownsamplerJob(cs, device="cpu").device.type == "cpu"
+
+
+def test_the_lint_decorators_load_nothing():
+    """The declaration decorators stay pure Python: importing them loads
+    neither torch nor numpy (the offline tools import the memstore's
+    index through them)."""
+    code = (
+        "import sys\n"
+        "import filodb_tpu_torch.lint.threads, filodb_tpu_torch.lint.locks\n"
+        "import filodb_tpu_torch.lint.caches, filodb_tpu_torch.lint.hotpath\n"
+        "import filodb_tpu_torch.lint.contracts\n"
+        "import filodb_tpu_torch.lint.capacity\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'numpy', 'jax', 'filodb_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -422,7 +422,6 @@ def test_routes_of_features_off_answer_as_the_reference(path, code):
 # a value that turns each refused key's feature on
 REFUSED_ON = {
     "mesh-enabled": True, "mesh-tile-serving": True,
-    "raw-retention-s": 3600, "flush-downsample": True,
     "profiler-enabled": True,
 }
 # mesh tile serving turns on only together with the mesh
@@ -570,13 +569,16 @@ RULES_KEYS = {"rules", "rules-file", "rules-eval-span-steps",
 # the supervisor's keys (A.1.5): honoured, with the reference's defaults
 SUPERVISOR_KEYS = {"worker-id", "accept-port", "accept-host", "accept-fd",
                    "bus-port", "bus-watermark-interval-s"}
+# downsampling's keys (A.10): honoured, with the reference's defaults
+DOWNSAMPLE_KEYS = {"raw-retention-s", "downsample-resolutions",
+                   "flush-downsample"}
 
 
 @pytest.mark.parametrize("key", sorted(J_DEFAULTS))
 def test_every_reference_config_key_is_honoured_refused_or_listed(key):
     places = [key in psrv.DEFAULTS, key in psrv.REFUSED, key in psrv.INERT]
     assert places.count(True) == 1, (key, places)
-    if key in CLUSTER_KEYS | RULES_KEYS | SUPERVISOR_KEYS:
+    if key in CLUSTER_KEYS | RULES_KEYS | SUPERVISOR_KEYS | DOWNSAMPLE_KEYS:
         assert key in psrv.DEFAULTS
         assert psrv.DEFAULTS[key] == J_DEFAULTS[key]
     if key in psrv.REFUSED:
@@ -1063,3 +1065,96 @@ def test_acknowledged_samples_survive_sigkill_and_restart(tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+# -- downsampling: each key on wires its module, as in the reference ------
+# (last in the file: the JAX server's queries here compile new shapes, and
+# its device profiler's recompile family would then show in the metric
+# family comparisons above)
+
+DS_RES = 300_000
+DS_T0 = (T0 // DS_RES) * DS_RES
+DS_N = 720                      # 2 h at 10 s, 5 s past period boundaries
+DS_GRID = (DS_T0 // 1000 + 1800, 600, (DS_T0 + DS_N * DT) // 1000)
+DS_QUERIES = ("min_over_time(ds_gauge[10m])",
+              "max by (job) (max_over_time(ds_gauge[10m]))")
+
+
+def _ds_rows():
+    rows = []
+    for s in range(8):
+        t = DS_T0 + 5_000 + np.arange(DS_N) * DT
+        rows.append(({"_metric_": "ds_gauge", "_ws_": "demo",
+                      "_ns_": "App-0", "job": f"job{s % 2}",
+                      "instance": f"i{s}"}, t,
+                     50.0 + 40.0 * np.sin(np.arange(DS_N) / 7.0 + s)))
+    return rows
+
+
+def _retention_s():
+    """Raw retention from the wall clock that puts the raw/ds boundary
+    half a step past the grid's third step: the wall clock moves far less
+    than half a step while a test runs, so both servers (and both tiers'
+    plans) see the same boundary."""
+    start, step, _ = DS_GRID
+    return int(time.time()) - (start + 3 * step + step // 2)
+
+
+@pytest.mark.parametrize("key", ["flush-downsample", "raw-retention-s"])
+def test_downsample_config_keys_wire_the_tier(key, tmp_path):
+    """``flush-downsample`` gives every shard a FlushDownsampler that fills
+    the ds datasets as chunks flush; ``raw-retention-s`` gives the planner
+    a DownsampledTimeSeriesStore (fed here by each package's batch job).
+    Either way a query reaching past retention is stitched from both tiers
+    and answers over HTTP bit for bit as the reference server does."""
+    from filodb_tpu.downsample import DownsamplerJob as JJob
+    from filodb_tpu_torch.downsample import (DownsampledTimeSeriesStore,
+                                             DownsamplerJob)
+    from filodb_tpu_torch.downsample.flush import FlushDownsampler
+    from filodb_tpu_torch.query.planner import StitchExec
+    from filodb_tpu_torch.promql.parser import (TimeStepParams,
+                                                parse_query_range)
+    cfg = {"num-shards": 4, "port": 0, "grpc-port": None,
+           "raw-retention-s": _retention_s(),
+           "flush-downsample": key == "flush-downsample"}
+    port = psrv.FiloServer({**cfg, **CPU,
+                            "data-dir": str(tmp_path / "p")}).start()
+    jax_srv = JServer({**cfg, "gc-freeze": False,
+                       "data-dir": str(tmp_path / "j")}).start()
+    try:
+        rows = _ds_rows()
+        state.load_into_store(port.store, port.ref, rows, "gauge", True,
+                              num_shards=4, spread=1)
+        _load_jax(jax_srv, rows, "gauge", True)
+        shards = port.store.shards(port.ref)
+        if key == "flush-downsample":
+            jshards = jax_srv.store.shards(jax_srv.ref)
+            assert all(isinstance(s.flush_downsampler, FlushDownsampler)
+                       for s in shards)
+            assert [s.flush_downsampler.samples_emitted for s in shards] \
+                == [s.flush_downsampler.samples_emitted for s in jshards]
+            assert sum(s.flush_downsampler.samples_emitted
+                       for s in shards) > 0
+        else:
+            assert all(s.flush_downsampler is None for s in shards)
+            for n in range(4):
+                DownsamplerJob(port.store.column_store,
+                               device="cpu").run("timeseries", n)
+                JJob(jax_srv.store.column_store).run("timeseries", n)
+        ds_store = port.http.ds_store_by_dataset["timeseries"]
+        assert isinstance(ds_store, DownsampledTimeSeriesStore)
+        assert port.http.raw_retention_ms == cfg["raw-retention-s"] * 1000
+        start, step, end = DS_GRID
+        for q in DS_QUERIES:
+            plan = parse_query_range(q, TimeStepParams(start, step, end))
+            ex = port.http.make_planner("timeseries").materialize(plan)
+            assert isinstance(ex, StitchExec), q
+            assert ex.ds_exec is not None and ex.raw_exec is not None
+            code, pd, jd = _both((port, jax_srv),
+                                 "/promql/timeseries/api/v1/query_range",
+                                 query=q, start=start, end=end, step=step)
+            assert code == 200, (pd, jd)
+            _assert_result_match(pd, jd, "exact")
+    finally:
+        port.stop()
+        jax_srv.stop()

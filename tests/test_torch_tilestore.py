@@ -346,3 +346,58 @@ def test_ragged_tiles_guard_declines(case, row):
     got = ptst.evaluate_counters_t(pt, "rate", steps, window).numpy()
     want = np.asarray(jtst.evaluate_counters_t(jt, "rate", steps, window))
     assert _ulps_apart(got, want, got.dtype).max() <= 8
+
+
+def _cadence_rows(kind, rng):
+    """Timestamp rows of one cadence shape for the alignment tests."""
+    if kind == "jittered":
+        return [(BASE + np.arange(200) * DT
+                 + rng.integers(-2000, 2001, 200)).astype(np.int64)
+                for _ in range(20)]
+    if kind == "collisions":         # 10 s +/-6 s: slots collide
+        return [(BASE + np.arange(200) * DT
+                 + rng.integers(-6000, 6001, 200)).astype(np.int64)
+                for _ in range(20)]
+    if kind == "back to back":       # 50 s / 70 s rows, 10 s apart
+        rows, t = [], BASE
+        for i in range(30):
+            rows.append(np.array([t, t + (50_000, 70_000)[i % 2]],
+                                 dtype=np.int64))
+            t = int(rows[-1][-1]) + 10_000
+        return rows
+    if kind == "ragged":             # lengths 0-3 and gaps
+        return [np.sort(rng.choice(np.arange(40) * DT + BASE,
+                                   int(rng.integers(0, 4)),
+                                   replace=False)).astype(np.int64)
+                for _ in range(30)]
+    # unsorted rows, one with duplicate timestamps
+    rows = [rng.permutation(BASE + np.arange(50) * DT).astype(np.int64)
+            for _ in range(5)]
+    rows.append(np.repeat(BASE + np.arange(25) * DT, 2).astype(np.int64))
+    return rows
+
+
+@pytest.mark.parametrize("kind", ["jittered", "collisions",
+                                  "back to back", "ragged", "unsorted"])
+def test_cadence_estimate_and_row_alignment_match_jax(kind):
+    """The dt candidates (every row's diffs in one pass) and the rows that
+    align (slot collisions found without np.unique) are the JAX
+    package's, row for row."""
+    from filodb_tpu.query.model import RawSeries as JRaw
+    from filodb_tpu_torch.query.model import RawSeries as PRaw
+
+    rng = np.random.default_rng(11)
+    rows = _cadence_rows(kind, rng)
+    vals = [np.cumsum(rng.random(t.size)) for t in rows]
+    jser = [JRaw({"i": str(i)}, t, v) for i, (t, v) in
+            enumerate(zip(rows, vals))]
+    pser = [PRaw({"i": str(i)}, t, v) for i, (t, v) in
+            enumerate(zip(rows, vals))]
+    cands = ptst._estimate_dt_candidates(pser)
+    assert cands == jtst._estimate_dt_candidates(jser)
+    for dt in cands + [DT]:
+        prow, pidx, plo, phi = ptst._align_rows(pser, dt)
+        jrow, jidx, jlo, jhi = jtst._align_rows(jser, dt)
+        assert (pidx, plo, phi) == (jidx, jlo, jhi)
+        for a, b in zip(prow, jrow):
+            np.testing.assert_array_equal(a[1], b[1])
