@@ -49,9 +49,17 @@ non-zero exit):
      and self-monitoring (both loops run through the phase): PromQL over
      HTTP (the default sample limit's 422, each query held against the
      numpy oracle with the kernels it launched, again from the results
-     cache and with &cache=false), /metrics, 4 HTTP clients (the `server`
-     line; the wall-clock rule ticks' launches, told apart from the
-     queries' by their BACKGROUND class, in its `loops`);
+     cache and with &cache=false), one warm query of each route again
+     with &explain=analyze (the grouped rate: the group-sum; one job's
+     irregular rate: the extract; the gauges' max_over_time: the gather;
+     their avg_over_time: the aligned evaluator), each answer's data
+     byte for byte the same as without it, each kernel site's dispatches
+     in the payload equal to the kernel's launches in that query and its
+     bytes_accessed equal to the bytes this script's bound counts for the
+     shape, /metrics carrying the filodb_executable_* families, 4 HTTP
+     clients (the `server` line, with `analyze`; the wall-clock rule
+     ticks' launches, told apart from the queries' by their BACKGROUND
+     class, in its `loops`);
  10. on phase 7's server, before it stops: recording rules, alerting and
      self-monitoring. The rules: `job:http_requests:rate5m` = sum by (job)
      of rate(http_requests_total[5m]), `irregular:rate5m` =
@@ -95,7 +103,10 @@ non-zero exit):
      one job's rate and the irregular rate into the tail entering each
      node (the extract on the entry node), a same-metric join pushed down
      to both nodes and a series fan-out, each held to the oracle and to
-     server B's answer; then node1 stopped without a drain (detection),
+     server B's answer; the first, cold, cross-node grouped rate sent
+     with &explain=analyze, its stages and device spans split (ROADMAP
+     C.17) and its kernel dispatches equal to the launches; then node1
+     stopped without a drain (detection),
      restarted (recovery) and drained into node0 (planned handoff), the
      grouped rate after each (the `cluster` line);
  11. the supervisor: `python -m filodb_tpu_torch.standalone.supervisor`
@@ -106,8 +117,11 @@ non-zero exit):
      recording rule: phase 9's grouped, job and irregular rates entering
      each worker's private port and the public port, each private answer
      bit for bit phase 9's entering the same ordinal, the public one
-     equal to one of them, all within the oracle's bounds; the
-     device-dispatch spans (&explain=trace) and the merged /debug/traces
+     equal to one of them, all within the oracle's bounds; each private
+     query with &explain=analyze (its stages, its device-dispatch spans
+     and the kernels the worker launched: `launches_phase11`); worker 0's
+     sampling profiler (profiler-enabled) read after its cold query, its
+     samples by thread root; the merged /debug/threads, /debug/traces
      and /metrics of both workers; /admin/invalidate; kill -9 of worker
      0 (respawn, the rule evaluator handed to worker 1 and back, its
      grouped answer again bit for bit); SIGTERM of the supervisor (a
@@ -137,11 +151,13 @@ non-zero exit):
      through POST /api/v1/ingest/influx, a clean stop (the flush), and
      every ds sample emitted read back from the 5 m and 1 h datasets
      (the `downsample` line);
-  then the `kernels` line: launches (phase 4, and phases 5-10 and 12 as
-  `launches_phase5` to `launches_phase12`; phase 11's `launches_phase11`
-  is null: a launch inside a worker process is not counted from here,
-  and `launches_phase11_evidence` names what holds the route instead),
-  max error, kernel and plain
+  then the `memory` line: the card's allocated memory (live tensors)
+  after each phase, each stopped server's held to within 256 MiB of the
+  level before it started, and phase 12 starting with at most 1 GiB
+  allocated (ROADMAP C.23; each reading is also logged on its own line);
+  then the `kernels` line: launches (phase 4, and phases 5-12 as
+  `launches_phase5` to `launches_phase12`; phase 11's are the workers'
+  own counts, from their &explain=analyze), max error, kernel and plain
   times (CUDA events over warmed launches; `device_ms` by CUDA-graph
   replay, without the host's cost of a call) and the least time the card
   could take, at the phase-3 shapes, and for the group-sum also at the
@@ -185,8 +201,8 @@ within rtol 1e-5 of a branch variant of the oracle.
 Standard output: the card's name and power limit after phase 1, then each
 phase's JSON line as the phase ends (`functions` with `queries`,
 `serving`, `server`, `rules`, `durability`, `cluster`, `supervisor`,
-`downsample`), then the `kernels`
-line, and last {"ok": true, "device": {...}}. The script exits non-zero,
+`downsample`), then the `memory` and `kernels` lines, and last
+{"ok": true, "device": {...}}. The script exits non-zero,
 printing no result, when there is no CUDA device.
 """
 
@@ -531,6 +547,15 @@ def groupsum_bound(args, bw: float, f32_rate: float):
     return nbytes, 1e3 * max(nbytes / bw, ops / f32_rate), by
 
 
+def extract_bytes(S: int, N: int, C: int, T: int, nonempty: int) -> int:
+    """Bytes one boundary-extract call must move: every relative timestamp
+    of the [S, N] rows once, the C payload channels at both boundaries of
+    each of the `nonempty` windows that hold a sample, and the outputs
+    (counts and both boundary times, int32, and both boundaries' C
+    channels, f32, for each of S x T windows)."""
+    return S * N * 4 + nonempty * 2 * C * 4 + S * T * (12 + 8 * C)
+
+
 def time_groupsum(args, bw: float, f32_rate: float, what: str) -> dict:
     """The group-sum kernel on `args` held against its plain version, then
     timed beside it and its bound: `ms` by CUDA events over warmed
@@ -677,7 +702,7 @@ def phase_real_size(gen, dev, bw: float, f32_rate: float) -> dict:
                                                        WINDOW, T2),
                    reps=5, warm=1)
     C = pay.shape[1]
-    bytes2 = S2 * N2 * 4 + nonempty * 2 * C * 4 + S2 * T2 * (12 + 8 * C)
+    bytes2 = extract_bytes(S2, N2, C, T2, nonempty)
     ops2 = 2 * S2 * T2 * math.ceil(math.log2(N2 + 1))
     b2 = {"name": "window_extract", "route": "cuda",
           "source": "filodb_tpu_torch/csrc/window_extract.cu",
@@ -2287,6 +2312,116 @@ def server_queries_http(srv, rows, engine_time, classes) -> list:
     return readings
 
 
+# phase 7's warm query of each route, sent again with &explain=analyze:
+# (PromQL, grid end key, the kernel its route launches or None, the site
+# prefix of its executables in the analyze payload)
+ANALYZE_ROUTES = (
+    ("sum by (job) (rate(http_requests_total[5m]))", "fe",
+     "counter_groupsum", "tilestore:groupsum/"),
+    ('rate(irregular_total{job="job3"}[5m])', "fe", "window_extract",
+     "packed:pallas/"),
+    (f'max_over_time({GAUGE}{{part="p1"}}[5m])', "fe", None,
+     "packed:gather/"),
+    (f'avg_over_time({GAUGE}{{part="p1"}}[5m])', "fe", None,
+     "tilestore:avg_over_time/"),
+)
+# the executable key prefix of each kernel's dispatch site
+KERNEL_SITES = {"counter_groupsum": ("tilestore", "groupsum/"),
+                "window_extract": ("packed", "pallas/")}
+
+
+def kernel_dispatches(az: dict) -> dict:
+    """Per kernel, the dispatches of its site in an analyze payload."""
+    out = {}
+    for name, (site, prefix) in KERNEL_SITES.items():
+        out[name] = sum(e["dispatches"] for e in az["device"]["executables"]
+                        if e["site"] == site
+                        and e["executable"].startswith(prefix))
+    return out
+
+
+def kernel_call_bytes(name: str, a) -> tuple:
+    """(executable key suffix, bytes chip_smoke's bound counts) of one
+    recorded kernel call: the group-sum's groupsum_bound, the extract's
+    extract_bytes with every window holding a sample (an executable's
+    cost is per shape, so it counts the most the shape can need)."""
+    if name == "counter_groupsum":
+        func, st, dspan, hi, lo, v_p, _, oh = a[:8]
+        T = a[-1]
+        nbytes, _, _ = groupsum_bound(a, 1.0, 1.0)
+        return (f"groupsum/{func}/{v_p.shape[0] * 512}/{T}/{oh.shape[1]}/"
+                f"{st}/{dspan}/{hi}/{lo}", nbytes)
+    tr, pay, _, _, T = a
+    S, N = tr.shape
+    return (f"/{S}/{N}/{T}", extract_bytes(S, N, pay.shape[1], T, S * T))
+
+
+def analyze_routes(srv, classes, calls) -> list:
+    """Each route's warm query (ANALYZE_ROUTES) over HTTP with
+    &cache=false, then again with &explain=analyze: the answer's data
+    byte for byte the same; each kernel site's dispatches in the analyze
+    payload equal to the kernel's launches in that query (LaunchClasses'
+    query class); each kernel executable's bytes_accessed equal to the
+    bytes chip_smoke's bound counts for the shape of the calls recorded in
+    that query; the route's executables present -> readings."""
+    path = "/promql/timeseries/api/v1/query_range"
+    start, fe, te = engine_grid()
+    ends = {"fe": fe, "te": te}
+    out = []
+    for q, end_key, kernel, where in ANALYZE_ROUTES:
+        params = {"query": q, "start": start, "end": ends[end_key],
+                  "step": STEP // 1000, "cache": "false"}
+        plain, plain_ms, _ = http_json(srv.port, path, params)
+        before = classes.queries()
+        n_calls = {k: len(v) for k, v in calls.items()}
+        payload, ms, nbytes = http_json(srv.port, path,
+                                        dict(params, explain="analyze"))
+        launched = {k: classes.queries()[k] - before[k] for k in before}
+        assert json.dumps(payload["data"]) == json.dumps(plain["data"]), \
+            f"{q}: the answer with explain=analyze differs"
+        assert payload["data"]["result"], q
+        az = payload["analyze"]
+        disp = kernel_dispatches(az)
+        assert disp == launched, (q, disp, launched)
+        if kernel is not None:
+            assert launched[kernel] >= 1, (q, launched)
+        site, prefix = where.split(":")
+        assert any(e["site"] == site and e["executable"].startswith(prefix)
+                   for e in az["device"]["executables"]), \
+            (q, az["device"]["executables"])
+        checked = []
+        for name, (ksite, kprefix) in KERNEL_SITES.items():
+            made = [kernel_call_bytes(name, a)
+                    for a, _ in calls[name][n_calls[name]:]]
+            for e in az["device"]["executables"]:
+                if e["site"] != ksite or \
+                        not e["executable"].startswith(kprefix):
+                    continue
+                want = {b for k, b in made if e["executable"].endswith(k)}
+                assert len(want) == 1, (q, e, made)
+                assert e["bytes_accessed"] == float(want.pop()), (q, e)
+                checked.append(e["executable"])
+        r = {"q": q, "plain_ms": plain_ms, "analyze_ms": ms,
+             "bytes": nbytes, "launches": launched,
+             "kernel_dispatches": disp, "bytes_checked": checked,
+             "stages": {k: v for k, v in az["stages"].items()
+                        if k != "staticCostBound"},
+             "executables": [
+                 {k: e.get(k) for k in ("site", "executable", "dispatches",
+                                        "dispositions", "flops",
+                                        "bytes_accessed")}
+                 for e in az["device"]["executables"]]}
+        log(f"phase 7: analyze {q}: {json.dumps(r)}")
+        out.append(r)
+    m = scrape(srv.port)
+    for fam in ("filodb_executables", "filodb_executable_builds_total",
+                "filodb_executable_flops",
+                "filodb_executable_bytes_accessed",
+                "filodb_exec_cache_misses_total"):
+        assert any(k == fam or k.startswith(fam + "{") for k in m), fam
+    return out
+
+
 def server_clients(srv) -> dict:
     """SERVER_CLIENTS threads over HTTP, each SERVER_CLIENT_QUERIES queries
     cycling phase 6's mix on grids shifted by up to GRIDS - 1 steps, with
@@ -2404,6 +2539,7 @@ def phase_server(srv, loaded: dict, rows: dict, smi: str) -> dict:
     kn.reset_launches()
     try:
         readings = server_queries_http(srv, rows, engine_time, classes)
+        analyzed = analyze_routes(srv, classes, calls)
         clients = server_clients(srv)
     finally:
         engine_time.restore()
@@ -2460,6 +2596,7 @@ def phase_server(srv, loaded: dict, rows: dict, smi: str) -> dict:
             "server": {"seconds": secs, "load_s": loaded["load_s"],
                        "series_per_shard": loaded["series_per_shard"],
                        "queries": readings, "first_grouped_split": split,
+                       "analyze": analyzed,
                        "clients": clients, "metrics_moved": moved,
                        "launches_queries": dict(own), "loops": loops,
                        "card": smi}}
@@ -2942,20 +3079,44 @@ class WireLog:
         self.mod._call = self.orig
 
 
-def cluster_query(node, name: str, q: str, s: int, e: int, wire) -> tuple:
-    """One query over HTTP into `node` with &cache=false, split by stage
-    (PageInSplit: page-ins of both nodes, since they share the process;
-    select_decode_s holds the peer fetch) -> (grid, reading, payload)."""
+def analyze_split(payload: dict) -> dict:
+    """An &explain=analyze answer's stage split: its stage timings, each
+    span's count and total us in its trace (both nodes' spans when a
+    query crossed to a peer), and the executables with their
+    dispatches."""
+    az = payload["analyze"]
+    spans: dict = {}
+    for d in payload["trace"]["spans"]:
+        c = spans.setdefault(d["name"], {"n": 0, "us": 0})
+        c["n"] += 1
+        c["us"] += int(d.get("dur_us") or 0)
+    return {"stages": {k: v for k, v in az["stages"].items()
+                       if k != "staticCostBound"},
+            "spans": spans,
+            "executables": {f"{e['site']}:{e['executable']}":
+                            e["dispatches"]
+                            for e in az["device"]["executables"]},
+            "kernel_dispatches": kernel_dispatches(az)}
+
+
+def cluster_query(node, name: str, q: str, s: int, e: int, wire,
+                  analyze: bool = False) -> tuple:
+    """One query over HTTP into `node` with &cache=false (and
+    &explain=analyze), split by stage (PageInSplit: page-ins of both
+    nodes, since they share the process; select_decode_s holds the peer
+    fetch) -> (grid, reading, payload)."""
     from filodb_tpu_torch.query import kernels as kn
 
     before = dict(kn.LAUNCHES)
     wire.take()
     split = PageInSplit()
+    params = {"query": q, "start": s, "end": e, "step": STEP // 1000,
+              "cache": "false"}
+    if analyze:
+        params["explain"] = "analyze"
     try:
         payload, ms, nbytes = http_json(
-            node.port, "/promql/timeseries/api/v1/query_range",
-            {"query": q, "start": s, "end": e, "step": STEP // 1000,
-             "cache": "false"})
+            node.port, "/promql/timeseries/api/v1/query_range", params)
     finally:
         split.restore()
     r = {"q": q, "entry": name, "end": e, "wall_ms": ms, "bytes": nbytes,
@@ -2964,6 +3125,9 @@ def cluster_query(node, name: str, q: str, s: int, e: int, wire) -> tuple:
     r["host_split"] = split.split(ms / 1e3)
     r["host_split"]["select_decode_less_fetch_s"] = (
         r["host_split"]["select_decode_s"] - r["wire"]["fetch_s"])
+    if analyze:
+        r["analyze"] = analyze_split(payload)
+        assert r["analyze"]["kernel_dispatches"] == r["launches"], r
     log(f"phase 9: {name} {q} to {e}: {ms:.1f} ms, {nbytes} bytes, "
         f"wire {json.dumps(r['wire'])}, split "
         f"{json.dumps(r['host_split'])}, launches {r['launches']}")
@@ -3102,7 +3266,9 @@ def phase_cluster(rows: dict, wdir: dict, answers_b: list,
         fetch0 = n1.grpc_server.fetch_raw_served
         # 1. the grouped rate entering node0, then node1
         q1 = "sum by (job) (rate(http_requests_total[5m]))"
-        g1a, r, _ = cluster_query(n0, "node0", q1, start, fe, wire)
+        # the first cold cross-node query, split by stage (ROADMAP C.17)
+        g1a, r, _ = cluster_query(n0, "node0", q1, start, fe, wire,
+                                  analyze=True)
         readings.append(r)
         g1b, r, _ = cluster_query(n1, "node1", q1, start, fe, wire)
         readings.append(r)
@@ -3282,7 +3448,10 @@ def supervisor_config(wdir: dict, port: int, run_dir: str) -> dict:
     for k in ("port", "num-nodes", "node-ordinal", "peers"):
         del base[k]
     base.update({"serving-workers": SUP_WORKERS, "port": port,
-                 "run-dir": run_dir, "rules": SUP_RULES})
+                 "run-dir": run_dir, "rules": SUP_RULES,
+                 # each worker's sampling profiler, read through
+                 # /debug/profile after its cold query
+                 "profiler-enabled": True})
     if SUP_HEALTH_FAIL_THRESHOLD is not None:
         base["health-fail-threshold"] = SUP_HEALTH_FAIL_THRESHOLD
     return base
@@ -3330,26 +3499,76 @@ def rules_active(port: int) -> float:
     return scrape(port)["filodb_rules_active"]
 
 
-def worker_query(port: int, entry: str, q: str, grid, trace: bool):
-    """One query over HTTP with &cache=false (and &explain=trace) ->
-    (grid, reading)."""
+def worker_query(port: int, entry: str, q: str, grid, analyze: bool):
+    """One query over HTTP with &cache=false (and &explain=analyze: the
+    worker's own account of its stages and of the kernels it launched)
+    -> (grid, reading)."""
     start, end = grid
     params = {"query": q, "start": start, "end": end,
               "step": STEP // 1000, "cache": "false"}
-    if trace:
-        params["explain"] = "trace"
+    if analyze:
+        params["explain"] = "analyze"
     payload, ms, nbytes = http_json(
         port, "/promql/timeseries/api/v1/query_range", params)
     r = {"q": q, "entry": entry, "wall_ms": ms, "bytes": nbytes}
-    if trace:
+    if analyze:
         spans = payload["trace"]["spans"]
         r["spans"] = sorted({sp["name"] for sp in spans})
         r["dispatch_paths"] = sorted({
             sp.get("tags", {}).get("path", "") for sp in spans
             if sp["name"] == "device-dispatch"})
+        r["analyze"] = analyze_split(payload)
     log(f"phase 11: {entry} {q} to {end}: {ms:.1f} ms, {nbytes} bytes"
-        + (f", dispatch paths {r['dispatch_paths']}" if trace else ""))
+        + (f", dispatch paths {r['dispatch_paths']}, analyze "
+           f"{json.dumps(r['analyze'])}" if analyze else ""))
     return grid_from_json(payload, start, end, STEP // 1000), r
+
+
+def worker_profile(port: int) -> dict:
+    """A worker's sampling profiler since its start (/debug/profile with
+    seconds=0): samples by thread root, and for each root the innermost
+    functions of its stacks with the most samples (folded text)."""
+    rep = get_json(port, "/debug/profile", {"seconds": 0})["data"]
+    assert rep["samples"] > 0 and rep["running"], rep
+    code, body, _ = http_get(port, "/debug/profile",
+                             {"seconds": 0, "format": "folded"})
+    assert code == 200, body[:300]
+    leaves: dict = {}
+    for line in body.decode().splitlines():
+        stack, n = line.rsplit(" ", 1)
+        frames = stack.split(";")
+        per = leaves.setdefault(frames[0], {})
+        per[frames[-1]] = per.get(frames[-1], 0) + int(n)
+    top = {root: sorted(per.items(), key=lambda kv: -kv[1])[:5]
+           for root, per in sorted(leaves.items())}
+    log(f"phase 11: worker 0's profile after its cold query ({rep['hz']} "
+        f"hz): samples by thread root {json.dumps(rep['roots'])}")
+    for root, fns in top.items():
+        log(f"phase 11:   {root}: " + ", ".join(
+            f"{fn} {n}" for fn, n in fns))
+    return {"samples": rep["samples"], "hz": rep["hz"],
+            "attribution_fraction": rep["attribution_fraction"],
+            "roots": rep["roots"], "top_by_root": top}
+
+
+def merged_threads(sup: int) -> dict:
+    """The supervisor's /debug/threads: both workers' thread inventories,
+    each entry tagged with its worker -> per worker, its roots and those
+    with live threads."""
+    body = get_json(sup, "/debug/threads")
+    out = {}
+    for w in range(SUP_WORKERS):
+        mine = [e for e in body["data"] if e.get("worker") == w]
+        out[str(w)] = {"roots": sorted({e["name"] for e in mine}),
+                       "live": sorted({e["name"] for e in mine
+                                       if e["live_threads"]})}
+        assert {"http-handler", "accept-edge", "bus-client",
+                "device-executor", "profiler-sampler"} <= \
+            set(out[str(w)]["roots"]), out
+        assert {"accept-edge", "bus-client", "profiler-sampler"} <= \
+            set(out[str(w)]["live"]), out
+    log(f"phase 11: merged /debug/threads: {json.dumps(out)}")
+    return out
 
 
 def start_supervisor(cfg: dict, run_dir: str):
@@ -3409,13 +3628,15 @@ def phase_supervisor(wdir: dict, p9: dict, smi: str) -> dict:
     them against their plain versions: the oracle route would not
     reproduce those bits) and the public one equal to one of them, all
     within the oracle's bounds; the device-dispatch spans of the private
-    answers (&explain=trace) and the merged /debug/traces of both workers;
+    answers (&explain=analyze) and the merged /debug/traces of both workers;
     the merged /metrics; /admin/invalidate on both workers; kill -9 of
     worker 0 (the respawn, the rule evaluator handed to worker 1 and
     back, worker 0's grouped answer again bit for bit); SIGTERM of the
     supervisor (worker 0 drained into worker 1, both stopped, exit 0, no
-    worker left). Launches inside the workers cannot be counted from
-    here: the bit-equal answers and the spans are the route's evidence."""
+    worker left). Each private query goes with &explain=analyze: the
+    worker's own stage split and the dispatches of the kernels' sites,
+    summed as the phase's launches; worker 0's /debug/profile after its
+    cold query; the merged /debug/threads of both workers."""
     import signal
 
     from filodb_tpu_torch.standalone.server import DEFAULTS
@@ -3461,13 +3682,20 @@ def phase_supervisor(wdir: dict, p9: dict, smi: str) -> dict:
         log(f"phase 11: supervisor :{sup}, public :{pub}, workers "
             f"{json.dumps(workers)}")
         # 2-3. the queries through each entry point
-        readings, mine = [], {}
+        readings, mine, profile = [], {}, None
+        launches = {k: 0 for k in KERNEL_SITES}
         entries = [(f"worker{i}", ports[i], f"node{i}")
                    for i in range(SUP_WORKERS)] + [("public", pub, None)]
         for entry, port, node in entries:
             for q, end_key in SUP_QUERIES:
                 g, r = worker_query(port, entry, q, (start, ends[end_key]),
-                                    trace=node is not None)
+                                    analyze=node is not None)
+                if node is not None:
+                    # the worker's own count of its kernel launches
+                    for k, n in r["analyze"]["kernel_dispatches"].items():
+                        launches[k] += n
+                if entry == "worker0" and profile is None:
+                    profile = worker_profile(port)
                 r["oracle"] = check_engine_answer(q, g, p9["oracle"][q],
                                                   p9["variants"])
                 if node is not None:
@@ -3489,6 +3717,9 @@ def phase_supervisor(wdir: dict, p9: dict, smi: str) -> dict:
         traces = get_json(sup, "/debug/traces")
         traced_workers = sorted({e["worker"] for e in traces["data"]})
         assert traced_workers == list(range(SUP_WORKERS)), traced_workers
+        for name, n in launches.items():
+            assert n > 0, f"{name} was not launched in phase 11's workers"
+        threads = merged_threads(sup)
         # 4. the merged /metrics (a worker's election gauge is set while
         # one exposition builds and shown by the next: polled)
         snap = {}
@@ -3555,7 +3786,7 @@ def phase_supervisor(wdir: dict, p9: dict, smi: str) -> dict:
         mark("serving_s", lambda: worker_serving(ports, 0, seen)
              and worker_serving(ports, 1, seen), "worker 0 serving again")
         g, r = worker_query(ports[0], "worker0 (respawned)", Q_GROUPED,
-                            (start, fe), trace=False)
+                            (start, fe), analyze=False)
         r["vs_before_kill_bit_equal"] = same_answer(
             g, mine[("node0", Q_GROUPED)])
         assert r["vs_before_kill_bit_equal"], \
@@ -3595,10 +3826,11 @@ def phase_supervisor(wdir: dict, p9: dict, smi: str) -> dict:
         "restarts": restarts, "queries": readings,
         "traced_workers": traced_workers, "merged_metrics": merged,
         "election_log_worker1": (election.get("data") or {}).get("debug"),
-        "route": "each private answer bit for bit phase 9's, whose "
-                 "queries launched both kernels (in-process counts there); "
-                 "device-dispatch spans in the workers' traces; launches "
-                 "inside a worker are not counted from here",
+        "route": "each private answer bit for bit phase 9's; each "
+                 "worker's launches from its own &explain=analyze "
+                 "(dispatches of the kernels' sites)",
+        "launches": launches, "profile_worker0": profile,
+        "threads": threads,
         "serving_workers": SUP_WORKERS,
         "query_timeout_s": {"used": cfg["query-timeout-s"],
                             "default": DEFAULTS["query-timeout-s"]},
@@ -4325,12 +4557,16 @@ def ds_functions(gen, dev, bw: float) -> dict:
             oracle_err = max(oracle_err, float(rel.max()))
     assert oracle_err <= 1e-12, f"sums vs the oracle: rtol {oracle_err}"
     del gather
+    # the most allocated at once over the timed calls, everything resident
+    # included (ROADMAP C.23: what earlier phases leave allocated adds here)
+    abs_peak = 0
     for name, fn in calls.items():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated() / 2**30
         ms = time_ms(fn, reps=5, warm=1)
+        abs_peak = max(abs_peak, torch.cuda.max_memory_allocated())
         peak = torch.cuda.max_memory_allocated() / 2**30 - resident
         shape_n, shape_p = (Q, P) if name == "cascade_gauge_aligned" \
             else (DS_N, P)
@@ -4353,6 +4589,7 @@ def ds_functions(gen, dev, bw: float) -> dict:
     resident = torch.cuda.memory_allocated() / 2**30
     ms = time_ms(lambda: dk.counter_emit_mask(ts, vals, lens, base5, res5,
                                               P), reps=5, warm=1)
+    abs_peak = max(abs_peak, torch.cuda.max_memory_allocated())
     nbytes, bound = ds_bound("counter_emit_mask", DS_S, DS_N, P, bw)
     out["counter_emit_mask"] = {
         "ms": ms, "bound_ms": bound, "bytes": nbytes,
@@ -4360,6 +4597,8 @@ def ds_functions(gen, dev, bw: float) -> dict:
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30 - resident}
     del ts, vals, lens
     torch.cuda.empty_cache()
+    log(f"phase 12: (a) peak allocated {abs_peak / 2**30:.3f} GiB over the "
+        f"timed calls, everything resident included")
     for name, r in out.items():
         log(f"phase 12: {name} at [{DS_S}, {DS_N}]: {r['ms']:.3f} ms, "
             f"bound {r['bound_ms']:.3f} ms ({r['bytes'] / 1e9:.3f} GB at "
@@ -4368,7 +4607,7 @@ def ds_functions(gen, dev, bw: float) -> dict:
     return {"shape": [DS_S, DS_N], "periods_5m": P, "periods_1h": Q,
             "counter_kept": kept, "fast_vs_gather_sum_rtol": sum_err,
             "oracle_rows": int(rows.size), "oracle_sum_rtol": oracle_err,
-            "functions": out}
+            "peak_allocated_gib": abs_peak / 2**30, "functions": out}
 
 
 def read_ds_rows(data_dir: str, res: int, wanted) -> dict:
@@ -4830,6 +5069,35 @@ def phase_downsample(gen, dev, rows: dict, wdir: dict, bw: float,
                            "tiered": srv["server"], "card": smi}}
 
 
+# allocated device memory (live tensors) a stopped server or a finished
+# phase may leave behind (ROADMAP C.23)
+MEM_SLACK = 256 << 20
+# phase 12 alone starts with next to nothing allocated; after phases 1-11
+# it must start within this of that
+MEM_BEFORE_PHASE12 = 1 << 30
+
+
+def mem_log(what: str) -> int:
+    """Log the card's allocated memory on a line of its own -> bytes."""
+    n = torch.cuda.memory_allocated()
+    log(f"memory: {what}: {n / 2**30:.3f} GiB allocated ({n} B)")
+    return n
+
+
+def mem_released(level: int, what: str) -> int:
+    """Collect garbage, then hold the allocated memory to within MEM_SLACK
+    of `level`, its reading before the server or phase started."""
+    import gc
+
+    gc.collect()
+    mem_log(f"{what}, after gc.collect()")
+    torch.cuda.empty_cache()
+    n = mem_log(f"{what}, after empty_cache()")
+    assert n - level <= MEM_SLACK, \
+        f"{what}: {(n - level) / 2**20:.1f} MiB more allocated than before"
+    return n
+
+
 def emit(key: str, value) -> None:
     """One result line on standard output, as its phase ends."""
     print(json.dumps({key: value}), flush=True)
@@ -4877,25 +5145,31 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
+    memory = {"phase1": mem_log("after phase 1")}
     run_phase(2, "kernel parity", phase_parity, gen, dev)
+    memory["phase2"] = mem_log("after phase 2")
     rows = run_phase(3, "real size", phase_real_size, gen, dev, bw,
                      f32_rate)
+    memory["phase3"] = mem_log("after phase 3")
     eng = run_phase(4, "engine", phase_engine,
                     np.random.default_rng(args.seed))
+    memory["phase4"] = mem_log("after phase 4")
     fns = run_phase(5, "functions", phase_functions, eng, bw)
+    memory["phase5"] = mem_log("after phase 5")
     print(json.dumps({"functions": fns["functions"],
                       "queries": fns["queries"],
                       "phase5_peak_gib": fns["peak_gib"]}), flush=True)
     srv = run_phase(6, "serving", phase_serving, eng)
     emit("serving", dict(srv["serving"], card=smi))
+    memory["phase6"] = mem_log("after phase 6")
     eng["backend"].batcher.executor.stop(WAIT_S)
     # phase 7 builds its own backend: drop phases 4-6's and their tiles
     data = eng.pop("rows")
     for k in ("backend", "shard"):
         del eng[k]
-    import gc
-    gc.collect()
-    torch.cuda.empty_cache()
+    memory["phases4_6_dropped"] = mem_released(
+        memory["phase1"], "phases 4-6's backend and shard dropped")
+    before = memory["phases4_6_dropped"]
     # phase 10 runs on phase 7's server, which starts with the rules (the
     # alert's threshold fixed from the oracle first) and self-monitoring
     sink = WebhookSink()
@@ -4915,10 +5189,12 @@ def main() -> int:
             emit("rules", rules["rules"])
         finally:
             psrv.stop()
+            memory["phase7_stop"] = mem_log("after psrv.stop()")
     finally:
         sink.close()
-    gc.collect()
-    torch.cuda.empty_cache()
+    del psrv, loaded
+    memory["phases7_10"] = before = mem_released(
+        before, "phases 7 and 10: the server stopped and dropped")
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="filodb-phase8-")
@@ -4926,8 +5202,8 @@ def main() -> int:
     try:
         write = run_phase(8, "write path", phase_write_path, data, wdir, smi)
         emit("durability", write["durability"])
-        gc.collect()
-        torch.cuda.empty_cache()
+        memory["phase8"] = before = mem_released(
+            before, "phase 8: servers A and B stopped")
         # phase 9 drains, stops and restarts nodes on wdir: phase 11's
         # workers start from a copy of what phase 9's nodes start from,
         # and phase 12 from a copy of the data-dir (its own counter tails
@@ -4941,20 +5217,26 @@ def main() -> int:
         cluster = run_phase(9, "cluster", phase_cluster, data, wdir,
                             write.pop("answers_b"), smi)
         emit("cluster", cluster["cluster"])
-        gc.collect()
-        torch.cuda.empty_cache()
+        memory["phase9"] = before = mem_released(
+            before, "phase 9: both nodes stopped")
         supervised = run_phase(11, "supervisor", phase_supervisor, sdir,
                                cluster, smi)
         emit("supervisor", supervised)
-        gc.collect()
-        torch.cuda.empty_cache()
+        memory["phase11"] = before = mem_released(
+            before, "phase 11: the supervisor and its workers ended")
+        assert before <= MEM_BEFORE_PHASE12, \
+            f"{before / 2**30:.3f} GiB allocated before phase 12"
         gen12 = torch.Generator(device=dev)
         gen12.manual_seed(args.seed)
         ds = run_phase(12, "downsample", phase_downsample, gen12, dev, data,
                        tdir, bw, smi)
         emit("downsample", ds["downsample"])
+        memory["phase12"] = mem_released(
+            before, "phase 12: its server stopped")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    emit("memory", {"allocated_bytes": memory, "slack_bytes": MEM_SLACK,
+                    "card": smi})
     kernels = []
     for kname in ("counter_groupsum", "window_extract"):
         r = dict(rows[kname])
@@ -4965,9 +5247,9 @@ def main() -> int:
         r["launches_phase8"] = write["launches"][kname]
         r["launches_phase9"] = cluster["launches"][kname]
         r["launches_phase10"] = rules["launches"][kname]
-        # inside the worker processes a launch cannot be counted from here
-        r["launches_phase11"] = None
-        r["launches_phase11_evidence"] = supervised["route"]
+        # counted inside the worker processes: the dispatches of the
+        # kernel's site in each private query's &explain=analyze
+        r["launches_phase11"] = supervised["launches"][kname]
         r["launches_phase12"] = ds["launches"].get(kname, 0)
         r["max_abs_err"] = max(r["max_abs_err"], eng["errs"][kname],
                                ds["errs"].get(kname, 0.0),

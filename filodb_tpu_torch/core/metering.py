@@ -14,6 +14,8 @@ import threading
 import time
 from typing import Dict, Mapping, Optional, Tuple
 
+from filodb_tpu_torch.lint.threads import thread_root
+
 
 class TenantMetering:
     """Periodic depth-2 (workspace, namespace) cardinality snapshots.
@@ -84,6 +86,7 @@ class TenantMetering:
         self.snapshots += 1
         self.last_snapshot_t = time.monotonic()
 
+    @thread_root("tenant-metering")
     def _run(self) -> None:
         while not self._stop.wait(self.interval_s):
             try:

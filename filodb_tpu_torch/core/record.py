@@ -22,6 +22,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from filodb_tpu_torch.core.schemas import DataSchema, PartitionSchema, Schemas
+from filodb_tpu_torch.lint.locks import single_writer
 from filodb_tpu_torch.utils.xxhash import to_signed32, xxhash32
 
 _M32 = 0xFFFFFFFF
@@ -264,6 +265,9 @@ class RecordContainer:
                 tuple(col[i] for col in self.columns))
 
 
+@single_writer("a RecordBuilder is constructed, filled, and drained by "
+               "ONE producer thread (a gateway handler, a selfmon "
+               "tick); instances are never shared across threads")
 class RecordBuilder:
     """Builds RecordContainers from label maps + samples, computing shard
     hashes (RecordBuilder.scala:34 public API surface).

@@ -26,8 +26,12 @@ from filodb_tpu_torch.core.record import PartKey
 from filodb_tpu_torch.core.schemas import PartitionSchema, Schemas
 from filodb_tpu_torch.gateway.influx import input_records, parse_line
 from filodb_tpu_torch.ingest.stream import IngestionStream
+from filodb_tpu_torch.lint.locks import guarded_by
+from filodb_tpu_torch.lint.threads import thread_root
 
 
+@guarded_by("_stats_lock", "lines_ingested", "lines_rejected",
+            "batches_dropped")
 class GatewayServer:
     """TCP ingest edge, one instance per gateway process.
 
@@ -62,6 +66,7 @@ class GatewayServer:
         class Handler(socketserver.StreamRequestHandler):
             # per-connection producer thread (ThreadingTCPServer spawn
             # the AST engine cannot see)
+            @thread_root("gateway-producer")
             def handle(self):
                 builders: Dict[int, RecordBuilder] = {}
                 pending = 0

@@ -26,6 +26,7 @@ from typing import Optional
 
 from filodb_tpu_torch.grpcsvc import wire
 from filodb_tpu_torch.grpcsvc.client import grpc_options, import_grpc
+from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.query import qos
 
@@ -81,6 +82,14 @@ class GrpcQueryServer:
             options=grpc_options())
         self._server.add_generic_rpc_handlers((Handler(),))
         self.port = self._server.add_insecure_port(f"{host}:{port}")
+        # grpc spawns an internal completion-queue polling thread the
+        # static analyser cannot see; register its actual entry point so
+        # the thread inventory and the sampling profiler attribute it
+        try:
+            from grpc import _server as _grpc_server
+            thread_root("grpc-serve")(_grpc_server._serve)
+        except (ImportError, AttributeError):
+            pass                # private surface: tolerate its absence
 
     @property
     def rpcs_served(self) -> int:

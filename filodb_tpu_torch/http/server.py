@@ -20,7 +20,7 @@ HealthRoute.scala, ClusterApiRoute.scala):
   GET      /api/v1/alerts
   GET      /metrics
   GET      /debug/queries | /debug/slow_queries | /debug/traces |
-           /debug/events
+           /debug/events | /debug/profile | /debug/threads
 
 Query endpoints pass the admission gate (bounded in-flight evaluations,
 429 + Retry-After on saturation), the tenant QoS ladder, the plan cache
@@ -36,12 +36,17 @@ remote paths, as in the reference.
 
 A route whose feature is off by config answers as the reference does with
 that feature off (rules and alerts without rules, influx ingest without a
-gateway, profile). The reserved ``__rules__`` and ``__selfmon__`` datasets
-(recorded series and alert state; self-ingested metrics) are planned over
-this process's internal shard only. A route the reference serves whatever
-its config, but whose module the port does not have yet, answers 501 with
-the ROADMAP item that ports it: ``&explain=analyze`` and the thread inventory
-(``/debug/threads``).
+gateway, ``/debug/profile`` without the sampling profiler). The reserved
+``__rules__`` and ``__selfmon__`` datasets (recorded series and alert
+state; self-ingested metrics) are planned over this process's internal
+shard only.
+
+Device observability, as in the reference: ``&explain=trace`` inlines the
+query's trace; ``&explain=analyze`` adds the stage timings, the executables
+the query's dispatches ran with their analytic cost (``obs/devprof.py``),
+the batcher's occupancy, the QoS decision and the device residency.
+``/debug/threads`` lists the ``@thread_root`` inventory and
+``/debug/profile`` the sampling profiler's aggregate.
 
 stdlib http.server (the JVM reference uses Akka-HTTP; the edge is not the
 hot path — all bulk compute is device-side behind QueryEngine)."""
@@ -58,12 +63,16 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
 from filodb_tpu_torch.http import prom_json
+from filodb_tpu_torch.lint import capacity as lint_capacity
 from filodb_tpu_torch.lint.caches import publishes
+from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.ingest import health as ingest_health
 from filodb_tpu_torch.obs import SELFMON_DATASET
+from filodb_tpu_torch.obs import devprof as obs_devprof
 from filodb_tpu_torch.obs import events as obs_events
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
+from filodb_tpu_torch.obs.profiler import SamplingProfiler
 from filodb_tpu_torch.obs.slowlog import InflightRegistry, SlowQueryLog
 from filodb_tpu_torch.obs.trace import Tracer
 from filodb_tpu_torch.parallel.resilience import (Deadline,
@@ -89,19 +98,6 @@ INTERNAL_DATASETS = (SELFMON_DATASET, qos.RULES_TENANT)
 
 _QLAT_HELP = ("End-to-end query latency in seconds at the HTTP edge "
               "(parse + plan + execute + encode)")
-
-# routes the reference serves whatever its config, whose modules the port
-# does not have yet -> the ROADMAP item that ports them
-_NOT_PORTED = {
-    "explain=analyze": "A.9 device observability (obs/devprof.py)",
-    "threads": "A.12 certification rail (thread inventory)",
-}
-
-
-def _not_ported(what: str):
-    return 501, prom_json.error(
-        f"{what} is not ported yet (ROADMAP {_NOT_PORTED[what]})",
-        "not_implemented")
 
 
 # promlint findings per query text: queries repeat (dashboards), the
@@ -161,7 +157,8 @@ class FiloHttpServer:
                  slow_query_ms: float = 1000.0,
                  slow_query_capacity: int = 128,
                  peer_fanout_workers: int = 0,
-                 worker_id: Optional[int] = None):
+                 worker_id: Optional[int] = None,
+                 profiler: Optional[SamplingProfiler] = None):
         self.shards_by_dataset = shards_by_dataset
         self.backend = backend
         self.shard_mapper = shard_mapper
@@ -255,6 +252,11 @@ class FiloHttpServer:
         self.slow_log = SlowQueryLog(threshold_ms=float(slow_query_ms),
                                      capacity=int(slow_query_capacity))
         self.inflight = InflightRegistry()
+        # set by the standalone server under profiler-enabled (or injected
+        # by tests): the wall-clock sampling profiler behind
+        # /debug/profile. None (the default) keeps the endpoint a 404 and
+        # the metrics surface untouched.
+        self.profiler = profiler
         # admission control on the QUERY endpoints (query/qos.py): excess
         # requests park on the controller's semaphore, but the wait is
         # BOUNDED (admission_wait_s): saturation answers 429 +
@@ -365,6 +367,16 @@ class FiloHttpServer:
             # full SYN-retransmission timeout (~1s)
             request_queue_size = 128
 
+            # the same logical root as _handle below, marked at the
+            # per-connection thread's spawn target: samples taken while
+            # the stdlib parses the request line or flushes the response
+            # (no _handle frame on the stack) still attribute to
+            # "http-handler"
+            @thread_root("http-handler")
+            def process_request_thread(self, request, client_address):
+                ThreadingHTTPServer.process_request_thread(
+                    self, request, client_address)
+
         self.httpd = _Server((host, port), Handler)
         self.port = self.httpd.server_port
         self._thread: Optional[threading.Thread] = None
@@ -372,8 +384,15 @@ class FiloHttpServer:
         self._extra_listeners: list = []
 
     # -- lifecycle --------------------------------------------------------
+    @thread_root("accept-edge")
+    def _serve_private(self) -> None:
+        # the private port's accept loop shares the "accept-edge" root
+        # with add_listener's extra edges, and gives the sampling
+        # profiler a frame to attribute
+        self.httpd.serve_forever()
+
     def start(self) -> None:
-        self._thread = threading.Thread(target=self.httpd.serve_forever,
+        self._thread = threading.Thread(target=self._serve_private,
                                         daemon=True, name="accept-edge")
         self._thread.start()
 
@@ -383,6 +402,7 @@ class FiloHttpServer:
         the supervisor where the platform lacks it). Its connections are
         handled by the same per-connection handler threads as the private
         port: one HTTP surface, two accept edges."""
+        @thread_root("accept-edge")
         def accept_loop():
             while True:
                 try:
@@ -414,6 +434,11 @@ class FiloHttpServer:
         self.httpd.server_close()
 
     # -- request handling -------------------------------------------------
+    # the stdlib ThreadingHTTPServer spawns one handler thread per
+    # connection, a spawn the static analyser cannot see, so the entry
+    # point is marked: every query and admin path below runs on one of
+    # these roots beside the ingest, detector and worker threads
+    @thread_root("http-handler")
     def _handle(self, req: BaseHTTPRequestHandler) -> None:
         retry_after_s: Optional[float] = None
         body_raw = b""
@@ -561,14 +586,18 @@ class FiloHttpServer:
         if path == "/debug/traces":
             return 200, self._debug_traces(qs)
         if path == "/debug/profile":
-            return 404, {"status": "error", "errorType": "unavailable",
-                         "error": "profiler not configured "
-                                  "(--profiler-enabled)"}
+            return self._debug_profile(qs)
         if path == "/debug/queries":
             return 200, {"status": "success",
                          "data": self.inflight.snapshot()}
         if path == "/debug/threads":
-            return _not_ported("threads")
+            # the @thread_root inventory: every registered thread entry
+            # point with its module-qualified root function, the
+            # @guarded_by summary of its class, and which live threads
+            # run it now (joined against threading.enumerate())
+            from filodb_tpu_torch.lint.threads import thread_inventory
+            return 200, {"status": "success",
+                         "data": thread_inventory()}
         if path == "/debug/events":
             # the structured operational journal (obs/events.py), newest
             # first
@@ -620,8 +649,6 @@ class FiloHttpServer:
         no_cache = (self._param(qs, "cache", "")
                     or "").lower() in ("false", "0", "no")
         if rest in ("query_range", "query"):
-            if self._param(qs, "explain") == "analyze":
-                return _not_ported("explain=analyze")
             # stale-routing bounce (pushdown plane): a dispatch=local hop
             # names the shards the entry node expects this peer to serve;
             # if a handoff moved one away, bounce with the new owners
@@ -1420,8 +1447,12 @@ class FiloHttpServer:
             raise QueryError("end < start")
         # tracing: a propagated context (peer hop) is always honored;
         # fresh requests sample per tracer policy; &explain=trace forces
-        # a trace for this one request and inlines it in the response
-        explain_trace = self._param(qs, "explain") == "trace"
+        # a trace for this one request and inlines it in the response;
+        # &explain=analyze extends it with per-stage device stats
+        # (executable identity and cost, batcher occupancy, cache
+        # dispositions, shed decisions: obs/devprof.py)
+        explain = self._param(qs, "explain")
+        explain_trace = explain in ("trace", "analyze")
         tr = self.tracer.start(tctx, force=explain_trace)
         entry = self.inflight.register(
             query, ds, kind="range",
@@ -1442,8 +1473,12 @@ class FiloHttpServer:
                     # peer hop: ship the local spans back; the entry
                     # node's recorder stitches them into ONE trace
                     payload["trace_spans"] = tr.spans_json()
-                elif explain_trace:
-                    payload["trace"] = tr.to_json()
+                else:
+                    if explain_trace:
+                        payload["trace"] = tr.to_json()
+                    if explain == "analyze":
+                        payload["analyze"] = self._build_analyze(
+                            tr, stages)
             return code, payload
         finally:
             # tail retention runs HERE so every exit path (success,
@@ -1489,6 +1524,13 @@ class FiloHttpServer:
         lint_out = self._promql_lint(engine, qs, query)
         if lint_out is not None:
             return lint_out
+        if self._param(qs, "explain") == "analyze":
+            # QoS cross-check surface: the static cost lattice that must
+            # upper-bound estimate_cost's admission price
+            from filodb_tpu_torch.promql import semant as _semant
+            stages["staticCostBound"] = _semant.static_cost_bound(
+                plan, getattr(engine, "shards", ()),
+                metering=getattr(engine, "metering", None)).to_json()
         # cost-based tenant admission (query/qos.py): price the parsed
         # plan BEFORE any execution and charge the tenant's token
         # bucket; an over-budget query walks the degrade ladder
@@ -1614,7 +1656,8 @@ class FiloHttpServer:
         if not query:
             raise QueryError("missing query parameter")
         time_s = int(float(self._param(qs, "time", "0")))
-        explain_trace = self._param(qs, "explain") == "trace"
+        explain = self._param(qs, "explain")
+        explain_trace = explain in ("trace", "analyze")
         tr = self.tracer.start(tctx, force=explain_trace)
         entry = self.inflight.register(
             query, ds, kind="instant",
@@ -1631,8 +1674,12 @@ class FiloHttpServer:
             if tr is not None and isinstance(payload, dict):
                 if tctx is not None:
                     payload["trace_spans"] = tr.spans_json()
-                elif explain_trace:
-                    payload["trace"] = tr.to_json()
+                else:
+                    if explain_trace:
+                        payload["trace"] = tr.to_json()
+                    if explain == "analyze":
+                        payload["analyze"] = self._build_analyze(
+                            tr, stages)
             return code, payload
         finally:
             total_s = _time.perf_counter() - t0
@@ -1661,6 +1708,11 @@ class FiloHttpServer:
         lint_out = self._promql_lint(engine, qs, query)
         if lint_out is not None:
             return lint_out
+        if self._param(qs, "explain") == "analyze":
+            from filodb_tpu_torch.promql import semant as _semant
+            stages["staticCostBound"] = _semant.static_cost_bound(
+                plan, getattr(engine, "shards", ()),
+                metering=getattr(engine, "metering", None)).to_json()
         # cost admission: instant queries charge too, but there is no
         # range to stale-serve/coarsen/trim — over budget means 429
         # (step=0 makes the ladder decline)
@@ -1685,6 +1737,37 @@ class FiloHttpServer:
         stages["encodeMs"] = round((_time.perf_counter() - t2) * 1000, 3)
         return 200, out
 
+    def _build_analyze(self, tr, stages: Dict) -> Dict:
+        """The ``&explain=analyze`` envelope: the traced spans resolve to
+        per-stage device stats (executable identity and disposition per
+        dispatch, analytic FLOPs and bytes computed on demand and kept per
+        executable, batcher occupancy at dispatch), cache dispositions and
+        shed decisions from the stage breakdown."""
+        batcher_stats = None
+        batcher = getattr(self.backend, "batcher", None) \
+            if self.backend is not None else None
+        if batcher is not None:
+            bs = batcher.stats.snapshot()
+            batcher_stats = {"enabled": batcher.enabled,
+                             "occupancy_avg": bs["occupancy_avg"],
+                             "occupancy_max": bs["occupancy_max"],
+                             "batches": bs["batches"],
+                             "by_priority": bs["by_priority"]}
+        qctx = qos.current()
+        qos_info = None
+        if qctx is not None:
+            qos_info = {"tenant": qctx.tenant,
+                        "priority": qos.PRIORITY_NAMES.get(
+                            qctx.priority, str(qctx.priority)),
+                        "degraded": qctx.degraded,
+                        "forced": qctx.forced}
+            if stages.get("qosShed"):
+                qos_info["shed"] = stages["qosShed"]
+        return obs_devprof.analyze_payload(
+            tr.spans_json(), stages, batcher_stats=batcher_stats,
+            qos_info=qos_info,
+            residency=lint_capacity.residency_snapshot())
+
     def _debug_traces(self, qs):
         """GET /debug/traces: recent finished traces (summaries), or one
         full trace via ?id=<trace_id>."""
@@ -1708,6 +1791,34 @@ class FiloHttpServer:
                     for t in traces]
         return {"status": "success",
                 "summary": self.tracer.snapshot(), "data": data}
+
+    def _debug_profile(self, qs):
+        """GET /debug/profile?seconds=N[&format=folded|json]: the sampling
+        profiler's aggregate. ``seconds>0`` profiles a window (delta of
+        the running sampler, or an inline burst when the sampler daemon
+        is off: the handler thread blocks for the window, clamped);
+        ``seconds=0`` reads the cumulative aggregate. ``format=folded``
+        answers flamegraph-ready folded text."""
+        prof = self.profiler
+        if prof is None:
+            return 404, {"status": "error", "errorType": "unavailable",
+                         "error": "profiler not configured "
+                                  "(--profiler-enabled)"}
+        try:
+            seconds = float(self._param(qs, "seconds", "0") or 0)
+        except ValueError:
+            raise QueryError("seconds must be a number")
+        if seconds > 0:
+            folded, selfs = (prof.window(seconds) if prof.running
+                             else prof.sample_burst(seconds))
+        else:
+            folded, selfs = prof.tables()
+        fmt = (self._param(qs, "format", "json") or "json").lower()
+        if fmt == "folded":
+            return 200, prof.folded_text(folded)
+        return 200, {"status": "success",
+                     "data": prof.report(folded, selfs,
+                                         window_s=seconds or None)}
 
     @staticmethod
     def _query_stats(engine, res) -> Dict:
@@ -2080,6 +2191,11 @@ class FiloHttpServer:
         "filodb_tile_cache_entries": "Device tile-cache entries",
         "filodb_tile_builds_total": "Device tile (re)builds",
         "filodb_tile_cache_hits_total": "Device tile-cache hits",
+        "filodb_exec_cache_hits_total":
+            "Device dispatches of a dispatch key seen before",
+        "filodb_exec_cache_misses_total":
+            "First dispatches of a dispatch key",
+        "filodb_exec_cache_entries": "Distinct dispatch keys",
         "filodb_batcher_enabled": "Micro-batcher admission on/off",
         "filodb_batcher_batches_total": "Device dispatches issued",
         "filodb_batcher_queries_total": "Queries admitted",
@@ -2309,6 +2425,15 @@ class FiloHttpServer:
             emit("tile_cache_entries", {}, len(self.backend._tile_cache))
             emit("tile_builds_total", {}, self.backend.tile_builds)
             emit("tile_cache_hits_total", {}, self.backend.tile_hits)
+            # dispatch-key reuse (the reference's compiled-executable
+            # reuse counters) and micro-batcher occupancy
+            exec_stats = getattr(self.backend, "executable_cache_stats",
+                                 None)
+            if exec_stats is not None:
+                st = exec_stats()
+                emit("exec_cache_hits_total", {}, st["hits"])
+                emit("exec_cache_misses_total", {}, st["misses"])
+                emit("exec_cache_entries", {}, st["entries"])
             batcher = self.backend.batcher
             if batcher is not None:
                 bs = batcher.stats.snapshot()
@@ -2488,7 +2613,21 @@ class FiloHttpServer:
             es = exp.snapshot()
             emit("trace_export_queue", {}, es["queued"])
             emit("trace_export_enqueued_total", {}, es["enqueued"])
-        # the global metric registry: counter/gauge families and the
-        # stage-latency histograms (query latency, ...)
+        # sampling-profiler health (the self-time gauges and the tick
+        # histogram ride the global registry below)
+        prof = self.profiler
+        if prof is not None:
+            ps = prof.snapshot()
+            emit("profiler_running", {}, 1 if ps["running"] else 0)
+            emit("profiler_hz", {}, ps["hz"])
+            emit("profiler_samples_total", {}, ps["samples"])
+            emit("profiler_attributed_samples_total", {},
+                 ps["attributed"])
+            emit("profiler_distinct_stacks", {}, ps["distinct_stacks"])
+            emit("profiler_dropped_stacks_total", {},
+                 ps["dropped_stacks"])
+        # the global metric registry: counter/gauge families, registered
+        # collectors (process stats, the device profiler's executable
+        # families) and the stage-latency histograms (query latency, ...)
         obs_metrics.GLOBAL_REGISTRY.collect_into(b, exemplars=exemplars)
         return b

@@ -33,6 +33,7 @@ from typing import Callable, List, Optional
 from filodb_tpu_torch.core.memstore import TimeSeriesShard
 from filodb_tpu_torch.ingest import health as ingest_health
 from filodb_tpu_torch.ingest.stream import IngestionStream
+from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.parallel.shardmapper import ShardMapper, ShardStatus
 from filodb_tpu_torch.testing import chaos
@@ -106,6 +107,7 @@ class IngestionDriver:
                                progress_pct=progress)
         self.on_event(self.shard.shard_num, status, progress)
 
+    @thread_root("ingest-shard")
     def _run(self) -> None:
         try:
             self._last_flush_t = time.monotonic()

@@ -15,12 +15,17 @@ in-flight registry (the counterpart of ``filodb_tpu.obs``).
     :mod:`filodb_tpu_torch.obs.writeback` (the write-back rail it shares
     with the rules engine).
 
-Device profiling (``obs/devprof.py``, ``&explain=analyze``) and the
-sampling profiler are not ported yet.
+  * :mod:`filodb_tpu_torch.obs.devprof` — device dispatch profiling: per
+    dispatch key build/recompile counters, analytic FLOPs and bytes, and
+    the ``&explain=analyze`` payload;
+  * :mod:`filodb_tpu_torch.obs.profiler` — the wall-clock sampling
+    profiler behind ``/debug/profile``, attributing stacks to the
+    ``@thread_root`` registry.
 """
 
 from filodb_tpu_torch.obs.metrics import (  # noqa: F401
     GLOBAL_REGISTRY, Histogram, MetricsRegistry)
+from filodb_tpu_torch.obs.profiler import SamplingProfiler  # noqa: F401
 from filodb_tpu_torch.obs.slowlog import (  # noqa: F401
     InflightRegistry, SlowQueryLog)
 from filodb_tpu_torch.obs.trace import (  # noqa: F401

@@ -241,6 +241,15 @@ class MetricsRegistry:
             if fn not in self._collectors:
                 self._collectors.append(fn)
 
+    def unregister_collector(self, fn) -> None:
+        """Drop a collector registered by ``register_collector``. A loop
+        that stops calls this: the registry is process-global, and a bound
+        method left in it keeps its object, and all that object reaches
+        (a stopped server's backend and its device tiles), alive."""
+        with self._lock:
+            if fn in self._collectors:
+                self._collectors.remove(fn)
+
     def collect_into(self, builder: "ExpositionBuilder",
                      exemplars: bool = False) -> None:
         """Walk the whole registry into ``builder``: counter + gauge

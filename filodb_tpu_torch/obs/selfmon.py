@@ -49,6 +49,8 @@ import threading
 import time
 from typing import Dict, Optional
 
+from filodb_tpu_torch.lint.locks import guarded_by
+from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs.writeback import IngestWriteBack, schema_for_sample
 
@@ -60,6 +62,8 @@ SELFMON_TENANT = "__selfmon__"
 _TICK_HELP = "Wall seconds per self-monitoring collect+ingest tick"
 
 
+@guarded_by("_lock", "ticks", "samples_ingested", "series_last_tick",
+            "errors", "last_tick_monotonic", "last_tick_s")
 class SelfMonitor:
     """The per-process self-monitoring loop (a declared thread root).
 
@@ -124,6 +128,7 @@ class SelfMonitor:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout)
+        obs_metrics.GLOBAL_REGISTRY.unregister_collector(self._collect_age)
 
     @property
     def alive(self) -> bool:
@@ -143,6 +148,7 @@ class SelfMonitor:
                 help="Seconds since the last completed self-monitoring "
                      "tick (the loop's own freshness watermark)")
 
+    @thread_root("selfmon-loop")
     def _run(self) -> None:
         while not self._stop.wait(self.interval_s):
             try:

@@ -38,6 +38,9 @@ import urllib.request
 from collections import OrderedDict, deque
 from typing import Callable, Dict, List, Optional, Tuple
 
+from filodb_tpu_torch.lint.locks import guarded_by
+from filodb_tpu_torch.lint.threads import thread_root
+
 
 # spans per trace cap: a 256-shard fan-out with retries stays well under
 # this; anything bigger is a runaway and gets truncated (tagged).
@@ -579,6 +582,8 @@ def _http_post_json(url: str, body: bytes, timeout_s: float) -> int:
         raise TransportError(f"trace sink {url}: {e}")
 
 
+@guarded_by("_lock", "_queue", "enqueued", "dropped", "batches",
+            "spans_exported", "failures")
 class TraceExporter:
     """Bounded background OTLP/JSON trace exporter (a declared thread
     root).
@@ -670,6 +675,7 @@ class TraceExporter:
             self._wake.set()
 
     # -- exporter loop -----------------------------------------------------
+    @thread_root("trace-exporter")
     def _run(self) -> None:
         while not self._stop.is_set():
             self._wake.wait(self.interval_s)

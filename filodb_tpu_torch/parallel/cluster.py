@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from filodb_tpu_torch.core.index import ColumnFilter
+from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.query import qos
 from filodb_tpu_torch.parallel.resilience import (BreakerRegistry,
@@ -655,6 +656,7 @@ class FailureDetector:
                         except Exception:
                             pass     # keep the monitor thread alive
 
+    @thread_root("failure-detector")
     def _run(self) -> None:
         while not self._stop.wait(self.interval_s):
             self.poll_once()

@@ -60,6 +60,8 @@ import time
 import urllib.request
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from filodb_tpu_torch.lint.locks import guarded_by
+from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.parallel.cluster import reassign_dead_shards
@@ -103,6 +105,10 @@ def probe_peer_claims(peers: Dict[str, str], shards: Sequence[int],
     return claims
 
 
+@guarded_by("_lock", "draining", "incoming", "_cancel_owner",
+            "handoffs_started", "handoffs_completed", "handoffs_failed",
+            "adoptions_planned", "adoptions_crash", "releases",
+            "handback_failures")
 class MembershipManager:
     """Planned-membership coordinator for one FiloServer node.
 
@@ -376,6 +382,7 @@ class MembershipManager:
                 self.server.drivers[sh] = drv
         return True
 
+    @thread_root("adopt-shard")
     def _adopt_run(self, sh: int, from_node: str) -> None:
         srv = self.server
         try:
@@ -415,6 +422,7 @@ class MembershipManager:
             else:
                 self._finalize_adopt(sh, cancelled=False)
 
+    @thread_root("abort-adopt-reaper")
     def _finalize_adopt(self, sh: int, cancelled: bool) -> None:
         srv = self.server
         with self._lock:
@@ -500,6 +508,7 @@ class MembershipManager:
         threading.Thread(target=self._handback_run, args=(node, mine),
                          daemon=True, name=f"handback-{node}").start()
 
+    @thread_root("handback")
     def _handback_run(self, node: str, shards: List[int]) -> None:
         for sh in sorted(shards):
             ok = False

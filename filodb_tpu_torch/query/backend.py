@@ -23,6 +23,11 @@ snapshot's tiles across a flush while the rebuild runs in the background.
 A query's trace carries the reference's device spans (``device-eval``
 with its path, ``pack``, ``device-dispatch`` with its path and batch
 size), and each dispatch is timed into ``filodb_device_execute_seconds``.
+Each packed dispatch is accounted under the reference's key (site
+``packed``: ``("pallas", func, s_bucket, N, nsteps)`` for the
+boundary-extract kernel, ``gather``/``endpoint`` and their batched
+``-b`` twins), as the tile evaluators are in ``query/tilestore.py``: the
+``executable`` trace events and profiles behind ``&explain=analyze``.
 
 Other functions (deriv, predict_linear, holt_winters, mad_over_time, ...)
 return None, and the engine's numpy oracle answers them. Entry points run
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from filodb_tpu_torch.lint.caches import cache_registry
+from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.query import kernels as kn
@@ -588,6 +594,21 @@ class TorchBackend:
         with self._count_lock:
             setattr(self, name, getattr(self, name) + n)
 
+    def release(self) -> None:
+        """Drop every cached tile entry, and with it the device memory of
+        its tiles: the owner of a backend that will serve no more queries
+        calls this (``FiloServer.stop`` does for the backend it built)."""
+        with self._tile_lock:
+            self._tile_cache.clear()
+            self._tile_ident.clear()
+
+    @staticmethod
+    def executable_cache_stats() -> Dict[str, int]:
+        """Dispatch-key reuse of the packed path, the tile evaluators and
+        the group-sum kernel (the reference's compile-cache hit/miss
+        surface in /metrics; keys are counted once per process)."""
+        return tst.executable_cache_stats()
+
     # -- engine hooks ------------------------------------------------------
 
     def periodic_samples(self, series: Sequence[RawSeries],
@@ -745,6 +766,7 @@ class TorchBackend:
                 self._tile_refreshing.add(key)
             held = list(series)     # pin arrays until the rebuild lands
 
+            @thread_root("tile-refresh")
             def refresh():
                 try:
                     self._insert_tile_entry(
@@ -935,18 +957,26 @@ class TorchBackend:
         ts_t = torch.as_tensor(ts, device=dev)
         vals_t = torch.as_tensor(vals, device=dev)
         lens_t = torch.as_tensor(lens, device=dev)
+        inputs = (ts_t, vals_t, lens_t)
         if func in _ENDPOINT_RATE and _extract_span_ok(ts, lens, w0s, w0e,
                                                        step, nsteps):
             out = _extract_rate(func, ts_t, vals_t, lens_t, w0s, w0e, step,
                                 nsteps)
+            tst.note_exec(
+                "packed", ("pallas", func, s_bucket, N, nsteps), inputs,
+                out, cost=functools.partial(kn.window_extract_cost,
+                                            s_bucket, N, 3, nsteps))
             return out.cpu().numpy()[:S]
         t_bucket = _next_pow2(nsteps, 8)
         if func in _GATHER_FUNCS:
             out = _window_gather(func, w_bound, ts_t, vals_t, lens_t, w0s,
                                  w0e, step, t_bucket, scalar)
+            key = ("gather", func, s_bucket, N, t_bucket, w_bound)
         else:
             out = _window_endpoint(func, ts_t, vals_t, lens_t, w0s, w0e,
                                    step, t_bucket)
+            key = ("endpoint", func, s_bucket, N, t_bucket)
+        tst.note_exec("packed", key, inputs, out)
         return out.cpu().numpy()[:S, :nsteps]
 
     def _packed_run(self, func: str, t_bucket: int, scalar: float,
@@ -991,15 +1021,21 @@ class TorchBackend:
         w0s_v, w0e_v, step_v = per_row("w0s"), per_row("w0e"), \
             per_row("step")
         self._count("packed_dispatches")
+        # the key names the stack's pow2 bucket, as the reference's does
+        s_bucket, N = _next_pow2(int(offs[-1]), 8), int(ts.shape[1])
         if func in _GATHER_FUNCS:
             w_bound = max(m.w_bound for m in members)
             out = _window_gather(func, w_bound, ts, vals, lens, w0s_v, w0e_v,
                                  step_v, t_bucket, scalar)
+            key = ("gather-b", func, s_bucket, N, t_bucket, w_bound)
         else:
             # rate-family members ride _window_endpoint here (the
             # boundary-extract kernel takes scalar grids)
             out = _window_endpoint(func, ts, vals, lens, w0s_v, w0e_v,
                                    step_v, t_bucket)
+            key = ("endpoint-b", func, s_bucket, N, t_bucket)
+        tst.note_exec("packed", key, (ts, vals, lens, w0s_v, w0e_v, step_v),
+                       out)
         nst = [m.nsteps for m in members]
 
         def split(host: np.ndarray, i: int) -> np.ndarray:

@@ -51,6 +51,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.query import qos
@@ -97,6 +98,7 @@ class DeviceExecutor:
         finishing its current closure)."""
         return self._q.empty()
 
+    @thread_root("device-executor")
     def _run(self) -> None:
         while True:
             _prio, _seq, fn = self._q.get()

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -428,9 +429,34 @@ def counter_groupsum(func: str, st: int, dspan: int, hi_mode: int,
     return sums, cnts
 
 
+def counter_groupsum_cost(n_s: int, T: int, G: int, dspan: int,
+                          hi_mode: int, lo_mode: int) -> Dict[str, float]:
+    """Analytic cost of one group-sum launch over n_s s-tiles: each
+    boundary row of the families its modes read once (kc and kl share one
+    run of T + dspan rows; an ALT/BOTH side reads T more rows), the base
+    and one-hot inputs, the two [T, G] outputs; and its operations."""
+    fams = 1 + (hi_mode != GS_CUR) + (lo_mode != GS_CUR)
+    rows = (T + dspan) + T * (fams - 1)
+    nbytes = (rows * n_s * GS_SS * 12 + n_s * 8 * GS_SS * 4
+              + n_s * GS_SS * G * 4 + 2 * T * G * 4)
+    ops = T * n_s * GS_SS * (40 + 4 * G)
+    return {"flops": float(ops), "bytes_accessed": float(nbytes)}
+
+
 # ---------------------------------------------------------------------------
 # B2: window boundary extract
 # ---------------------------------------------------------------------------
+
+def window_extract_cost(S: int, N: int, C: int, T: int) -> Dict[str, float]:
+    """Analytic cost of one boundary-extract launch from its shapes: every
+    relative timestamp read once, the C payload channels at both
+    boundaries of every window (the most the shape can need: every window
+    holding a sample), the five outputs; and two binary searches of each
+    window."""
+    nbytes = S * N * 4 + S * T * 2 * C * 4 + S * T * (12 + 8 * C)
+    ops = 2 * S * T * math.ceil(math.log2(N + 1))
+    return {"flops": float(ops), "bytes_accessed": float(nbytes)}
+
 
 def window_extract_reference(tr: torch.Tensor, pay: torch.Tensor, step: int,
                              window: int, nsteps: int):

@@ -20,17 +20,22 @@ rows instead of per-series gathers:
 cadence take the packed path of ``query/backend.py``.
 
 PyTorch runs eagerly, so the reference's compiled-executable dispatch
-tables have no counterpart here: each evaluator is called directly.
+tables have no counterpart here: each evaluator is called directly. Each
+dispatch is still accounted under the reference's dispatch key
+(``note_exec``): hit/miss counters for ``/metrics`` and the device
+profiler's entry (``obs/devprof.py``) behind ``&explain=analyze``.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from filodb_tpu_torch.obs import devprof
 from filodb_tpu_torch.query import kernels as kn
 from filodb_tpu_torch.query.model import RawSeries
 
@@ -765,9 +770,11 @@ def evaluate_aligned(tiles: AlignedTiles, func: str, steps: np.ndarray,
     w0e = int(steps[0] - offset_ms)
     w0s = w0e - int(window_ms)
     step = int(steps[1] - steps[0]) if nsteps > 1 else 1
-    return _eval_core(func, nsteps, _tiles_arrays(tiles, func),
-                      tiles.num_slots, tiles.base_ms, tiles.dt_ms, w0s, w0e,
-                      step)
+    arrs = _tiles_arrays(tiles, func)
+    out = _eval_core(func, nsteps, arrs, tiles.num_slots, tiles.base_ms,
+                     tiles.dt_ms, w0s, w0e, step)
+    note_exec("tilestore", (func, nsteps), _arr_inputs(arrs), out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1071,6 +1078,70 @@ def _f32_epilogue(func, counts, t1, v1, t2, v2, wstart_r, wend_r, wdur_s):
     return torch.where(counts >= 2, out, nan)
 
 
+# ---------------------------------------------------------------------------
+# Dispatch accounting (the reference's dispatch tables, without the table)
+# ---------------------------------------------------------------------------
+
+# cache inventory (graftlint): the set of dispatch keys seen keys purely
+# on the executable's identity, a pure function of (site, key)
+__cache_registry__ = {
+    "tilestore-executables": {"keyed": ("kernel", "func",
+                                        "shape-bucket")},
+}
+
+# every dispatch counts a hit (its key seen before in this process) or a
+# miss (first sight), as the reference's dispatch-table lookups do
+_JIT_STATS = {"hits": 0, "misses": 0}
+_EXEC_KEYS: set = set()
+_JIT_STATS_LOCK = threading.Lock()
+__guarded_by__ = {"_JIT_STATS": "_JIT_STATS_LOCK",
+                  "_EXEC_KEYS": "_JIT_STATS_LOCK"}
+
+
+def note_exec(site: str, key: Tuple, inputs: Sequence, out,
+               cost=None) -> None:
+    """Account one dispatch of ``key`` at ``site``: a hit or a miss, and
+    the device profiler's entry (first sight = build, a new shape
+    signature under a known key = recompile) with its lazy cost probe
+    (``cost``, a ``() -> dict``; by default the shapes' cost). The probe
+    holds shapes only, never a tensor."""
+    sig = devprof.arg_sig(inputs)
+    with _JIT_STATS_LOCK:
+        first = (site, key) not in _EXEC_KEYS
+        if first:
+            _EXEC_KEYS.add((site, key))
+        _JIT_STATS["misses" if first else "hits"] += 1
+    probe = None
+    if first:
+        probe = cost if cost is not None else functools.partial(
+            devprof.sig_cost, sig, devprof.arg_sig(
+                out if isinstance(out, (tuple, list)) else (out,)))
+    devprof.note_dispatch(site, key, first, probe=probe, sig=sig)
+
+
+def executable_cache_stats() -> Dict[str, int]:
+    """Dispatch-key reuse across the tile evaluators and the group-sum
+    kernel (the reference's compiled-executable reuse counters)."""
+    with _JIT_STATS_LOCK:
+        out = dict(_JIT_STATS)
+        out["entries"] = len(_EXEC_KEYS)
+    return out
+
+
+def _arr_inputs(arrs: Dict[str, torch.Tensor]) -> Tuple:
+    return tuple(arrs[k] for k in sorted(arrs))
+
+
+def _pad_width(b: int) -> int:
+    """The reference's batch-width bucket (2, 8, 32, 128, ...) of a batch
+    of ``b`` members: the width its dispatch key names. The port runs
+    exactly ``b`` members; only the key carries the bucket."""
+    w = 2
+    while w < b:
+        w <<= 2
+    return w
+
+
 def _slide_eligible(tiles: AlignedTiles, nsteps: int, w0s: int, w0e: int,
                     last_ms: int, step: int):
     """Shared dispatch guard for the slide evaluator AND the group-sum
@@ -1125,13 +1196,19 @@ def evaluate_counters_t(tiles: AlignedTiles, func: str, steps: np.ndarray,
                          int(steps[-1] - offset_ms), step)
     if el is not None:
         st = el[0]
-        return _eval_counter_slide(func, nsteps, st,
-                                   _tiles_arrays_slide(tiles, func, st),
-                                   *args)
-    if fits_i32:
-        return _eval_counter_fast(func, nsteps,
-                                  _tiles_arrays_fast(tiles, func), *args)
-    return _eval_counter_t(func, nsteps, _tiles_arrays_t(tiles, func), *args)
+        key = ("slide", func, nsteps, st)
+        arrs = _tiles_arrays_slide(tiles, func, st)
+        out = _eval_counter_slide(func, nsteps, st, arrs, *args)
+    elif fits_i32:
+        key = ("fast", func, nsteps)
+        arrs = _tiles_arrays_fast(tiles, func)
+        out = _eval_counter_fast(func, nsteps, arrs, *args)
+    else:
+        key = ("t", func, nsteps)
+        arrs = _tiles_arrays_t(tiles, func)
+        out = _eval_counter_t(func, nsteps, arrs, *args)
+    note_exec("tilestore", key, _arr_inputs(arrs), out)
+    return out
 
 
 def groupsum_plan(tiles: AlignedTiles, func: str, steps: np.ndarray,
@@ -1199,10 +1276,22 @@ def groupsum_counters(tiles: AlignedTiles, func: str, steps: np.ndarray,
     if S_pad != S:
         oh = torch.cat([oh, torch.zeros((S_pad - S, oh.shape[1]), dtype=F32,
                                         device=oh.device)], dim=0)
-    return kn.counter_groupsum(
+    out = kn.counter_groupsum(
         plan["func"], plan["st"], plan["dspan"], plan["hi_mode"],
         plan["lo_mode"], v_p, base, oh.contiguous(), plan["kl0"],
         plan["w0e_rel"], plan["window"], plan["step"], plan["nsteps"])
+    # the reference dispatches its Pallas group-sum outside any dispatch
+    # table; the port accounts the launch as its own executable, keyed by
+    # what fixes its work: series (padded), steps, groups, stride, span
+    # and the two boundary modes
+    n_s, G = v_p.shape[0], oh.shape[1]
+    key = ("groupsum", func, S_pad, plan["nsteps"], G, plan["st"],
+           plan["dspan"], plan["hi_mode"], plan["lo_mode"])
+    note_exec("tilestore", key, (v_p, base, oh), out,
+               cost=functools.partial(
+                   kn.counter_groupsum_cost, n_s, plan["nsteps"], G,
+                   plan["dspan"], plan["hi_mode"], plan["lo_mode"]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1259,18 +1348,25 @@ def evaluate_counters_t_batch(tiles: AlignedTiles, func: str,
     assert func in ("rate", "increase", "delta")
     args = (tiles.num_slots, tiles.base_ms, tiles.dt_ms)
     kind = family[0]
+    b_pad = _pad_width(len(w0s_list))
     if kind == "slide":
         st = family[1]
+        key = ("slide", func, nsteps, st, b_pad)
+        arrs = _tiles_arrays_slide(tiles, func, st)
         body = functools.partial(_eval_counter_slide, func, nsteps, st,
-                                  _tiles_arrays_slide(tiles, func, st),
-                                  *args)
+                                  arrs, *args)
     elif kind == "fast":
-        body = functools.partial(_eval_counter_fast, func, nsteps,
-                                  _tiles_arrays_fast(tiles, func), *args)
+        key = ("fast", func, nsteps, b_pad)
+        arrs = _tiles_arrays_fast(tiles, func)
+        body = functools.partial(_eval_counter_fast, func, nsteps, arrs,
+                                  *args)
     else:
-        body = functools.partial(_eval_counter_t, func, nsteps,
-                                  _tiles_arrays_t(tiles, func), *args)
-    return _vmap_grids(body, w0s_list, w0e_list, step, tiles.device)
+        key = ("t", func, nsteps, b_pad)
+        arrs = _tiles_arrays_t(tiles, func)
+        body = functools.partial(_eval_counter_t, func, nsteps, arrs, *args)
+    out = _vmap_grids(body, w0s_list, w0e_list, step, tiles.device)
+    note_exec("tilestore-batch", key, _arr_inputs(arrs), out)
+    return out
 
 
 def evaluate_aligned_batch(tiles: AlignedTiles, func: str, nsteps: int,
@@ -1280,7 +1376,10 @@ def evaluate_aligned_batch(tiles: AlignedTiles, func: str, nsteps: int,
     batched evaluation -> [B, S, T] tensor."""
     if func not in ALIGNED_FUNCS or func in ("rate", "increase", "delta"):
         raise ValueError(f"evaluate_aligned_batch cannot evaluate {func}")
-    body = functools.partial(_eval_core, func, nsteps,
-                              _tiles_arrays(tiles, func), tiles.num_slots,
-                              tiles.base_ms, tiles.dt_ms)
-    return _vmap_grids(body, w0s_list, w0e_list, step, tiles.device)
+    arrs = _tiles_arrays(tiles, func)
+    body = functools.partial(_eval_core, func, nsteps, arrs,
+                              tiles.num_slots, tiles.base_ms, tiles.dt_ms)
+    out = _vmap_grids(body, w0s_list, w0e_list, step, tiles.device)
+    note_exec("tilestore-batch", (func, nsteps, _pad_width(len(w0s_list))),
+               _arr_inputs(arrs), out)
+    return out

@@ -65,6 +65,8 @@ from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from filodb_tpu_torch.lint.caches import cache_registry
+from filodb_tpu_torch.lint.locks import guarded_by
+from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query_range
@@ -115,6 +117,10 @@ def _render_template(text: str, value, labels: Dict[str, str]) -> str:
                 invalidated_by={"topology-epoch": "invalidate_plans",
                                 "schema": "invalidate_plans"},
                 keyed=("dataset", "query-text", "step"))
+@guarded_by("_lock", "_plan_cache", "_alive", "_last_run", "_rule_state",
+            "_alerts", "_transitions", "_group_state", "active",
+            "_announced", "_final_until", "_election_log", "ticks",
+            "errors", "plan_invalidations", "notifications_enqueued")
 class RulesEngine:
     """The per-process rules scheduler (a declared thread root).
 
@@ -248,11 +254,13 @@ class RulesEngine:
             self._thread.join(timeout)
         if self.notifier is not None:
             self.notifier.stop(timeout)
+        obs_metrics.GLOBAL_REGISTRY.unregister_collector(self._collect)
 
     @property
     def alive(self) -> bool:
         return self._thread is not None and self._thread.is_alive()
 
+    @thread_root("rules-scheduler")
     def _run(self) -> None:
         while not self._stop_evt.wait(self._poll_s):
             try:

@@ -23,12 +23,15 @@ import threading
 import urllib.request
 from typing import Dict, Optional
 
+from filodb_tpu_torch.lint.locks import guarded_by
+from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.parallel.resilience import (BreakerRegistry, RetryPolicy,
                                                   TransportError,
                                                   resilient_call)
 
 
+@guarded_by("_lock", "delivered", "failed", "dropped")
 class WebhookNotifier:
     """One receiver URL, one delivery thread, one breaker."""
 
@@ -87,6 +90,7 @@ class WebhookNotifier:
             return False
 
     # -- delivery ----------------------------------------------------------
+    @thread_root("rules-notifier")
     def _run(self) -> None:
         while not self._stop_evt.is_set():
             try:

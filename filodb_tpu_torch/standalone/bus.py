@@ -46,6 +46,9 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from filodb_tpu_torch.lint.locks import guarded_by
+from filodb_tpu_torch.lint.threads import thread_root
+
 
 def _send_line(sock: socket.socket, lock: threading.Lock,
                event: Dict) -> bool:
@@ -60,6 +63,7 @@ def _send_line(sock: socket.socket, lock: threading.Lock,
         return False
 
 
+@guarded_by("_lock", "_conns", "events_seen", "topo_epochs")
 class SupervisorBus:
     """The hub: accepts one connection per worker, fans every received
     event out to all OTHER workers, and lets the supervisor broadcast
@@ -85,6 +89,7 @@ class SupervisorBus:
         self._accept_thread.start()
         return self
 
+    @thread_root("bus-accept")
     def _accept_run(self) -> None:
         while not self._closed.is_set():
             try:
@@ -100,6 +105,7 @@ class SupervisorBus:
                              daemon=True,
                              name=f"bus-reader-{cid}").start()
 
+    @thread_root("bus-reader")
     def _reader_run(self, cid: int, conn: socket.socket) -> None:
         try:
             f = conn.makefile("rb")
@@ -178,6 +184,7 @@ class SupervisorBus:
                 pass
 
 
+@guarded_by("_lock", "_sock", "published", "applied", "reconnects")
 class BusClient:
     """A worker's end of the control plane: one loopback connection to
     the supervisor's hub, a reader loop applying inbound events through
@@ -272,6 +279,7 @@ class BusClient:
             pass
 
     # -- reader loop ------------------------------------------------------
+    @thread_root("bus-client")
     def _run(self) -> None:
         backoff = 0.05
         while not self._stop.is_set():

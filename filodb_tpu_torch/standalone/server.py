@@ -72,6 +72,7 @@ from filodb_tpu_torch.gateway.server import GatewayServer
 from filodb_tpu_torch.http.server import FiloHttpServer
 from filodb_tpu_torch.ingest.driver import IngestionDriver
 from filodb_tpu_torch.ingest.stream import LogIngestionStream
+from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs.process import register_process_collector
 from filodb_tpu_torch.obs.trace import TraceExporter, Tracer
 from filodb_tpu_torch.parallel.resilience import (BreakerRegistry,
@@ -237,6 +238,14 @@ DEFAULTS = {
     "trace-export-batch": 64,
     "trace-export-interval-s": 2.0,
     "trace-export-queue": 1024,
+    # wall-clock sampling profiler (obs/profiler.py): OFF by default (no
+    # sampler thread, no metric families); when on, /debug/profile serves
+    # folded stacks and top self-time, and
+    # filodb_profile_self_seconds_total{root,func} rides the registry
+    "profiler-enabled": False,
+    "profiler-hz": 29.0,
+    "profiler-max-stacks": 4096,
+    "profiler-top-n": 20,
     # admission control on the query endpoints: at most this many
     # in-flight evaluations (0 = off); a slot that does not free within
     # admission-wait-s answers 429 + Retry-After
@@ -305,20 +314,13 @@ DEFAULTS = {
 REFUSED = {
     "mesh-enabled": "A.11 mesh and distributed",
     "mesh-tile-serving": "A.11 mesh and distributed",
-    "profiler-enabled": "A.9 device observability",
 }
 
 # keys of the JAX package's DEFAULTS that the port accepts at any value
 # and that change nothing here -> why. Each only tunes a feature that is
 # refused above (so it is off), or acts in the reference only there too.
-INERT = {
-    "profiler-hz": "tunes the profiler: profiler-enabled is refused "
-                   "(A.9)",
-    "profiler-max-stacks": "tunes the profiler: profiler-enabled is "
-                           "refused (A.9)",
-    "profiler-top-n": "tunes the profiler: profiler-enabled is refused "
-                      "(A.9)",
-}
+# None at present: the profiler's keys took effect with obs/profiler.py.
+INERT: Dict[str, str] = {}
 
 
 def _refused(key: str, value, config: Dict) -> bool:
@@ -446,6 +448,15 @@ class FiloServer:
             node=self.node_id,
             slow_ms=float(slow_ms or 0.0),
             exporter=exporter)
+
+    def _make_profiler(self):
+        from filodb_tpu_torch.obs.profiler import SamplingProfiler
+        if not self.config.get("profiler-enabled", False):
+            return None
+        return SamplingProfiler(
+            hz=float(self.config.get("profiler-hz", 29.0)),
+            max_stacks=int(self.config.get("profiler-max-stacks", 4096)),
+            top_n=int(self.config.get("profiler-top-n", 20))).start()
 
     def _make_shard(self, shard: int):
         """One shard: its cardinality tracker with the quota overrides,
@@ -728,7 +739,8 @@ class FiloServer:
                                                 1000.0)),
             peer_fanout_workers=int(self.config.get(
                 "peer-fanout-workers", 0) or 0),
-            worker_id=self.config.get("worker-id"))
+            worker_id=self.config.get("worker-id"),
+            profiler=self._make_profiler())
         # the shared public accept edge: bound here with SO_REUSEPORT (the
         # kernel balances connections across the workers) or inherited
         # from the supervisor; both feed the private port's handlers
@@ -938,6 +950,7 @@ class FiloServer:
             "backfill_epochs": epochs,
             "topo_epoch": self.mapper.topology_epoch})
 
+    @thread_root("bus-watermark-tick")
     def _bus_watermark_run(self, interval_s: float) -> None:
         while not self._bus_tick_stop.wait(interval_s):
             try:
@@ -1092,6 +1105,7 @@ class FiloServer:
             if owner == self.node_id:
                 mine.append(sh)
 
+        @thread_root("crash-adopt")
         def adopt_all():
             # off the detector's poll thread: the column-store bootstrap
             # can take long, and health checks must keep running
@@ -1132,6 +1146,7 @@ class FiloServer:
             self.mapper.assign(sh, node)
             self.mapper.update(sh, ShardStatus.RECOVERY, node)
 
+        @thread_root("crash-release")
         def release_all():
             # off the poll thread: driver stops join + flush
             for sh in mine:
@@ -1229,10 +1244,12 @@ class FiloServer:
         False: a crash leaves the unflushed tail in the stream logs
         only), then close the streams; then the metering loop, the HTTP
         edge, the trace exporter and, when the server built the backend,
-        its device executor (a backend passed in belongs to the
-        caller). The rules engine and the self-monitoring loop stop
-        first, each with its internal driver and stream, then the
-        control-plane client and its gossip thread."""
+        its device executor and its cached tiles (a backend passed in
+        belongs to the caller). The rules engine and the self-monitoring
+        loop stop first, each with its internal driver and stream (and
+        each takes its collector out of the global metric registry, which
+        would otherwise keep this server and its device tiles alive), then
+        the control-plane client and its gossip thread."""
         if self.rules is not None:
             self.rules.stop()
         if self._rules_driver is not None:
@@ -1274,16 +1291,31 @@ class FiloServer:
         if self.tenant_metering is not None:
             self.tenant_metering.stop()
         if self.http:
+            if self.http.profiler is not None:
+                self.http.profiler.stop()
             if self.http.tracer.exporter is not None:
                 self.http.tracer.exporter.stop()
             self.http.stop()
-        if self._own_backend and self.backend is not None \
-                and self.backend.batcher is not None:
-            self.backend.batcher.executor.stop()
+        if self._own_backend and self.backend is not None:
+            if self.backend.batcher is not None:
+                self.backend.batcher.executor.stop()
+            # the tiles of a backend no one else holds: release their
+            # device memory now, not when the last reference to this
+            # server goes
+            self.backend.release()
 
     @property
     def port(self) -> int:
         return self.http.port if self.http else -1
+
+
+@thread_root("main-idle")
+def _main_idle() -> None:
+    # the main thread parks here for the life of the process; a registered
+    # root, so the sampling profiler attributes it instead of counting a
+    # permanently-asleep thread as unattributed
+    while True:
+        time.sleep(3600)
 
 
 def main(argv=None) -> int:
@@ -1338,8 +1370,7 @@ def main(argv=None) -> int:
     print(f"filodb-torch server listening on :{server.port}",
           file=sys.stderr)
     try:
-        while True:
-            time.sleep(3600)
+        _main_idle()
     except KeyboardInterrupt:
         server.stop()
     return 0

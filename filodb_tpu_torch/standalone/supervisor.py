@@ -43,11 +43,9 @@ The pieces:
 * **Aggregation** — ``/metrics`` merges every worker's exposition with
   a ``worker`` label injected (per-worker batcher occupancy, cache hit
   ratios, qps side by side); ``/debug/traces``, ``/debug/queries``,
-  and ``/debug/slow_queries`` and ``/debug/events`` concatenate worker
-  payloads tagged by worker. Workers stay individually scrapeable on
-  their private ports. ``/debug/threads`` answers 501 here as on every
-  worker: the port has no thread inventory yet (ROADMAP A.12), and a
-  merge of the workers' 501s would read as an empty success.
+  ``/debug/slow_queries``, ``/debug/threads`` and ``/debug/events``
+  concatenate worker payloads tagged by worker. Workers stay
+  individually scrapeable on their private ports.
 
 * **Shutdown / rolling restart** — graceful stop drains each worker
   through the membership protocol (``POST /admin/drain`` walks
@@ -89,6 +87,8 @@ import urllib.parse
 import urllib.request
 from typing import Dict, List, Optional
 
+from filodb_tpu_torch.lint.locks import guarded_by
+from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs.metrics import (ExpositionBuilder,
                                           merge_expositions,
                                           parse_exposition)
@@ -270,6 +270,7 @@ class _Worker:
         self.last_spawn = 0.0
 
 
+@guarded_by("_lock", "_workers", "_stopping")
 class Supervisor:
     """Fork, monitor, and aggregate N standalone query workers."""
 
@@ -360,6 +361,7 @@ class Supervisor:
                          daemon=True,
                          name=f"worker-startup-{w.ordinal}").start()
 
+    @thread_root("worker-startup")
     def _await_startup(self, w: _Worker, proc: subprocess.Popen) -> None:
         deadline = time.monotonic() + float(
             self.config.get("worker-startup-timeout-s", 180.0))
@@ -385,6 +387,7 @@ class Supervisor:
         if self.bus is not None:
             self.bus.broadcast({"type": "worker-up", "node": w.node_id})
 
+    @thread_root("worker-drain")
     def _drain(self, proc: subprocess.Popen) -> None:
         try:
             while proc.stdout.read1(65536):
@@ -393,6 +396,7 @@ class Supervisor:
             pass
 
     # -- supervision ------------------------------------------------------
+    @thread_root("worker-supervisor")
     def _monitor_run(self) -> None:
         interval = float(self.config.get("monitor-interval-s", 0.15))
         health_every = float(self.config.get(
@@ -485,6 +489,7 @@ class Supervisor:
                 self.end_headers()
                 self.wfile.write(body)
 
+            @thread_root("supervisor-admin")
             def do_GET(self):
                 try:
                     code, payload = sup._admin_route(
@@ -518,12 +523,9 @@ class Supervisor:
             return 200, self.status()
         if route == "/metrics":
             return 200, self.metrics_text()
-        if route == "/debug/threads":
-            return 501, {"status": "error", "errorType": "not_implemented",
-                         "error": "the thread inventory is not ported yet "
-                                  "(ROADMAP A.12 certification rail)"}
         if route in ("/debug/traces", "/debug/queries",
-                     "/debug/slow_queries", "/debug/events"):
+                     "/debug/slow_queries", "/debug/threads",
+                     "/debug/events"):
             return 200, self._debug_merge(route, parsed.query)
         if route == "/admin/invalidate" and method == "POST":
             reason = (qs.get("reason") or ["schema"])[0]

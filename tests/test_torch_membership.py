@@ -363,15 +363,10 @@ def _families(port):
             if ln.startswith("# TYPE ")}
 
 
-# families of the reference with no counterpart in the port -> why
-ABSENT_FAMILIES = {
-    # eager PyTorch keeps no compiled-executable cache
-    "filodb_exec_cache_entries", "filodb_exec_cache_hits_total",
-    "filodb_exec_cache_misses_total", "filodb_executables",
-    # the device profiler's collector of XLA executables (ROADMAP A.9)
-    "filodb_executable_flops", "filodb_executable_builds_total",
-    "filodb_executable_bytes_accessed",
-}
+# families of the reference with no counterpart in the port -> why: none
+# since the port accounts its dispatch keys (the exec-cache families) and
+# profiles them (obs/devprof.py)
+ABSENT_FAMILIES: set = set()
 # families of the port the reference lacks -> why: the count of gRPC
 # downgrades to the HTTP plane (ROADMAP C.15)
 EXTRA_FAMILIES = {"filodb_grpc_plane_fallbacks_total"}

@@ -32,7 +32,6 @@ import socket
 import subprocess
 import sys
 import time
-import urllib.error
 import urllib.parse
 import urllib.request
 
@@ -273,8 +272,9 @@ def test_supervisor_starts_and_stops_with_no_worker_serving(tmp_path):
         lines = sup.metrics_text().splitlines()
         assert "filodb_supervisor_workers 1" in lines
         assert 'filodb_supervisor_worker_alive{worker="0"} 0' in lines
+        # no worker serves: the merged inventory is an empty success
         code, body = sup._admin_route("/debug/threads")
-        assert code == 501 and "A.12" in body["error"]
+        assert code == 200 and body == {"status": "success", "data": []}
         code, _ = sup._admin_route("/no/such/route")
         assert code == 404
     finally:
@@ -621,9 +621,16 @@ def test_fleet_merges_debug_routes(fleet):
     assert set(traces["summary"]) == {"0", "1"}
     for route in ("/debug/queries", "/debug/slow_queries", "/debug/events"):
         assert json.loads(_http(sup, route))["status"] == "success"
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _http(sup, "/debug/threads")
-    assert e.value.code == 501
+    # both workers' thread inventories, each entry tagged by its worker
+    threads = json.loads(_http(sup, "/debug/threads"))
+    assert threads["status"] == "success"
+    for w in (0, 1):
+        names = {e["name"] for e in threads["data"] if e["worker"] == w}
+        assert {"http-handler", "accept-edge", "bus-client",
+                "device-executor", "main-idle"} <= names, (w, names)
+        live = {e["name"] for e in threads["data"]
+                if e["worker"] == w and e["live_threads"]}
+        assert {"bus-client", "accept-edge"} <= live, (w, live)
 
 
 def test_fleet_admin_invalidate_reaches_every_worker(fleet):
