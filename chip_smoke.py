@@ -151,12 +151,31 @@ non-zero exit):
      through POST /api/v1/ingest/influx, a clean stop (the flush), and
      every ds sample emitted read back from the 5 m and 1 h datasets
      (the `downsample` line);
+ 13. the certification rail (filodb_tpu_torch/lint/ulpcert.py and
+     filodb_tpu_torch/testing/soak.py): (a) every @precision claim's
+     harness with device="cuda" (the torch ops the card runs and, for
+     groupsum-recombine-f32, the group-sum kernel's own output over the
+     harness's full-span world), each claim's worst error beside its
+     budget, then at the engine's width: the three counter claims over
+     S_ENGINE series and the group-sum claim at S_ENGINE series x 469
+     steps of a 5 m window every 60 s (one group per series, windows on
+     samples: each group's sum is its series' recombined delta); the
+     card's division by a Python scalar checked apart (against the CPU's,
+     a 0-dim divisor on the card, and a multiply by the reciprocal); (b) the
+     generated soak: 200 queries of QueryGen(seed=0xD1FF) over the
+     regular world (10 s +/-2 s, no gaps, a reset, flushed, an unflushed
+     tail for two metrics) and over the reference soak's world, through
+     QueryEngine with TorchBackend() on the card, each answer held to the
+     pure-Python ref_eval, with the cache off and again through the
+     results cache (cold, then warm); the backend's route counters and both
+     kernels' launches over the soak above 0, every kernel call of the
+     soak held against its plain version (the `certification` line);
   then the `memory` line: the card's allocated memory (live tensors)
   after each phase, each stopped server's held to within 256 MiB of the
   level before it started, and phase 12 starting with at most 1 GiB
   allocated (ROADMAP C.23; each reading is also logged on its own line);
   then the `kernels` line: launches (phase 4, and phases 5-12 as
-  `launches_phase5` to `launches_phase12`; phase 11's are the workers'
+  `launches_phase5` to `launches_phase13`; phase 11's are the workers'
   own counts, from their &explain=analyze), max error, kernel and plain
   times (CUDA events over warmed launches; `device_ms` by CUDA-graph
   replay, without the host's cost of a call) and the least time the card
@@ -191,6 +210,14 @@ each side of a tiered answer within rtol 1e-5 of the numpy oracle over
 that side's rows, the grouped rate's knife-edge cells allowed their
 branch spread (check_tier_answer); the emitted ds samples exactly the
 flush rule's.
+Phase 13: each claim within its @precision budget (f32 or f64 ulps of
+the f64 reference, plus the fixed-point floor span * 2**-59 where the
+claim states it); each soak answer within 1e-6 absolute + 1e-6 relative
+of ref_eval on f64 routes, within its f32 routes' budgets in f32 ulps of
+the answer (of the sum of the magnitudes of the f32-route values it adds
+or subtracts) on f32 routes (tilestore/fast and /slide 16, the group-sum
+4 + 4), a knife edge (a gap within 1 ms of its threshold) allowed the
+other branch, counted and named (filodb_tpu_torch/testing/soak.py).
 Phase 10: the job rates within rtol 1e-5 of the integer-rule oracle (on
 a tick that did not take the fused group-sum, plus the knife spread) and
 of the uncached HTTP answer; the alert's active set decided by the
@@ -201,7 +228,8 @@ within rtol 1e-5 of a branch variant of the oracle.
 Standard output: the card's name and power limit after phase 1, then each
 phase's JSON line as the phase ends (`functions` with `queries`,
 `serving`, `server`, `rules`, `durability`, `cluster`, `supervisor`,
-`downsample`), then the `memory` and `kernels` lines, and last
+`downsample`, `certification`), then the `memory` and `kernels` lines,
+and last
 {"ok": true, "device": {...}}. The script exits non-zero,
 printing no result, when there is no CUDA device.
 """
@@ -5069,6 +5097,173 @@ def phase_downsample(gen, dev, rows: dict, wdir: dict, bw: float,
                            "tiered": srv["server"], "card": smi}}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the certification rail on the card
+# ---------------------------------------------------------------------------
+
+CERT_ENGINE_T = 469     # the group-sum claim at the engine's grid as well
+# the counter claims at the engine's width (their harnesses' own grid)
+CERT_COUNTER_CLAIMS = ("counter-exact-slot-index", "counter-fast-hybrid",
+                       "counter-slide-hybrid")
+
+
+def scalar_division(dev) -> dict:
+    """The card's division by a Python scalar, apart: integer ms as f64
+    and f32 divided by 1000.0 (ms to s, as the counter evaluators and the
+    epilogue divide) on the card, with the divisor a Python scalar, a
+    0-dim tensor on the card, and as a multiply by its reciprocal; each
+    held bit for bit against the CPU's division. Returns the elements
+    that differ."""
+    ms = np.random.default_rng(0xD1).integers(-10 ** 7, 10 ** 7, 1 << 20)
+    out = {"values": int(ms.size)}
+    for dtype in (torch.float64, torch.float32):
+        x = torch.as_tensor(ms, dtype=dtype)
+        cpu = x / 1000.0
+        xd = x.to(dev)
+        got = {"scalar": xd / 1000.0,
+               "tensor": xd / torch.tensor(1000.0, dtype=dtype, device=dev),
+               "reciprocal": xd * (1.0 / 1000.0)}
+        row = {f"{k}_vs_cpu": int((v.cpu() != cpu).sum())
+               for k, v in got.items()}
+        row["scalar_vs_reciprocal"] = int(
+            (got["scalar"] != got["reciprocal"]).sum())
+        out[str(dtype).replace("torch.", "")] = row
+    return out
+
+
+def certify_on_card(dev, smi: str) -> dict:
+    """13(a): every @precision harness with device="cuda" (what the card
+    runs: the torch ops and, for groupsum-recombine-f32, the group-sum
+    kernel over the harness's full-span world), then at the engine's
+    width: the three counter claims over S_ENGINE series, and the
+    group-sum claim at S_ENGINE series, a 5 m window every 60 s over
+    CERT_ENGINE_T steps, one group per series. Any miss raises. Then the
+    card's scalar division apart (``scalar_division``)."""
+    from filodb_tpu_torch.lint import ulpcert
+    from filodb_tpu_torch.query import kernels as kn
+
+    kn.reset_launches()
+    runs = [(r.name, r) for r in ulpcert.certify_all(str(dev))]
+    for name in CERT_COUNTER_CLAIMS:
+        runs.append((f"{name}@{S_ENGINE}",
+                     ulpcert.certify(name, str(dev), S=S_ENGINE)))
+    runs.append((f"groupsum-recombine-f32@{S_ENGINE}x{CERT_ENGINE_T}",
+                 ulpcert.certify(
+                     "groupsum-recombine-f32", str(dev), S=S_ENGINE,
+                     N=N_FULL, step_slots=STEP // DT,
+                     window_slots=WINDOW // DT, nsteps=CERT_ENGINE_T)))
+    claims = {}
+    for name, r in runs:
+        claims[name] = {"worst_ulps": r.measured, "budget": r.claimed,
+                        "ok": r.ok, "detail": r.detail}
+        log(f"phase 13: {name}: {r.measured:.4g} ulps on the card, "
+            f"budget {r.claimed:g} ({r.detail})")
+    launches = dict(kn.LAUNCHES)
+    missed = [n for n, c in claims.items() if not c["ok"]]
+    assert not missed, f"claims missed on the card: " \
+        f"{ {n: claims[n] for n in missed} }"
+    # the full-span world and the engine's: two launches of the kernel
+    assert launches["counter_groupsum"] >= 2, launches
+    div = scalar_division(dev)
+    log(f"phase 13: division by 1000.0, elements that differ of "
+        f"{div['values']}: {div}")
+    return {"claims": claims, "launches": launches, "division": div,
+            "card": smi}
+
+
+def soak_on_card(dev) -> dict:
+    """13(b): the generated soak (filodb_tpu_torch/testing/soak.py) over
+    both worlds on TorchBackend(dev) (CUDA), with the cache off and then
+    through the results cache (cold, warm), each answer held to ref_eval
+    within its routes' budgets; the kernels' launches counted over the
+    soak (reset just before, read just after) and every kernel call held
+    against its plain version afterwards."""
+    from filodb_tpu_torch.query import kernels as kn
+    from filodb_tpu_torch.query.backend import TorchBackend
+    from filodb_tpu_torch.testing import soak
+
+    worlds = {"regular": soak.regular_world, "reference":
+              soak.reference_world}
+    shards = {}
+    for name, make in worlds.items():
+        rows, ref = make()
+        shards[name] = (soak.build_shard(rows), ref)
+    counters = ("tile_builds", "aligned_evals", "fused_aggs",
+                "packed_dispatches")
+    out, totals = {}, dict.fromkeys(counters, 0)
+    calls, originals = record_kernel_calls()
+    try:
+        kn.reset_launches()
+        for name, (shard, ref) in shards.items():
+            be = TorchBackend(dev)
+            try:
+                res = soak.run_soak(shard, ref, be, tag=f"card-{name}")
+                cres, cache = soak.run_cache_soak(shard, ref, be,
+                                                  tag=f"card-cache-{name}")
+            finally:
+                be.batcher.executor.stop(WAIT_S)
+                be.release()
+            cnt = {c: getattr(be, c) for c in counters}
+            for c in counters:
+                totals[c] += cnt[c]
+            out[name] = {
+                "queries": res.queries, "cells": res.cells,
+                "queries_per_route": dict(sorted(res.routes.items())),
+                "f32_route_queries": res.f32_queries,
+                "worst_f32_ulps": res.worst_ulps,
+                "worst_query": res.worst_query,
+                "knife_edges": res.knife_edges + cres.knife_edges,
+                "seconds": res.seconds,
+                "cache": {"queries": cres.queries, "cells": cres.cells,
+                          "worst_f32_ulps": cres.worst_ulps,
+                          "hits": cache.hits,
+                          "steps_served": cache.cached_steps_served,
+                          "seconds": cres.seconds},
+                "backend": cnt,
+                "failures": (res.failures + cres.failures)[:10]}
+            log(f"phase 13: soak over the {name} world: {res.queries} "
+                f"queries in {res.seconds:.1f} s and again through the "
+                f"results cache (cold, warm) in {cres.seconds:.1f} s, "
+                f"{len(res.failures) + len(cres.failures)} failures, "
+                f"worst f32-route error "
+                f"{max(res.worst_ulps, cres.worst_ulps):.4g} ulps, knife "
+                f"edges {len(out[name]['knife_edges'])}, {cnt}")
+            assert not res.failures and not cres.failures, \
+                "\n".join((res.failures + cres.failures)[:10])
+            assert cache.hits > 0, "the warm pass never hit the cache"
+        launches = dict(kn.LAUNCHES)
+    finally:
+        restore_kernels(originals)
+    assert all(v > 0 for v in totals.values()), totals
+    assert all(v > 0 for v in launches.values()), \
+        f"a kernel never launched in the soak: {launches}"
+    errs = check_kernel_calls(calls, originals, "the phase-13 soak")
+    return {"worlds": out, "backend": totals, "launches": launches,
+            "errs": errs}
+
+
+def phase_certification(dev, smi: str) -> dict:
+    """Phase 13: the precision claims on the card, then the soak."""
+    t0 = time.perf_counter()
+    cert = certify_on_card(dev, smi)
+    t1 = time.perf_counter()
+    sk = soak_on_card(dev)
+    secs = time.perf_counter() - t0
+    log(f"phase 13: {secs:.1f} s (claims {t1 - t0:.1f} s, soak "
+        f"{secs - (t1 - t0):.1f} s)")
+    return {"launches": sk["launches"], "errs": sk["errs"],
+            "certification": {
+                "seconds": secs, "claims_seconds": t1 - t0,
+                "claims": cert["claims"],
+                "claims_launches": cert["launches"],
+                "scalar_division": cert["division"],
+                "soak": sk["worlds"], "soak_backend": sk["backend"],
+                "soak_launches": sk["launches"],
+                "knife_edges": {w: v["knife_edges"]
+                                for w, v in sk["worlds"].items()},
+                "card": smi}}
+
+
 # allocated device memory (live tensors) a stopped server or a finished
 # phase may leave behind (ROADMAP C.23)
 MEM_SLACK = 256 << 20
@@ -5231,10 +5426,14 @@ def main() -> int:
         ds = run_phase(12, "downsample", phase_downsample, gen12, dev, data,
                        tdir, bw, smi)
         emit("downsample", ds["downsample"])
-        memory["phase12"] = mem_released(
+        memory["phase12"] = before = mem_released(
             before, "phase 12: its server stopped")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    cert = run_phase(13, "certification", phase_certification, dev, smi)
+    emit("certification", cert["certification"])
+    memory["phase13"] = mem_released(
+        before, "phase 13: its backends released")
     emit("memory", {"allocated_bytes": memory, "slack_bytes": MEM_SLACK,
                     "card": smi})
     kernels = []
@@ -5251,8 +5450,10 @@ def main() -> int:
         # kernel's site in each private query's &explain=analyze
         r["launches_phase11"] = supervised["launches"][kname]
         r["launches_phase12"] = ds["launches"].get(kname, 0)
+        r["launches_phase13"] = cert["launches"][kname]
         r["max_abs_err"] = max(r["max_abs_err"], eng["errs"][kname],
                                ds["errs"].get(kname, 0.0),
+                               cert["errs"].get(kname, 0.0),
                                fns["errs"].get(kname, 0.0),
                                srv["errs"].get(kname, 0.0),
                                server["errs"].get(kname, 0.0),

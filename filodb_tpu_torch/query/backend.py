@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from filodb_tpu_torch.lint.caches import cache_registry
+from filodb_tpu_torch.lint.numerics import precision
 from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
@@ -174,6 +175,13 @@ def _correction(vals: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     return _row_cumsum(drops)
 
 
+@precision(
+    "extrapolated-rate-f64", bits=53, rel_ulps=4,
+    reason="the shared f64 extrapolation formula every exact counter "
+           "path funnels through; certified within a few f64 ulps of "
+           "the pure-Python reference (promql/refeval._extrapolated) "
+           "— the two arms of the differential rail agree at the "
+           "formula level, not just end to end")
 def _extrapolated_rate(wstart, wend, counts, t1, v1, t2, v2, is_counter,
                        is_rate):
     """Prometheus extrapolated rate in f64 (rangefn/RateFunctions.scala:37
@@ -181,9 +189,9 @@ def _extrapolated_rate(wstart, wend, counts, t1, v1, t2, v2, is_counter,
     their tile orientation ([S, T] or [T, S])."""
     dev = v1.device
     counts = counts.to(F64)
-    dstart = (t1 - wstart).to(F64) / 1000.0
-    dend = (wend - t2).to(F64) / 1000.0
-    sampled = (t2 - t1).to(F64) / 1000.0
+    dstart = tst.ms_to_s((t1 - wstart).to(F64))
+    dend = tst.ms_to_s((wend - t2).to(F64))
+    sampled = tst.ms_to_s((t2 - t1).to(F64))
     avg_dur = sampled / (counts - 1.0)
     delta = v2 - v1
     nan = torch.full((), float("nan"), dtype=F64, device=dev)
@@ -297,7 +305,7 @@ def _window_endpoint(func: str, ts, vals, lens, w0s, w0e, step,
         dv = v2 - v1
         if func == "irate":
             dv = torch.where(dv < 0, v2, dv)
-            dt = (_take(ts, hi2) - _take(ts, hi2 - 1)).to(F64) / 1000.0
+            dt = tst.ms_to_s((_take(ts, hi2) - _take(ts, hi2 - 1)).to(F64))
             res = dv / torch.where(dt == 0, nan, dt)
         else:
             res = dv
@@ -308,7 +316,7 @@ def _window_endpoint(func: str, ts, vals, lens, w0s, w0e, step,
     if func == "first_over_time":
         return torch.where(has, _take(vals, lo_c), nan)
     if func == "timestamp":
-        return torch.where(has, _take(ts, hi_c).to(F64) / 1000.0, nan)
+        return torch.where(has, tst.ms_to_s(_take(ts, hi_c).to(F64)), nan)
     if func == "present_over_time":
         return torch.where(has, one, nan)
     if func == "absent_over_time":

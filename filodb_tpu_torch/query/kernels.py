@@ -34,6 +34,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from filodb_tpu_torch.lint.numerics import precision
+
 # int32 sentinel for padded samples: beyond any valid relative timestamp
 TR_PAD = np.int32(2**31 - 1)
 
@@ -357,6 +359,17 @@ def groupsum_launch_plan(n_s: int, T: int, G: int, hi_mode: int,
             "n_chunks": -(-T // chunk)}
 
 
+@precision(
+    "groupsum-recombine-f32", bits=61, rel_ulps=4,
+    reason="boundary deltas are exact int32 subtractions of the "
+           "fixed-point hi/lo planes; the f32 recombine "
+           "dh*2^(31-s) + dl*2^-s (csrc/counter_groupsum.cu) rounds "
+           "relative to the delta (wide deltas also round dl itself "
+           "into f32), bounded by a few f32 ulps plus the span*2^-59 "
+           "quantization floor — certified against the direct f64 "
+           "delta over full-span boundary pairs; branch decisions "
+           "stay in integer space (exact_branch), which "
+           "mixed-dtype-comparison polices")
 def counter_groupsum(func: str, st: int, dspan: int, hi_mode: int,
                      lo_mode: int, v_p: torch.Tensor, base: torch.Tensor,
                      onehot: torch.Tensor, kl0: int, w0e_rel: int,

@@ -35,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from filodb_tpu_torch.lint.numerics import precision
 from filodb_tpu_torch.obs import devprof
 from filodb_tpu_torch.query import kernels as kn
 from filodb_tpu_torch.query.model import RawSeries
@@ -43,6 +44,15 @@ F64 = torch.float64
 F32 = torch.float32
 I32 = torch.int32
 I64 = torch.int64
+
+
+def ms_to_s(ms: torch.Tensor) -> torch.Tensor:
+    """Milliseconds to seconds, a true division on ``ms``'s device. A
+    Python-scalar divisor would not do: PyTorch's CUDA division by one
+    multiplies by its reciprocal, which rounds otherwise than the
+    division in 13 % of f64 and 57 % of f32 integer-ms values
+    (chip_smoke phase 13 checks this apart on the card)."""
+    return ms / torch.full((), 1000.0, dtype=ms.dtype, device=ms.device)
 
 _SENT_LO = -(2 ** 31)           # "no sample at or before this slot"
 _SENT_HI = 2 ** 31 - 1          # "no sample at or after this slot"
@@ -387,6 +397,14 @@ class AlignedTiles:
             self._tperm[key] = c
         return c
 
+    @precision(
+        "fixed-point-split", bits=61, rel_ulps=4,
+        reason="exact int32 hi/lo split: |v - mid| * 2**s <= 2**60, so "
+               "boundary subtractions in the group-sum kernel are "
+               "exact integer ops; only the final f32 recombine "
+               "rounds, relative to the delta, with a fixed-point "
+               "quantization floor of span * 2**-59 — certified "
+               "against the direct f64 delta")
     def _fixed_channels(self, vch: str):
         """Per-series 61-bit fixed-point encoding of a value channel for
         the group-sum kernel: each series is rebased to its in-tile
@@ -720,7 +738,7 @@ def _eval_core(func: str, nsteps: int, arrs: Dict[str, torch.Tensor],
         return torch.where(has, v1, nan)
     if func == "timestamp":
         (t2,) = _select_last(arrs, ["ts"], N, k_hi, wend)
-        return torch.where(has, t2 / 1000.0, nan)
+        return torch.where(has, ms_to_s(t2), nan)
     if func == "present_over_time":
         return torch.where(has, one, nan)
     if func == "absent_over_time":
@@ -811,6 +829,13 @@ def _slot_bounds(nsteps: int, base: int, dt: int, w0s: int, w0e: int,
     return wend, wstart, k_hi, k_lo
 
 
+@precision(
+    "counter-exact-slot-index", bits=31, rel_ulps=4,
+    reason="the i64->i32 casts narrow SLOT indices, each clipped to "
+           "[0, num_slots] first (num_slots < 2**31 by construction); "
+           "the value math stays f64 end to end — certified against "
+           "the pure-Python per-window reference evaluator "
+           "(promql/refeval) to a few f64 ulps")
 def _eval_counter_t(func: str, nsteps: int, arrs: Dict[str, torch.Tensor],
                     num_slots: int, base: int, dt: int, w0s: int, w0e: int,
                     step: int) -> torch.Tensor:
@@ -900,9 +925,18 @@ def _wdur_s(w0s, w0e, device) -> torch.Tensor:
     d = w0e - w0s
     if not isinstance(d, torch.Tensor):
         d = torch.tensor(d, dtype=I64, device=device)
-    return d.to(F32) / 1000.0
+    return ms_to_s(d.to(F32))
 
 
+@precision(
+    "counter-fast-hybrid", bits=31, rel_ulps=16,
+    reason="the int31 span-guard idiom: the dispatcher "
+           "(_slide_eligible / evaluate_counters_t's fits_i32) proves the "
+           "whole query grid fits int32 ms relative to the tile base "
+           "before the i64->i32 timestamp narrowing; boundary deltas "
+           "stay exact f64 and only the extrapolation epilogue runs "
+           "f32 — certified against the exact-f64 evaluator "
+           "(_eval_counter_t) within 16 f32 ulps")
 def _eval_counter_fast(func: str, nsteps: int, arrs: Dict[str, torch.Tensor],
                        num_slots: int, base: int, dt: int, w0s: int,
                        w0e: int, step: int) -> torch.Tensor:
@@ -991,6 +1025,14 @@ def _tiles_arrays_slide(tiles: AlignedTiles, func: str, st: int
     }
 
 
+@precision(
+    "counter-slide-hybrid", bits=31, rel_ulps=16,
+    reason="same hybrid numerics as counter-fast-hybrid (int32 "
+           "relative timestamps under the _slide_eligible span guard, "
+           "exact f64 boundary deltas, f32 epilogue); the stride-"
+           "permuted slices change only the memory access "
+           "pattern — certified against the exact-f64 evaluator "
+           "within the same 16 f32 ulps")
 def _eval_counter_slide(func: str, nsteps: int, st: int,
                         arrs: Dict[str, torch.Tensor], num_slots: int,
                         base: int, dt: int, w0s: int, w0e: int,
@@ -1049,15 +1091,25 @@ def _eval_counter_slide(func: str, nsteps: int, st: int,
                          _wdur_s(w0s, w0e, dev))
 
 
+@precision(
+    "counter-epilogue-f32", bits=24, rel_ulps=4,
+    reason="the extrapolation epilogue narrows the exact f64 boundary "
+           "delta and exact i32 time differences to f32 for the "
+           "division chain (the group-sum kernel's epilogue runs the "
+           "same chain in f32 on the card); certified within 4 f32 ulps "
+           "of the f64-reference formula — two independent evaluations "
+           "(the plain version and the kernel, or the two packages) "
+           "may differ by at most twice that budget "
+           "(rel_bound(cross_program))")
 def _f32_epilogue(func, counts, t1, v1, t2, v2, wstart_r, wend_r, wdur_s):
     """Shared f32 extrapolation epilogue: exact f64 delta, f32 factor."""
     dev = counts.device
     nan = torch.full((), float("nan"), dtype=F32, device=dev)
     inf = torch.full((), float("inf"), dtype=F32, device=dev)
     delta = (v2 - v1).to(F32)                       # exact f64 difference
-    sampled = (t2 - t1).to(F32) / 1000.0            # exact i32 difference
-    dstart = (t1 - wstart_r).to(F32) / 1000.0
-    dend = (wend_r - t2).to(F32) / 1000.0
+    sampled = ms_to_s((t2 - t1).to(F32))            # exact i32 difference
+    dstart = ms_to_s((t1 - wstart_r).to(F32))
+    dend = ms_to_s((wend_r - t2).to(F32))
     counts_f = counts.to(F32)
     avg_dur = sampled / (counts_f - 1.0)
     if func != "delta":                             # counter zero-clamp
@@ -1117,6 +1169,17 @@ def note_exec(site: str, key: Tuple, inputs: Sequence, out,
             devprof.sig_cost, sig, devprof.arg_sig(
                 out if isinstance(out, (tuple, list)) else (out,)))
     devprof.note_dispatch(site, key, first, probe=probe, sig=sig)
+
+
+def reset_exec_stats() -> None:
+    """Forget every dispatch key seen and zero the hit/miss counts (a
+    test hook, used with ``devprof.GLOBAL_PROFILER.reset()``): the next
+    dispatch of any key is a first sight, a build, again, whatever ran
+    before in this process."""
+    with _JIT_STATS_LOCK:
+        _EXEC_KEYS.clear()
+        for k in _JIT_STATS:
+            _JIT_STATS[k] = 0
 
 
 def executable_cache_stats() -> Dict[str, int]:

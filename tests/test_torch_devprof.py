@@ -53,6 +53,14 @@ FLUSHED_END = (T0 + (N - 5) * DT) // 1000       # seconds
 TAIL_END = (T0 + (N + TAIL - 2) * DT) // 1000
 
 
+def _reset_profile():
+    """Empty the device profile AND the dispatch keys seen: a key's next
+    dispatch is then its build, whatever another test file dispatched
+    earlier on this worker process."""
+    devprof.GLOBAL_PROFILER.reset()
+    tst.reset_exec_stats()
+
+
 # ---------------------------------------------------------------------------
 # unit: profiler bookkeeping
 # ---------------------------------------------------------------------------
@@ -154,10 +162,8 @@ def test_a_new_shape_under_a_known_key_is_a_recompile():
     compiled program, so a key's first dispatch is its build, a repeat a
     hit, and a new shape signature under the same key a recompile, with
     the reference's disposition words."""
-    devprof.GLOBAL_PROFILER.reset()
+    _reset_profile()                          # a first sight in this test
     key = ("dbl", 8, "unit-test")
-    with tst._JIT_STATS_LOCK:
-        tst._EXEC_KEYS.discard(("t", key))   # a first sight in this test
     x8, x16 = torch.ones(8), torch.ones(16)
     tags = _events(lambda: [
         tst.note_exec("t", key, (x8,), x8 * 2.0),
@@ -203,6 +209,7 @@ SPANS = [
 
 def test_analyze_payload_attribution():
     outs = []
+    tst.reset_exec_stats()
     for mod in (devprof, j_devprof):
         mod.GLOBAL_PROFILER.reset()
         mod.GLOBAL_PROFILER.note_build(
@@ -226,7 +233,7 @@ def test_analyze_payload_attribution():
     assert out["qos"]["tenant"] == "t"
     assert "residency" not in out          # no snapshot passed
     assert outs[0] == outs[1]
-    devprof.GLOBAL_PROFILER.reset()
+    _reset_profile()
     j_devprof.GLOBAL_PROFILER.reset()
 
 
@@ -300,6 +307,7 @@ def servers():
         state.load_into_store(port.store, port.ref, rows, "prom-counter",
                               flush, num_shards=4, spread=1)
         _load_jax(jax_srv, rows, flush)
+    _reset_profile()
     try:
         yield port, jax_srv
     finally:
@@ -340,6 +348,20 @@ def test_analyze_tilestore_path(servers):
     assert "parseMs" in az["stages"]
     # the trace itself still attaches (analyze extends explain=trace)
     assert "trace" in body and body["trace"]["num_spans"] > 0
+
+
+def test_analyze_tilestore_path_whatever_ran_before(servers):
+    """The first sight of a dispatch key is process-wide: a file that ran
+    earlier on the same worker and dispatched the same key left it seen,
+    and its next dispatch was a hit with no build in the profile. With
+    the reset hook the analyze path reports its build each time: twice,
+    with a dispatch of the same key in between."""
+    for _ in range(2):
+        _get_raw(servers[0].port, query="rate(http_requests_total[5m])",
+                 start=START, end=FLUSHED_END, step=60, cache="false")
+        assert any(site == "tilestore" for site, _key in tst._EXEC_KEYS)
+        _reset_profile()
+        test_analyze_tilestore_path(servers)
 
 
 def test_analyze_packed_path(servers):

@@ -74,6 +74,11 @@ SERVING_MODULES = (
     "filodb_tpu_torch.lint.locks", "filodb_tpu_torch.lint.caches",
     "filodb_tpu_torch.lint.hotpath", "filodb_tpu_torch.lint.contracts",
     "filodb_tpu_torch.lint.capacity",
+    # the certification rail: the query generator, the reference
+    # evaluator, the precision claims, their harnesses and the soak
+    "filodb_tpu_torch.promql.gen", "filodb_tpu_torch.promql.refeval",
+    "filodb_tpu_torch.lint.numerics", "filodb_tpu_torch.lint.ulpcert",
+    "filodb_tpu_torch.testing.soak",
 )
 
 
