@@ -135,7 +135,8 @@ non-zero exit):
      counter emit mask, the fast path held against the gather path on
      every row and 64 rows against the numpy oracle (the mask against its
      rule), each timed by CUDA events beside its byte bound and peak
-     memory; (b) phase 5's 4,096 gauges backfilled into the copy, then
+     memory; (b) one in 4 of phase 5's 4,096 gauges (1,024, part="p0"
+     among them) backfilled into the copy, then
      DownsamplerJob over its 4 shards at 5 m and 1 h on the card, 64
      gauges held against downsample_gauge_oracle and 64 counters (16
      irregular) against the emit rule, from the raw rows; (c) a
@@ -170,12 +171,36 @@ non-zero exit):
      results cache (cold, then warm); the backend's route counters and both
      kernels' launches over the soak above 0, every kernel call of the
      soak held against its plain version (the `certification` line);
+ 14. the mesh (filodb_tpu_torch/parallel/): the mesh's three claims
+     (append-carry-exact, grouped-reduce-psum, grouped-pair-psum)
+     certified on the card; (a) phase 4's S_ENGINE counters x N_FULL
+     slots as dense tiles placed on 1x1, 2x1, 4x1 and 2x2 (shard x time)
+     partitions of the card: rate/increase/delta, five aligned families
+     and a batch of 4 grids bit for bit the single-device evaluators,
+     the grouped pair and sum/avg/min/max/count by (job) against the
+     numpy f64 oracle, the resident bytes 20 x cap x S_pad, the
+     scatter-gather executor (max/sum_over_time by job, topk 3) over the
+     512 irregular series against the oracle, each evaluator timed by
+     CUDA events beside the single-device path; a 30-slot append in
+     place (data_ptr unchanged), bitwise a fresh placement on the
+     reset-free series; (b) a plain server and one with mesh-enabled
+     under 4 partitions of the card over the counters' last hour plus
+     seed_dev_data(): tests/test_mesh_serving.py's queries over HTTP,
+     the per-series data sections byte for byte the same, the grouped
+     ones against the numpy f64 oracle of the per-series rates, mesh
+     dispatches, mesh-tiles executables in &explain=analyze, no
+     group-sum launch on the mesh's grouped route; (c) two processes x 2
+     partitions of the card joined over gloo
+     (window_aggregate_distributed of sum by (job) of rate over the
+     irregular series; started first, overlapping (a) and (b)), each
+     rank's answer against the single-process 4-partition mesh (the
+     `mesh` line);
   then the `memory` line: the card's allocated memory (live tensors)
   after each phase, each stopped server's held to within 256 MiB of the
   level before it started, and phase 12 starting with at most 1 GiB
   allocated (ROADMAP C.23; each reading is also logged on its own line);
-  then the `kernels` line: launches (phase 4, and phases 5-12 as
-  `launches_phase5` to `launches_phase13`; phase 11's are the workers'
+  then the `kernels` line: launches (phase 4, and phases 5-14 as
+  `launches_phase5` to `launches_phase14`; phase 11's are the workers'
   own counts, from their &explain=analyze), max error, kernel and plain
   times (CUDA events over warmed launches; `device_ms` by CUDA-graph
   replay, without the host's cost of a call) and the least time the card
@@ -218,6 +243,14 @@ the answer (of the sum of the magnitudes of the f32-route values it adds
 or subtracts) on f32 routes (tilestore/fast and /slide 16, the group-sum
 4 + 4), a knife edge (a gap within 1 ms of its threshold) allowed the
 other branch, counted and named (filodb_tpu_torch/testing/soak.py).
+Phase 14: per-series answers bit for bit the single-device path's (in
+(b) the data sections byte for byte); grouped sums and averages within
+1e-12 relative of the numpy f64 oracle over the single-device rates,
+min, max and counts exact; the scatter-gather's max exact and its sums
+within 1e-9 (the reference test's); topk winners exact; the append
+bitwise on the reset-free series and within 2 f64 ulps on those with a
+reset before it (the same carry added in another order); both ranks
+within 1e-12 of the single-process mesh.
 Phase 10: the job rates within rtol 1e-5 of the integer-rule oracle (on
 a tick that did not take the fused group-sum, plus the knife spread) and
 of the uncached HTTP answer; the alert's active set decided by the
@@ -228,7 +261,8 @@ within rtol 1e-5 of a branch variant of the oracle.
 Standard output: the card's name and power limit after phase 1, then each
 phase's JSON line as the phase ends (`functions` with `queries`,
 `serving`, `server`, `rules`, `durability`, `cluster`, `supervisor`,
-`downsample`, `certification`), then the `memory` and `kernels` lines,
+`downsample`, `certification`, `mesh`), then the `memory` and `kernels`
+lines,
 and last
 {"ok": true, "device": {...}}. The script exits non-zero,
 printing no result, when there is no CUDA device.
@@ -1542,8 +1576,8 @@ BURST_ROUNDS = 1        # bursts of each key with the batcher on (cut
                         # from 2 to keep phase 6 near 90 s)
 DOOR_WAIT_S = 60.0      # bound on a burst member's wait at the batcher's
                         # door
-CLIENTS = 8             # free-running engine clients (cut from 16 to
-                        # make room for phase 12)
+CLIENTS = 4             # free-running engine clients (cut from 16 to
+                        # make room for phase 12, from 8 for phase 14)
 CLIENT_WARM = 1         # first queries of each client, left out (warm-up)
 CLIENT_QUERIES = 1      # queries of each client that are measured (cut
                         # from 10 to make room for phase 7, from 3 for
@@ -4419,6 +4453,9 @@ DS_RES = (300_000, 3_600_000)   # the reference's downsample-resolutions
 DS_W_BOUND = 64         # the gather path's samples-per-period cap
 DS_ORACLE_ROWS = 64     # 12(a): rows held against the numpy oracle
 DS_CHECK_SERIES = 64    # 12(b): series of each schema held to the oracle
+DS_GAUGE_STRIDE = 4     # 12(b): one gauge in 4 backfilled, 1,024 of
+                        # phase 5's 4,096 (cut from all of them to keep
+                        # the script under 600 s); part="p0" among them
 DS_TAIL_SERIES = 1_024  # 12(c): counters whose tails go through influx
 TIER_STEP_S = 300       # 12(c): the tiered queries' step over the 8 h
 TIER_RAW_S = 4 * 3_600  # 12(c): raw retention ends ~4 h before the data
@@ -4727,16 +4764,19 @@ class JobSplit:
 
 
 def ds_job(data_dir: str, rows: dict) -> dict:
-    """Phase 12(b): phase 5's gauges backfilled into the copy of phase 8's
-    data-dir, then DownsamplerJob over all 4 shards at both resolutions on
-    the card; DS_CHECK_SERIES gauges held against downsample_gauge_oracle
-    and as many counters (a quarter of them irregular) against the emit
-    rule, both computed from the raw rows."""
+    """Phase 12(b): one in DS_GAUGE_STRIDE of phase 5's gauges backfilled
+    into the copy of phase 8's data-dir, then DownsamplerJob over all 4
+    shards at both resolutions on the card; DS_CHECK_SERIES gauges held
+    against downsample_gauge_oracle and as many counters (a quarter of
+    them irregular) against the emit rule, both computed from the raw
+    rows."""
     from filodb_tpu_torch.downsample import DownsamplerJob
     from filodb_tpu_torch.downsample import kernels as dk
     from filodb_tpu_torch.store import FlatFileColumnStore
 
-    bf = backfill(data_dir, rows, series=(("gauges", "gauge"),))
+    gauge_rows = rows["gauges"][::DS_GAUGE_STRIDE]
+    bf = backfill(data_dir, {"gauges": gauge_rows},
+                  series=(("gauges", "gauge"),))
     log(f"phase 12: gauge backfill {bf['samples']} samples in "
         f"{bf['seconds']:.1f} s")
     before = dir_bytes(data_dir)
@@ -4761,13 +4801,13 @@ def ds_job(data_dir: str, rows: dict) -> dict:
            "bytes_on_disk": dir_bytes(data_dir) - before,
            "split": split.split(secs)}
     n_c = DS_CHECK_SERIES - DS_CHECK_SERIES // 4
-    pick_g = np.linspace(0, len(rows["gauges"]) - 1,
+    pick_g = np.linspace(0, len(gauge_rows) - 1,
                          DS_CHECK_SERIES).astype(int)
     pick_c = np.linspace(0, len(rows["counters"]) - 1, n_c).astype(int)
     pick_i = np.linspace(0, len(rows["irregular"]) - 1,
                          DS_CHECK_SERIES - n_c).astype(int)
     gauges = {(lab["_metric_"], lab["instance"]): (t, v) for lab, t, v in
-              (rows["gauges"][i] for i in pick_g)}
+              (gauge_rows[i] for i in pick_g)}
     counters = {(lab["_metric_"], lab["instance"]): (t, v) for lab, t, v in
                 [rows["counters"][i] for i in pick_c]
                 + [rows["irregular"][i] for i in pick_i]}
@@ -5264,6 +5304,596 @@ def phase_certification(dev, smi: str) -> dict:
                 "card": smi}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the mesh, the sharded tile store and the two-process aggregate
+# ---------------------------------------------------------------------------
+
+# (shard, time) partitions of the one card, laid as make_mesh lays them
+MESH_LAYOUTS = ((1, 1), (2, 1), (4, 1), (2, 2))
+MESH_ALIGNED = ("sum_over_time", "avg_over_time", "count_over_time",
+                "last_over_time", "stddev_over_time")
+MESH_GROUP_AGGS = ("sum", "avg", "min", "max", "count")
+MESH_BATCH = 4          # grids of the mesh-shaped micro-batch
+MESH_APPEND = 30        # slots appended in place to the resident store
+MESH_TIMING_REPS = 5    # CUDA-event reps of each evaluator timing
+# (b): a mesh-enabled server under this many partitions of the card
+MESH_SERVER_PARTITIONS = 4
+# (b): the counters' last hour of phase 4's history (cut in depth from
+# its 8 h to keep phase 14 inside 45 s: two servers load it)
+MESH_SERVER_SLOTS = 360
+# (b): tests/test_mesh_serving.py's queries, per series then grouped
+MESH_SERVER_SERIES = ("rate(http_requests_total[5m])",
+                      "increase(http_requests_total[5m])",
+                      "delta(heap_usage[5m])",
+                      "sum_over_time(heap_usage[5m])",
+                      "avg_over_time(heap_usage[2m])")
+MESH_SERVER_GROUPED = (
+    ("sum(rate(http_requests_total[5m])) by (instance)", "sum", "instance"),
+    ("avg(rate(http_requests_total[5m])) by (instance)", "avg", "instance"),
+    ("count(rate(http_requests_total[5m]))", "count", None))
+MESH_DIST_TIMEOUT_S = 120.0     # (c): each rank process's bound
+
+
+def same_values(a, b) -> bool:
+    """Bit for bit, NaN where NaN (dtype too)."""
+    a = a.detach().cpu() if isinstance(a, torch.Tensor) else a
+    b = b.detach().cpu() if isinstance(b, torch.Tensor) else b
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True)
+
+
+def oracle_grouped(rates: np.ndarray, gids: np.ndarray, G_: int,
+                   agg: str) -> np.ndarray:
+    """[T, S] rates -> [G, T] numpy f64 aggregate by group (NaN where a
+    group has no value)."""
+    out = np.full((G_, rates.shape[0]), np.nan)
+    for g in range(G_):
+        rows = rates[:, gids == g].astype(np.float64)
+        ok = ~np.isnan(rows)
+        cnt = ok.sum(axis=1)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            v = {"sum": lambda: np.where(ok, rows, 0.0).sum(axis=1),
+                 "avg": lambda: np.where(ok, rows, 0.0).sum(axis=1) / cnt,
+                 "count": lambda: cnt.astype(np.float64),
+                 "min": lambda: np.where(ok, rows, np.inf).min(axis=1),
+                 "max": lambda: np.where(ok, rows, -np.inf).max(axis=1)
+                 }[agg]()
+        out[g] = np.where(cnt > 0, v, np.nan)
+    return out
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / |want| over the cells where want is finite
+    (NaN structure must agree)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert np.array_equal(np.isnan(got), np.isnan(want)), "NaN structure"
+    m = np.isfinite(want)
+    if not m.any():
+        return 0.0
+    return float(np.max(np.abs(got[m] - want[m])
+                        / np.maximum(np.abs(want[m]), 1e-300)))
+
+
+def mesh_rows_read(n_slots: int, grid: tuple) -> int:
+    """Distinct slot rows the counter evaluator reads over the grid
+    (w0s, w0e, step, T): each window's boundary rows kc, kc - 1, kl and
+    kl + 1 (a row shared by two windows counts once)."""
+    w0s, w0e, step, T = grid
+    t = np.arange(T, dtype=np.int64)
+    kc = np.floor(((w0e - BASE) + t * step + DT / 2.0) / DT).astype(np.int64)
+    kl = np.ceil(((w0s - BASE) + t * step - DT / 2.0) / DT).astype(np.int64)
+    rows = np.unique(np.clip(np.concatenate([kc, kc - 1, kl, kl + 1]), 0,
+                             n_slots - 1))
+    return int(rows.size)
+
+
+def mesh_module(data: dict, dev, bw: float, smi: str) -> dict:
+    """14(a): the sharded tile store at the engine's width: phase 4's
+    S_ENGINE counters x N_FULL slots as dense aligned tiles on the card,
+    placed on each of MESH_LAYOUTS; every per-series family bit for bit
+    the single-device evaluators, a batch bit for bit its members, the
+    grouped pair and every grouped aggregate by job within 1e-12 of the
+    numpy f64 oracle over the single-device rates (counts exact), the
+    in-place append, the residency bytes, the scatter-gather executor on
+    the irregular series against the numpy oracle; each evaluator timed
+    by CUDA events beside the single-device path's time and its bound."""
+    from filodb_tpu_torch.lint import capacity as cap
+    from filodb_tpu_torch.parallel.mesh import MeshExecutor, make_mesh
+    from filodb_tpu_torch.parallel.shardstore import (ShardedTileEvaluator,
+                                                      ShardedTiles)
+    from filodb_tpu_torch.query import rangefn as rf
+    from filodb_tpu_torch.query import tilestore as tst
+    from filodb_tpu_torch.query.model import RangeParams, RawSeries
+
+    S, N = S_ENGINE, N_FULL
+    keys = [dict(lab) for lab, _, _ in data["counters"]]
+    ts = data["ts"][:, :N]
+    vals = data["vals"][:, :N]
+    tiles = tst.AlignedTiles(keys, BASE, DT, np.ones((S, N), bool), ts,
+                             vals, device=dev)
+    start, fe, _ = engine_grid()
+    steps = np.arange(start * 1000, fe * 1000 + 1, STEP, dtype=np.int64)
+    T = steps.size
+    gids = np.arange(S) % G
+    grid = (int(steps[0]) - WINDOW, int(steps[0]), STEP, T)
+    rows_read = mesh_rows_read(N, grid)
+    # bytes each evaluator must move: its boundary rows of the int32
+    # times and the f64 values once, its output once
+    counter_bytes = rows_read * S * (4 + 8) + T * S * 4
+    bounds = {"counters": counter_bytes / bw * 1e3,
+              "grouped_pair": (counter_bytes - T * S * 4
+                               + 2 * T * G * 8) / bw * 1e3}
+    single = {}
+    ref = {f: tst.evaluate_counters_t(tiles, f, steps, WINDOW)
+           for f in ("rate", "increase", "delta")}
+    single["counters_ms"] = time_ms(
+        lambda: tst.evaluate_counters_t(tiles, "rate", steps, WINDOW),
+        reps=MESH_TIMING_REPS, warm=1)
+    ref_al = {f: tst.evaluate_aligned(tiles, f, steps, WINDOW)
+              for f in MESH_ALIGNED}
+    single["aligned_ms"] = time_ms(
+        lambda: tst.evaluate_aligned(tiles, "sum_over_time", steps, WINDOW),
+        reps=MESH_TIMING_REPS, warm=1)
+    al_arrays = tst._tiles_arrays(tiles, "sum_over_time")
+    # the aligned family reads its row-major channels at the window's
+    # boundary columns, each once, and writes its [S, T] f64 out
+    bounds["aligned"] = (rows_read * S * 8 * len(al_arrays)
+                         + T * S * 8) / bw * 1e3
+    # the batch's grids: the engine grid and up to MESH_BATCH - 1 steps
+    # earlier (a dashboard's refreshes), all inside the tiles
+    w0s_l = [grid[0] - k * STEP for k in range(MESH_BATCH)]
+    w0e_l = [grid[1] - k * STEP for k in range(MESH_BATCH)]
+    # the batch reads the union of its grids' boundary rows (the grids
+    # overlap but for MESH_BATCH - 1 steps) and writes B outputs
+    rows_b = mesh_rows_read(N, (grid[0] - (MESH_BATCH - 1) * STEP,
+                                grid[1] - (MESH_BATCH - 1) * STEP, STEP,
+                                T + MESH_BATCH - 1))
+    bounds["batch"] = (rows_b * S * (4 + 8)
+                       + MESH_BATCH * T * S * 4) / bw * 1e3
+    fam = tst.counters_batch_family(tiles, "rate", steps, WINDOW, 0)
+    ref_b = tst.evaluate_counters_t_batch(tiles, "rate", fam, T, STEP,
+                                          w0s_l, w0e_l)
+    single["batch_ms"] = time_ms(
+        lambda: tst.evaluate_counters_t_batch(tiles, "rate", fam, T, STEP,
+                                              w0s_l, w0e_l),
+        reps=MESH_TIMING_REPS, warm=1)
+    onehot = np.zeros((S, G), np.float32)
+    onehot[np.arange(S), gids] = 1.0
+    # the single-device path's grouped sum: the group-sum kernel
+    single["grouped_pair_ms"] = time_ms(
+        lambda: tst.groupsum_counters(tiles, "rate", steps, WINDOW, onehot),
+        reps=MESH_TIMING_REPS, warm=1)
+    rates = ref["rate"].cpu().numpy()
+    want = {a: oracle_grouped(rates, gids, G, a) for a in MESH_GROUP_AGGS}
+    reset_free = ~(np.diff(vals, axis=1) < 0).any(axis=1)
+
+    # the irregular series: 4 shard groups, grouped by job
+    irr = [RawSeries(dict(lab), t, v, is_counter=True)
+           for lab, t, v in data["irregular"]]
+    irr_groups = [irr[i::4] for i in range(4)]
+    irr_gids = [[int(s.labels["job"][3:]) for s in row]
+                for row in irr_groups]
+    params = RangeParams(int(steps[0]), STEP, int(steps[-1]))
+    # the scatter-gather must read every sample its windows hold (an i64
+    # time and an f64 value) once, and write the [G, T] f64 out
+    in_span = sum(int(((s.ts >= grid[0]) & (s.ts <= int(steps[-1]))).sum())
+                  for s in irr)
+    bounds["window_aggregate"] = (in_span * 16 + G * T * 8) / bw * 1e3
+    irr_oracle = {}
+    for func, agg in (("max_over_time", "max"), ("sum_over_time", "sum")):
+        per = np.vstack([rf.evaluate(func, s.ts, s.values, params.start_ms,
+                                     STEP, params.end_ms, WINDOW)
+                         for row in irr_groups for s in row])
+        g_all = np.concatenate([np.asarray(g) for g in irr_gids])
+        irr_oracle[func] = (per, oracle_grouped(per.T, g_all, G, agg))
+
+    layouts = {}
+    for ns, nt in MESH_LAYOUTS:
+        name = f"{ns}x{nt}"
+        mesh = make_mesh(ns, nt, [dev] * (ns * nt))
+        ev = ShardedTileEvaluator(mesh)
+        st = ev.place(tiles)
+        assert st is not None, f"{name}: tiles not placed"
+        # the store's own residency: 20 B a padded slot of its three
+        # channels (tsr i32, v and cv f64), before any aligned placement
+        mine = cap._RESIDENT[("shardstore-resident-channels",
+                              str(ns))][st._res_key[2]]
+        assert st.S_pad == S and st.cap == 4096, (st.S_pad, st.cap)
+        assert mine == 20 * st.cap * st.S_pad, (mine, st.cap, st.S_pad)
+        row = {"partitions": ns * nt, "resident_bytes": mine}
+        for f in ("rate", "increase", "delta"):
+            assert same_values(st.eval_counters(f, steps, WINDOW), ref[f]), \
+                f"{name}: {f} not bit for bit the single-device answer"
+        for f in MESH_ALIGNED:
+            assert same_values(st.eval_aligned(tiles, f, steps, WINDOW),
+                               ref_al[f]), \
+                f"{name}: {f} not bit for bit the single-device answer"
+        got_b = st.eval_counters_batch("rate", T, STEP, w0s_l, w0e_l)
+        assert same_values(got_b, ref_b), f"{name}: batch"
+        for k in range(MESH_BATCH):
+            one = tst.evaluate_counters_t(tiles, "rate", steps - k * STEP,
+                                          WINDOW)
+            assert same_values(got_b[k], one), f"{name}: member {k}"
+        sums, cnts = st.eval_grouped_pair("rate", steps, WINDOW, gids, G)
+        row["grouped_pair_rel_err"] = rel_err(sums.T, want["sum"])
+        assert row["grouped_pair_rel_err"] <= 1e-12, row
+        assert np.array_equal(cnts.T, want["count"]), f"{name}: counts"
+        row["grouped_rel_err"] = {}
+        for agg in MESH_GROUP_AGGS:
+            got = st.eval_grouped("rate", steps, WINDOW, gids, G, agg)
+            e = rel_err(got, want[agg])
+            row["grouped_rel_err"][agg] = e
+            assert e <= (0.0 if agg in ("count", "min", "max") else 1e-12), \
+                (name, agg, e)
+        row["resident_bytes_with_aligned"] = cap._RESIDENT[
+            ("shardstore-resident-channels", str(ns))][st._res_key[2]]
+        row["ms"] = {
+            "counters": time_ms(lambda: st.eval_counters(
+                "rate", steps, WINDOW), reps=MESH_TIMING_REPS, warm=1),
+            "aligned": time_ms(lambda: st.eval_aligned(
+                tiles, "sum_over_time", steps, WINDOW),
+                reps=MESH_TIMING_REPS, warm=1),
+            "batch": time_ms(lambda: st.eval_counters_batch(
+                "rate", T, STEP, w0s_l, w0e_l), reps=MESH_TIMING_REPS,
+                warm=1),
+            "grouped_pair": time_ms(lambda: st.eval_grouped_pair(
+                "rate", steps, WINDOW, gids, G), reps=MESH_TIMING_REPS,
+                warm=1)}
+        # the scatter-gather executor over the irregular series
+        ex = MeshExecutor(mesh)
+        row["window_aggregate_rel_err"] = {}
+        for func, agg in (("max_over_time", "max"),
+                          ("sum_over_time", "sum")):
+            got = ex.window_aggregate(irr_groups, params, func, WINDOW, agg,
+                                      irr_gids, G)
+            e = rel_err(got, irr_oracle[func][1])
+            row["window_aggregate_rel_err"][func] = e
+            assert e <= (0.0 if agg == "max" else 1e-9), (name, func, e)
+        row["ms"]["window_aggregate"] = time_ms(
+            lambda: ex.window_aggregate(irr_groups, params, "max_over_time",
+                                        WINDOW, "max", irr_gids, G),
+            reps=2, warm=1)
+        vals_k, ids, s_pad = ex.window_topk(
+            irr_groups, params, "max_over_time", WINDOW, 3, False,
+            [[0] * len(r) for r in irr_groups], 1)
+        per = irr_oracle["max_over_time"][0]
+        flat = [s for r in irr_groups for s in r]
+        index = {id(s): n for n, s in enumerate(flat)}
+        for t in range(T):
+            col = np.where(np.isnan(per[:, t]), -np.inf, per[:, t])
+            top = set(np.argsort(-col, kind="stable")[:3].tolist())
+            got = {index[id(irr_groups[r // s_pad][r % s_pad])]
+                   for r in ids[0, t] if r >= 0}
+            assert got == top, f"{name}: topk winners at step {t}"
+            assert np.array_equal(np.sort(vals_k[0, t])[::-1],
+                                  np.sort(col[list(top)])[::-1]), t
+        log(f"phase 14: {name} ({ns * nt} partitions of the card): per "
+            f"series bit for bit, grouped rel err "
+            f"{max(row['grouped_rel_err'].values()):.3g}, ms {row['ms']} "
+            f"(single device: {single}) [{smi}]")
+        layouts[name] = row
+        del st, ev, ex
+    # the in-place append of MESH_APPEND slots, against a fresh placement
+    n0 = N - MESH_APPEND
+    prefix = tst.AlignedTiles(keys, BASE, DT, np.ones((S, n0), bool),
+                              ts[:, :n0], vals[:, :n0], device=dev)
+    mesh = make_mesh(2, 2, [dev] * 4)
+    ev = ShardedTileEvaluator(mesh)
+    st = ev.place(prefix)
+    ptrs = [t.data_ptr() for name in ("tsr", "v", "cv")
+            for r in st._chan[name] for t in r]
+    t0 = time.perf_counter()
+    assert ev.refresh(prefix, tiles), "the in-place append refused"
+    append_ms = 1e3 * (time.perf_counter() - t0)
+    assert ev.place(tiles) is st and [t.data_ptr() for name in
+                                      ("tsr", "v", "cv")
+                                      for r in st._chan[name]
+                                      for t in r] == ptrs
+    fresh = ShardedTiles(mesh, tiles)
+    ulps = 0.0
+    for name in ("tsr", "v", "cv"):
+        for i in range(st.n_shard):
+            a = st._chan[name][i][0][:N]
+            b = fresh._chan[name][i][0][:N]
+            sl = slice(i * st.S_l, (i + 1) * st.S_l)
+            free = torch.as_tensor(reset_free[sl], device=a.device)
+            assert torch.equal(a[:, free], b[:, free]), \
+                f"append: {name} not bitwise a rebuild on reset-free series"
+            if name == "cv" and bool((~free).any()):
+                d = (a[:, ~free] - b[:, ~free]).abs()
+                sp = torch.as_tensor(np.spacing(b[:, ~free].abs().cpu()
+                                                .numpy()), device=a.device)
+                ulps = max(ulps, float((d / sp).max()))
+    # series with a reset before the append point: the same carry, added
+    # in another order (append-carry-exact's own statement)
+    assert ulps <= 2.0, f"append: {ulps} f64 ulps on the reset series"
+    got = st.eval_counters("rate", steps, WINDOW).cpu().numpy()
+    assert np.array_equal(got[:, reset_free], rates[:, reset_free],
+                          equal_nan=True), "append: rates"
+    append = {"slots": MESH_APPEND, "ms": append_ms,
+              "data_ptr_unchanged": True,
+              "reset_free_series": int(reset_free.sum()),
+              "reset_series_cv_max_ulps": ulps}
+    del st, fresh, ev, prefix
+    return {"layouts": layouts, "single_device_ms": single,
+            "bound_ms": bounds, "rows_read": rows_read, "T": T, "S": S,
+            "append": append}
+
+
+def mesh_server_data(data: dict):
+    """14(b)'s rows: the counters' last MESH_SERVER_SLOTS slots, and the
+    (start, end) in seconds of a 60 s grid over them."""
+    lo = N_FULL - MESH_SERVER_SLOTS
+    rows = [(lab, t[lo:], v[lo:]) for lab, t, v in data["counters"]]
+    t_lo = BASE + lo * DT
+    return rows, t_lo, (t_lo // 1000 + 600,
+                        (BASE + (N_FULL - 10) * DT) // 1000)
+
+
+def mesh_server(data: dict, smi: str) -> dict:
+    """14(b): a plain port server and one with mesh-enabled under
+    MESH_SERVER_PARTITIONS partitions of the card, over the same rows:
+    the per-series queries' data sections byte for byte the same, the
+    grouped ones within 1e-12 of the numpy f64 aggregation of the plain
+    server's per-series rates, mesh dispatches, mesh-tiles executables in
+    &explain=analyze, and no group-sum launch on the mesh's grouped
+    route."""
+    from filodb_tpu_torch import state
+    from filodb_tpu_torch.parallel.mesh import PARTITIONS_ENV
+    from filodb_tpu_torch.query import kernels as kn
+    from filodb_tpu_torch.standalone.server import FiloServer
+
+    rows, t_lo, (start, end) = mesh_server_data(data)
+    srvs = {}
+    t0 = time.perf_counter()
+    os.environ[PARTITIONS_ENV] = str(MESH_SERVER_PARTITIONS)
+    try:
+        for name, mesh in (("plain", False), ("mesh", True)):
+            srv = FiloServer({"num-shards": 4, "port": 0, "grpc-port": None,
+                              "results-cache-mb": 0, "mesh-enabled": mesh,
+                              "query-sample-limit": 0})
+            srvs[name] = srv
+            srv.start()
+            state.load_into_store(srv.store, srv.ref, rows, "prom-counter",
+                                  True, num_shards=4, spread=1)
+            srv.seed_dev_data(n_samples=MESH_SERVER_SLOTS, start_ms=t_lo)
+    except BaseException:
+        for srv in srvs.values():
+            srv.stop()
+        raise
+    finally:
+        os.environ.pop(PARTITIONS_ENV, None)
+    load_s = time.perf_counter() - t0
+    out = {"load_s": load_s, "partitions": MESH_SERVER_PARTITIONS,
+           "queries": {}}
+    path = "/promql/timeseries/api/v1/query_range"
+    try:
+        plain, meshed = srvs["plain"], srvs["mesh"]
+        assert meshed.backend.mesh_eval is not None
+        assert meshed.mesh_executor.ndev == MESH_SERVER_PARTITIONS
+        per_series = {}
+        for q in MESH_SERVER_SERIES:
+            args = {"query": q, "start": start, "end": end, "step": 60}
+            a, ms_a, nbytes = http_json(plain.port, path, args)
+            b, ms_b, _ = http_json(meshed.port, path, args)
+            same = json.dumps(a["data"], sort_keys=True) == \
+                json.dumps(b["data"], sort_keys=True)
+            assert same, f"14(b): {q}: data sections differ"
+            assert a["data"]["result"], q
+            per_series[q] = a
+            out["queries"][q] = {"plain_ms": ms_a, "mesh_ms": ms_b,
+                                 "bytes": nbytes, "byte_identical": same}
+        rate = grid_from_json(per_series[MESH_SERVER_SERIES[0]], start, end,
+                              60)
+        for q, agg, by in MESH_SERVER_GROUPED:
+            args = {"query": q, "start": start, "end": end, "step": 60}
+            n0 = kn.LAUNCHES["counter_groupsum"]
+            _, ms_a, _ = http_json(plain.port, path, args)
+            n1 = kn.LAUNCHES["counter_groupsum"]
+            b, ms_b, _ = http_json(meshed.port, path, args)
+            plain_gs, mesh_gs = n1 - n0, kn.LAUNCHES["counter_groupsum"] - n1
+            assert mesh_gs == 0, f"14(b): {q}: the group-sum launched " \
+                f"{mesh_gs} times on the mesh's grouped route"
+            got = grid_from_json(b, start, end, 60)
+            labels = [k.get(by, "") if by else "" for k in rate.keys]
+            names = sorted(set(labels))
+            gid = np.array([names.index(x) for x in labels])
+            want = oracle_grouped(rate.values.T, gid, len(names), agg)
+            idx = {(k.get(by, "") if by else ""): i
+                   for i, k in enumerate(got.keys)}
+            assert set(idx) == set(names), q
+            e = rel_err(np.vstack([got.values[idx[n]] for n in names]),
+                        want)
+            assert e <= 1e-12, f"14(b): {q}: rel err {e}"
+            out["queries"][q] = {"plain_ms": ms_a, "mesh_ms": ms_b,
+                                 "rel_err": e,
+                                 "plain_groupsum_launches": plain_gs,
+                                 "mesh_groupsum_launches": mesh_gs}
+        az, _, _ = http_json(meshed.port, path, {
+            "query": MESH_SERVER_SERIES[0], "start": start, "end": end,
+            "step": 60, "explain": "analyze", "cache": "false"})
+        execs = [e for e in az["analyze"]["device"]["executables"]
+                 if e["site"] == "mesh-tiles"]
+        assert execs, "14(b): no mesh-tiles executable in the analyze"
+        out["analyze_mesh_tiles"] = [e["executable"] for e in execs]
+        out["mesh_dispatches"] = meshed.backend.mesh_dispatches
+        assert out["mesh_dispatches"] > 0
+        out["placements"] = meshed.backend.mesh_eval.snapshot()
+        log(f"phase 14: (b) servers loaded in {load_s:.1f} s; "
+            f"{out['mesh_dispatches']} mesh dispatches; per query "
+            f"{ {q: v for q, v in out['queries'].items()} } [{smi}]")
+    finally:
+        for srv in srvs.values():
+            srv.stop()
+    return out
+
+
+MESH_RANK_SCRIPT = r"""
+import json, pickle, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[5])
+from filodb_tpu_torch.parallel.distributed import (
+    init_process, window_aggregate_distributed)
+from filodb_tpu_torch.parallel.mesh import MeshExecutor, make_mesh
+from filodb_tpu_torch.query.model import RangeParams, RawSeries
+rank, addr, pkl, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], \
+    sys.argv[4]
+with open(pkl, "rb") as f:
+    d = pickle.load(f)
+dev = torch.device(sys.argv[6])
+backend = init_process(addr, 2, rank, dev)
+ex = MeshExecutor(make_mesh(2, 1, [dev, dev]))
+groups = [[RawSeries(lab, t, v, is_counter=True) for lab, t, v in g]
+          for g in d["groups"]]
+mine = slice(2 * rank, 2 * rank + 2)
+t0 = time.perf_counter()
+res = window_aggregate_distributed(
+    ex, groups[mine], d["gids"][mine], RangeParams(*d["params"]), "rate",
+    "sum", d["window"], d["G"])
+secs = time.perf_counter() - t0
+np.save(out, res)
+import torch.distributed as dist
+dist.destroy_process_group()
+print(json.dumps({"rank": rank, "backend": backend, "seconds": secs}))
+"""
+
+
+def mesh_ranks_start(data: dict, dev) -> dict:
+    """14(c), started first: the two rank processes of
+    window_aggregate_distributed (sum by (job) of rate over the
+    ENGINE_IRREGULAR irregular series in 4 shard groups, 2 per rank, each
+    rank a mesh of 2 partitions of the card, joined over gloo: the ranks
+    share one card). They meet through a rendezvous file in the phase's
+    temporary directory, so no port is picked ahead of its use. Their
+    CUDA start-up overlaps 14(a) and 14(b); ``mesh_ranks_finish``
+    collects them. Returns the handles."""
+    import pickle
+    import tempfile
+
+    start, fe, _ = engine_grid()
+    params = (start * 1000, STEP, fe * 1000)
+    irr = list(data["irregular"])
+    groups = [irr[i::4] for i in range(4)]
+    gids = [[int(lab["job"][3:]) for lab, _, _ in g] for g in groups]
+    tmp = tempfile.mkdtemp(prefix="filodb-phase14-")
+    pkl = os.path.join(tmp, "world.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump({"groups": groups, "gids": gids, "params": params,
+                     "window": WINDOW, "G": G}, f)
+    addr = "file://" + os.path.join(tmp, "rendezvous")
+    procs = []
+    for r in range(2):
+        # each rank's output to a file: a rank that cannot reach its peer
+        # logs every retry, more than a pipe holds unread
+        with open(os.path.join(tmp, f"rank{r}.log"), "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", MESH_RANK_SCRIPT, str(r), addr,
+                 pkl, os.path.join(tmp, f"rank{r}.npy"), REPO, str(dev)],
+                cwd=REPO, stdout=out, stderr=subprocess.STDOUT))
+    return {"procs": procs, "tmp": tmp, "groups": groups, "gids": gids,
+            "params": params, "t0": time.perf_counter()}
+
+
+def mesh_ranks_stop(ranks: dict) -> None:
+    """End both rank processes (if still running) and drop their files."""
+    import shutil
+
+    for p in ranks["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    shutil.rmtree(ranks["tmp"], ignore_errors=True)
+
+
+def mesh_ranks_finish(ranks: dict, dev, smi: str) -> dict:
+    """14(c): both ranks' answers, each equal to the single-process
+    4-partition mesh's within 1e-12; each rank bounded by
+    MESH_DIST_TIMEOUT_S from its start."""
+    from filodb_tpu_torch.parallel.mesh import MeshExecutor, make_mesh
+    from filodb_tpu_torch.query.model import RangeParams, RawSeries
+
+    ex = MeshExecutor(make_mesh(4, 1, [dev] * 4))
+    want = ex.window_aggregate(
+        [[RawSeries(dict(lab), t, v, is_counter=True) for lab, t, v in g]
+         for g in ranks["groups"]], RangeParams(*ranks["params"]), "rate",
+        WINDOW, "sum", ranks["gids"], G)
+    assert np.isfinite(want).any()
+    procs = ranks["procs"]
+    # both ranks to their end, a failing one ending the other at once
+    while time.perf_counter() - ranks["t0"] < MESH_DIST_TIMEOUT_S:
+        codes = [p.poll() for p in procs]
+        if None not in codes or any(c not in (None, 0) for c in codes):
+            break
+        time.sleep(0.05)
+    wall = time.perf_counter() - ranks["t0"]
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    outs, rows = [], []
+    for r in range(2):
+        with open(os.path.join(ranks["tmp"], f"rank{r}.log")) as f:
+            outs.append(f.read())
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"14(c): rank {r} exit " \
+            f"{p.returncode}:\n{outs[r][-3000:]}"
+        rows.append(json.loads(outs[r].strip().splitlines()[-1]))
+        got = np.load(os.path.join(ranks["tmp"], f"rank{r}.npy"))
+        rows[-1]["rel_err"] = rel_err(got, want)
+        assert rows[-1]["rel_err"] <= 1e-12, f"14(c): rank {r}: {rows[-1]}"
+    log(f"phase 14: (c) 2 processes x 2 partitions over gloo, "
+        f"{wall:.1f} s from their start: "
+        f"{rows} [{smi}]")
+    return {"processes": 2, "partitions_each": 2, "wall_s": wall,
+            "series": sum(len(g) for g in ranks["groups"]), "ranks": rows}
+
+
+def phase_mesh(data: dict, dev, bw: float, smi: str) -> dict:
+    """Phase 14: (a) the sharded tile store and the scatter-gather at the
+    engine's width on 1, 2, 4 and 2 x 2 partitions of the card, with the
+    mesh's three claims certified on it; (b) a mesh-enabled server; (c)
+    the two-process aggregate, its processes started first."""
+    from filodb_tpu_torch.query import kernels as kn
+
+    t0 = time.perf_counter()
+    kn.reset_launches()
+    ranks = mesh_ranks_start(data, dev)
+    try:
+        out = _phase_mesh(data, dev, bw, smi, ranks, t0)
+    finally:
+        mesh_ranks_stop(ranks)
+    return out
+
+
+def _phase_mesh(data: dict, dev, bw: float, smi: str, ranks: dict,
+                t0: float) -> dict:
+    from filodb_tpu_torch.lint import ulpcert
+    from filodb_tpu_torch.query import kernels as kn
+
+    claims = {}
+    for name in ("append-carry-exact", "grouped-reduce-psum",
+                 "grouped-pair-psum"):
+        r = ulpcert.certify(name, str(dev))
+        claims[name] = {"measured": r.measured, "claimed": r.claimed,
+                        "ok": r.ok, "detail": r.detail}
+        assert r.ok, f"14: {name} missed on the card: {r.detail}"
+    module = mesh_module(data, dev, bw, smi)
+    t1 = time.perf_counter()
+    server = mesh_server(data, smi)
+    t2 = time.perf_counter()
+    dist = mesh_ranks_finish(ranks, dev, smi)
+    secs = time.perf_counter() - t0
+    launches = dict(kn.LAUNCHES)
+    log(f"phase 14: {secs:.1f} s ((a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} "
+        f"s, (c) {secs - (t2 - t0):.1f} s) [{smi}]")
+    return {"launches": launches, "mesh": {
+        "seconds": secs, "module_s": t1 - t0, "server_s": t2 - t1,
+        "distributed_s": secs - (t2 - t0), "claims": claims,
+        "module": module, "server": server, "distributed": dist,
+        "card": smi}}
+
+
 # allocated device memory (live tensors) a stopped server or a finished
 # phase may leave behind (ROADMAP C.23)
 MEM_SLACK = 256 << 20
@@ -5432,8 +6062,12 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     cert = run_phase(13, "certification", phase_certification, dev, smi)
     emit("certification", cert["certification"])
-    memory["phase13"] = mem_released(
+    memory["phase13"] = before = mem_released(
         before, "phase 13: its backends released")
+    mesh = run_phase(14, "mesh", phase_mesh, data, dev, bw, smi)
+    emit("mesh", mesh["mesh"])
+    memory["phase14"] = mem_released(
+        before, "phase 14: its stores dropped and its servers stopped")
     emit("memory", {"allocated_bytes": memory, "slack_bytes": MEM_SLACK,
                     "card": smi})
     kernels = []
@@ -5451,6 +6085,7 @@ def main() -> int:
         r["launches_phase11"] = supervised["launches"][kname]
         r["launches_phase12"] = ds["launches"].get(kname, 0)
         r["launches_phase13"] = cert["launches"][kname]
+        r["launches_phase14"] = mesh["launches"][kname]
         r["max_abs_err"] = max(r["max_abs_err"], eng["errs"][kname],
                                ds["errs"].get(kname, 0.0),
                                cert["errs"].get(kname, 0.0),

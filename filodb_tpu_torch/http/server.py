@@ -130,6 +130,7 @@ class FiloHttpServer:
     def __init__(self, shards_by_dataset: Dict[str, list],
                  backend: Optional[object] = None,
                  shard_mapper: Optional[object] = None,
+                 mesh_executor: Optional[object] = None,
                  spread: int = 1,   # MUST match ingest spread (default-spread)
                  host: str = "127.0.0.1", port: int = 0,
                  ds_store_by_dataset: Optional[Dict[str, object]] = None,
@@ -162,6 +163,8 @@ class FiloHttpServer:
         self.shards_by_dataset = shards_by_dataset
         self.backend = backend
         self.shard_mapper = shard_mapper
+        # the scatter-gather mesh executor (parallel/mesh.py), None off
+        self.mesh_executor = mesh_executor
         self.spread = spread
         # raw/downsample tiering: dataset -> DownsampledTimeSeriesStore,
         # and the raw retention past which the planner stitches it in
@@ -1302,6 +1305,7 @@ class FiloHttpServer:
                                no_result_cache=no_result_cache,
                                resilience=self.resilience,
                                shard_mapper=self.shard_mapper,
+                               mesh_executor=self.mesh_executor,
                                spread=self.spread,
                                ds_store=self.ds_store_by_dataset.get(ds),
                                raw_retention_ms=self.raw_retention_ms,

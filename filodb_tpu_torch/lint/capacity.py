@@ -119,6 +119,7 @@ def capacity_claim(name: str) -> CapacityClaim:
 # executing anything device-side
 ANNOTATED_MODULES: Tuple[str, ...] = (
     "filodb_tpu_torch.downsample.job",
+    "filodb_tpu_torch.parallel.shardstore",
 )
 
 

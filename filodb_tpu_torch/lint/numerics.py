@@ -181,6 +181,8 @@ ANNOTATED_MODULES: Tuple[str, ...] = (
     "filodb_tpu_torch.query.tilestore",
     "filodb_tpu_torch.query.kernels",
     "filodb_tpu_torch.query.backend",
+    "filodb_tpu_torch.parallel.mesh",
+    "filodb_tpu_torch.parallel.shardstore",
 )
 
 

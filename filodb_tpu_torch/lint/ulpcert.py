@@ -27,16 +27,25 @@ engine's width on the card.
 
 A claim whose measurement exceeds its declared tolerance, or that has no
 registered harness, fails: a port that misses a claim is at fault, never
-the claim. The order claims of the sharded evaluators (the reference's
-``grouped-reduce-psum`` and ``grouped-pair-psum``) come with those
-evaluators; until then the registry holds none.
+the claim.
+
+The ``@order_insensitive`` claims of the mesh (``grouped-reduce-psum`` on
+``parallel/mesh._grouped_reduce``, ``grouped-pair-psum`` on
+``parallel/shardstore._grouped_pair``) are certified as the reference
+certifies them: their harness runs the site at 1, 2, 4 and 8 partitions
+(``DEVICE_COUNTS``, laid on ``device``: the CPU here, one card's
+partitions in chip_smoke), and the worst relative deviation of each
+output from the 1-partition one must stay within the claim's tolerance.
+``append-carry-exact`` (``parallel/shardstore._append_step``) is a
+``rel_ulps=0`` claim: certified bitwise against the from-scratch
+rebuild.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -44,11 +53,24 @@ from filodb_tpu_torch.lint import numerics as nmod
 
 # claim name -> harness(device, **shape) -> (prod, ref, floor)
 HARNESSES: Dict[str, Callable] = {}
+# order claim name -> harness(ndev, device) -> output tuple at ndev
+# partitions of ``device``
+ORDER_HARNESSES: Dict[str, Callable] = {}
+
+# the partition counts an order claim is certified across
+DEVICE_COUNTS: Tuple[int, ...] = (1, 2, 4, 8)
 
 
 def precision_harness(name: str) -> Callable:
     def deco(fn):
         HARNESSES[name] = fn
+        return fn
+    return deco
+
+
+def order_harness(name: str) -> Callable:
+    def deco(fn):
+        ORDER_HARNESSES[name] = fn
         return fn
     return deco
 
@@ -108,17 +130,82 @@ def _measure_precision(claim: nmod.PrecisionClaim, prod, ref,
                       "bitwise" if same else "integer outputs differ")
 
 
+def _rel_dev(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    nan_a, nan_b = np.isnan(a), np.isnan(b)
+    if not np.array_equal(nan_a, nan_b):
+        return math.inf
+    m = ~nan_a
+    if not m.any():
+        return 0.0
+    diff = np.abs(a[m] - b[m])
+    scale = np.maximum(np.maximum(np.abs(a[m]), np.abs(b[m])), 1e-300)
+    return float(np.max(diff / scale))
+
+
+def _measure_order(claim: nmod.OrderClaim, harness, counts: Sequence[int],
+                   device) -> CertResult:
+    """Each output of the harness at every partition count against the
+    first count's: within the claim's relative tolerance (bitwise for a
+    0 tolerance)."""
+    results = {}
+    for n in counts:
+        out = harness(n, device)
+        if not isinstance(out, (tuple, list)):
+            out = (out,)
+        results[n] = [np.asarray(o) for o in out]
+    base = results[counts[0]]
+    worst = 0.0
+    for n in counts[1:]:
+        for a, b in zip(base, results[n]):
+            if claim.tolerance == 0.0:
+                if not np.array_equal(a, b, equal_nan=np.issubdtype(
+                        a.dtype, np.floating)):
+                    return CertResult(
+                        claim.name, "order", False, math.inf, 0.0,
+                        f"byte-identity claim but {counts[0]} vs {n} "
+                        f"partitions differ", str(device))
+            else:
+                worst = max(worst, _rel_dev(a, b))
+    return CertResult(claim.name, "order", worst <= claim.tolerance, worst,
+                      claim.tolerance,
+                      f"max rel deviation {worst:.3g} across partition "
+                      f"counts {tuple(counts)}", str(device))
+
+
 # ---------------------------------------------------------------------------
 # certify
 # ---------------------------------------------------------------------------
 
+def certify_order(name: str, device: str = "cpu") -> CertResult:
+    """Certify one registered ``@order_insensitive`` claim across
+    ``DEVICE_COUNTS`` partitions of ``device``."""
+    nmod.import_annotated_modules()
+    claim = nmod.ORDER[name]
+    fn = ORDER_HARNESSES.get(name)
+    if fn is None:
+        return CertResult(name, "order", False, math.inf, claim.tolerance,
+                          "no certification harness registered",
+                          str(device))
+    try:
+        return _measure_order(claim, fn, DEVICE_COUNTS, device)
+    except Exception as e:  # noqa: BLE001 — a gate must not crash
+        return CertResult(name, "order", False, math.inf, claim.tolerance,
+                          f"harness crashed: {type(e).__name__}: {e}",
+                          str(device))
+
+
 def certify(name: str, device: str = "cpu", **shape) -> CertResult:
     """Certify one registered ``@precision`` claim on ``device``, its
     harness's world widened by ``shape`` where the harness takes one (the
-    counter claims' ``S`` series, the group-sum world's grid). A harness
+    counter claims' ``S`` series, the group-sum world's grid); an
+    ``@order_insensitive`` claim by :func:`certify_order`. A harness
     that raises, the kernel's build or launch included, is a failed
     certification."""
     nmod.import_annotated_modules()
+    if name in nmod.ORDER:
+        return certify_order(name, device, **shape)
     claim = nmod.PRECISION[name]
     fn = HARNESSES.get(name)
     if fn is None:
@@ -141,10 +228,7 @@ def certify_all(device: str = "cpu") -> List[CertResult]:
     """Certify every registered claim on ``device``."""
     nmod.import_annotated_modules()
     out = [certify(name, device) for name in sorted(nmod.PRECISION)]
-    for name, claim in sorted(nmod.ORDER.items()):
-        out.append(CertResult(name, "order", False, math.inf,
-                              claim.tolerance, "no certification harness "
-                              "registered", str(device)))
+    out += [certify_order(name, device) for name in sorted(nmod.ORDER)]
     return out
 
 
@@ -479,3 +563,80 @@ def _h_extrapolated_rate(device="cpu"):
                 int(wstart[t, 0]), int(wend[t, 0]), sts[:n], svs[:n],
                 is_counter=True, is_rate=True) if n >= 2 else np.nan
     return prod, ref, 0.0
+
+
+@precision_harness("append-carry-exact")
+def _h_append_carry(device="cpu"):
+    """In-place append vs from-scratch rebuild, reset-free block:
+    bitwise (the annotation's exact claim)."""
+    import torch
+
+    from filodb_tpu_torch.parallel.shardstore import _append_step
+    rng = np.random.default_rng(_SEED + 3)
+    C, S, n, K = 64, 8, 40, 12
+    v_full = np.cumsum(rng.uniform(0.5, 10.0, (n + K, S)), axis=0) + 1e9
+    tsr = np.zeros((C, S), np.int32)
+    v = np.zeros((C, S))
+    cv = np.zeros((C, S))
+    v[:n] = v_full[:n]
+    cv[:n] = v_full[:n]            # no resets: corrected == raw
+    new_tsr = np.arange(K, dtype=np.int32)[:, None] + np.zeros(
+        (1, S), np.int32)
+    _, _, out_cv = _append_step(
+        _tensor(tsr, device), _tensor(v, device), _tensor(cv, device),
+        _tensor(new_tsr, device), _tensor(v_full[n:], device), n)
+    prod = _numpy(out_cv)[n:n + K]
+    ref = v_full[n:]               # rebuild: no resets -> cv == v
+    assert out_cv.dtype == torch.float64
+    return prod, ref, 0.0
+
+
+def _partition_mesh(ndev: int, device):
+    """``ndev`` shard partitions of ``device`` (time axis 1)."""
+    import torch
+
+    from filodb_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(ndev, 1, [torch.device(device)] * ndev)
+
+
+@order_harness("grouped-reduce-psum")
+def _h_grouped_reduce(ndev: int, device="cpu"):
+    """``_grouped_reduce`` of the reference harness's seeded [16, 12]
+    world (10 % stale entries, two padding rows) for sum and avg, its
+    rows split over ``ndev`` partitions as the reference's shard_map
+    splits them."""
+    from filodb_tpu_torch.parallel.mesh import _grouped_reduce
+    rng = np.random.default_rng(_SEED + 4)
+    S, T, G = 16, 12, 4
+    local = rng.normal(0, 1e3, (S, T))
+    local[rng.random((S, T)) < 0.1] = np.nan         # stale entries
+    gids = rng.integers(0, G, S).astype(np.int32)
+    gids[-2:] = -1                                    # padding rows
+    mesh = _partition_mesh(ndev, device)
+    rows = S // ndev
+    locs = [_tensor(local[i * rows:(i + 1) * rows], mesh.devices[i, 0])
+            for i in range(ndev)]
+    gs = [_tensor(gids[i * rows:(i + 1) * rows], mesh.devices[i, 0])
+          for i in range(ndev)]
+    return tuple(_numpy(_grouped_reduce(locs, gs, G, agg))
+                 for agg in ("sum", "avg"))
+
+
+@order_harness("grouped-pair-psum")
+def _h_grouped_pair(ndev: int, device="cpu"):
+    """The fused grouped pair (``ShardedTiles.eval_grouped_pair``, rate)
+    over the counter world, its series in 3 seeded groups, at ``ndev``
+    shard partitions."""
+    from filodb_tpu_torch.parallel.shardstore import ShardedTiles
+    from filodb_tpu_torch.query.tilestore import AlignedTiles
+    ts, v, g = _counter_world()
+    N, S = ts.shape
+    rng = np.random.default_rng(_SEED + 5)
+    gids = rng.integers(0, 3, S).astype(np.int32)
+    tiles = AlignedTiles([{"i": str(i)} for i in range(S)], g["base"],
+                         g["dt"], np.ones((S, N), bool), ts.T * 1.0, v.T,
+                         device=device)
+    st = ShardedTiles(_partition_mesh(ndev, device), tiles)
+    steps = g["w0e"] + np.arange(g["nsteps"], dtype=np.int64) * g["step"]
+    return st.eval_grouped_pair("rate", steps, g["w0e"] - g["w0s"], gids, 3)
+

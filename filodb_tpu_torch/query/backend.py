@@ -20,6 +20,14 @@ Concurrent queries go through a micro-batcher (``query/batcher.py``) that
 runs same-shaped dispatches as one, and the tile cache serves the previous
 snapshot's tiles across a flush while the rebuild runs in the background.
 
+With ``mesh_eval`` (``parallel/shardstore.ShardedTileEvaluator``) the
+aligned dispatches that the single-device path would serve with the
+f32-hybrid slide/fast counter evaluator or ``evaluate_aligned`` run the
+same evaluator bodies per partition of a ('shard', 'time') mesh from
+device-resident sharded tiles (path ``mesh-aligned``, bit for bit the
+single-device values), and ``fused_groupsum`` takes the sharded grouped
+collective before the group-sum kernel, as the reference routes them.
+
 A query's trace carries the reference's device spans (``device-eval``
 with its path, ``pack``, ``device-dispatch`` with its path and batch
 size), and each dispatch is timed into ``filodb_device_execute_seconds``.
@@ -550,6 +558,11 @@ def _selection_ident(series) -> Optional[Tuple]:
 _COUNTER_FUNCS = ("rate", "increase", "delta")
 
 
+def _path(mesh_st) -> str:
+    """The ``device-dispatch`` span's path of an aligned dispatch."""
+    return "mesh-aligned" if mesh_st is not None else "aligned"
+
+
 # cache inventory (the port's own declaration): the tile cache is keyed by
 # the selection's snapshot keys, which embed (dataset, shard, part_id,
 # num_chunks), so a flush that publishes chunks changes the key and
@@ -573,12 +586,24 @@ class TorchBackend:
     the packed path. It also gives the tile cache its background
     rebuilds. Pass ``batcher=None`` or ``MicroBatcher(enabled=False)`` to
     take the single-query paths only; whoever owns the backend calls
-    ``batcher.executor.stop()`` before the process exits. No mesh yet."""
+    ``batcher.executor.stop()`` before the process exits.
+
+    ``mesh_eval`` (a ``parallel.shardstore.ShardedTileEvaluator``), when
+    set, serves the eligible aligned dispatches and the fused grouped
+    sums from tiles resident across its mesh's partitions
+    (``mesh_dispatches`` counts them)."""
 
     _TILE_CACHE_MAX = 16
 
-    def __init__(self, device=None, batcher: Optional[object] = "default"):
+    def __init__(self, device=None, batcher: Optional[object] = "default",
+                 mesh_eval: Optional[object] = None):
         self.device = tst.resolve_device(device)
+        # multi-partition serving (parallel/shardstore.py): eligible
+        # aligned-tile dispatches run the SAME evaluator bodies per
+        # partition of the mesh from resident sharded tiles, bit for bit
+        # the single-device values
+        self.mesh_eval = mesh_eval
+        self.mesh_dispatches = 0     # observability: sharded dispatches
         self._tile_cache: Dict = {}
         # guards cache get/insert/evict against concurrent query threads
         # (a FIFO evict could KeyError, inserts overshoot the cap)
@@ -609,6 +634,8 @@ class TorchBackend:
         with self._tile_lock:
             self._tile_cache.clear()
             self._tile_ident.clear()
+        if self.mesh_eval is not None:
+            self.mesh_eval.release()
 
     @staticmethod
     def executable_cache_stats() -> Dict[str, int]:
@@ -682,6 +709,20 @@ class TorchBackend:
                     int(steps[-1] - offset_ms) >= int(s.ts[cl]):
                 return None
         gvec = np.asarray(gids)[np.asarray(idx)]
+        # the mesh-resident grouped collective first: the one-hot matmul
+        # and psum off the sharded tiles (no per-query pack), under the
+        # same fast-family eligibility as the per-series sharded path;
+        # the group-sum kernel is not launched on this route
+        if self.mesh_eval is not None and steps.size >= 1:
+            mesh_st = self._mesh_sharded(
+                tiles, steps, window_ms, offset_ms,
+                tst.counters_batch_family(tiles, func, steps, window_ms,
+                                          offset_ms))
+            if mesh_st is not None:
+                self._count("fused_aggs")
+                self._count("mesh_dispatches")
+                return mesh_st.eval_grouped_pair(func, steps, window_ms,
+                                                 gvec, G, offset_ms)
         onehot = np.zeros((len(series), G), np.float32)
         onehot[np.arange(len(series)), gvec] = 1.0
         res = tst.groupsum_counters(tiles, func, steps, window_ms, onehot,
@@ -777,8 +818,14 @@ class TorchBackend:
             @thread_root("tile-refresh")
             def refresh():
                 try:
-                    self._insert_tile_entry(
-                        key, ident, self._build_tile_entry(held, use_snap))
+                    fresh = self._build_tile_entry(held, use_snap)
+                    me = self.mesh_eval
+                    if me is not None and stale.tiles is not None:
+                        # cross-flush hand-over of the mesh placement: the
+                        # in-place append reuses the resident buffers when
+                        # the new tiles extend the old cohort
+                        me.refresh(stale.tiles, fresh.tiles)
+                    self._insert_tile_entry(key, ident, fresh)
                 finally:
                     with self._tile_lock:
                         self._tile_refreshing.discard(key)
@@ -854,59 +901,98 @@ class TorchBackend:
         w0e = int(steps[0] - offset_ms)
         w0s = w0e - int(window_ms)
         step = int(steps[1] - steps[0]) if nsteps > 1 else 1
-        args = (tiles, func, family, nsteps, step, window_ms, offset_ms)
+        mesh_st = self._mesh_sharded(tiles, steps, window_ms, offset_ms,
+                                     family)
+        args = (tiles, func, family, nsteps, step, window_ms, offset_ms,
+                mesh_st)
         b = self.batcher
         if b is not None and b.enabled:
             # id(tiles) is safe in the key: members hold the tiles, so the
             # id cannot be recycled while the batch is open
             key = ("aligned", id(tiles), func, nsteps, step, window_ms,
-                   family)
+                   family, mesh_st is not None)
             return b.submit(key, (w0s, w0e, steps, tiles),
                             functools.partial(self._aligned_run, *args))
         with obs_metrics.timed("filodb_device_execute_seconds", _DEV_HELP), \
-                obs_trace.span("device-dispatch", path="aligned"):
+                obs_trace.span("device-dispatch", path=_path(mesh_st)):
             return self._aligned_run_inner(
                 *args, [(w0s, w0e, steps, tiles)]).get(0)
 
+    def _mesh_sharded(self, tiles, steps: np.ndarray, window_ms: int,
+                      offset_ms: int, family):
+        """The resident sharded placement serving this dispatch, or None
+        for the single-device path. Counter families route only when the
+        single-device dispatcher would pick the f32-hybrid slide/fast
+        evaluator (identical values), so answers with the mesh on and off
+        stay byte-identical; the exact-f64 wide-grid family keeps the
+        single-device path."""
+        me = self.mesh_eval
+        if me is None or tiles is None or steps.size == 0:
+            return None
+        if family is not None and family[0] not in ("slide", "fast"):
+            return None
+        st = me.place(tiles)
+        if st is None:
+            return None
+        if family is not None and not st.query_fits(
+                np.asarray(steps), window_ms, offset_ms):
+            return None
+        return st
+
     def _aligned_run(self, tiles, func: str, family, nsteps: int, step: int,
-                     window_ms: int, offset_ms: int,
+                     window_ms: int, offset_ms: int, mesh_st,
                      members) -> SplitResult:
         """One aligned batch from the batcher: B = 1 takes the scalar
         evaluator, B >= 2 one batched evaluation computing every member's
-        grid (its host copy happens in the members' ``device-sync``)."""
+        grid (its host copy happens in the members' ``device-sync``); the
+        mesh-sharded twins of both when ``mesh_st`` serves."""
         with obs_metrics.timed("filodb_device_execute_seconds", _DEV_HELP), \
-                obs_trace.span("device-dispatch", path="aligned",
+                obs_trace.span("device-dispatch", path=_path(mesh_st),
                                batch=len(members)):
             return self._aligned_run_inner(tiles, func, family, nsteps, step,
-                                           window_ms, offset_ms, members)
+                                           window_ms, offset_ms, mesh_st,
+                                           members)
 
     def _aligned_run_inner(self, tiles, func: str, family, nsteps: int,
                            step: int, window_ms: int, offset_ms: int,
-                           members) -> SplitResult:
+                           mesh_st, members) -> SplitResult:
         counters = func in _COUNTER_FUNCS
         if not counters:
             self._count("aligned_evals")
+        if mesh_st is not None:
+            self._count("mesh_dispatches", len(members))
         if len(members) == 1:
             steps0 = members[0][2]
             if counters:
-                return SplitResult(
-                    tst.evaluate_counters_t(tiles, func, steps0, window_ms,
-                                            offset_ms), 1,
-                    split=lambda h, i: h.T)
-            return SplitResult(
-                tst.evaluate_aligned(tiles, func, steps0, window_ms,
-                                     offset_ms), 1, split=lambda h, i: h)
+                dev = (mesh_st.eval_counters(func, steps0, window_ms,
+                                             offset_ms)
+                       if mesh_st is not None else
+                       tst.evaluate_counters_t(tiles, func, steps0,
+                                               window_ms, offset_ms))
+                return SplitResult(dev, 1, split=lambda h, i: h.T)
+            dev = (mesh_st.eval_aligned(tiles, func, steps0, window_ms,
+                                        offset_ms)
+                   if mesh_st is not None else
+                   tst.evaluate_aligned(tiles, func, steps0, window_ms,
+                                        offset_ms))
+            return SplitResult(dev, 1, split=lambda h, i: h)
         w0s_list = [m[0] for m in members]
         w0e_list = [m[1] for m in members]
         if counters:
-            # [B, T, S] -> member i's [S, T]
-            return SplitResult(
-                tst.evaluate_counters_t_batch(tiles, func, family, nsteps,
-                                              step, w0s_list, w0e_list),
-                len(members), split=lambda h, i: h[i].T)
-        return SplitResult(
-            tst.evaluate_aligned_batch(tiles, func, nsteps, step, w0s_list,
-                                       w0e_list), len(members))
+            # [B, T, S] -> member i's [S, T]; on the mesh ONE sharded
+            # evaluation computes every member's grid
+            dev = (mesh_st.eval_counters_batch(func, nsteps, step, w0s_list,
+                                               w0e_list)
+                   if mesh_st is not None else
+                   tst.evaluate_counters_t_batch(tiles, func, family, nsteps,
+                                                 step, w0s_list, w0e_list))
+            return SplitResult(dev, len(members), split=lambda h, i: h[i].T)
+        dev = (mesh_st.eval_aligned_batch(tiles, func, nsteps, step,
+                                          w0s_list, w0e_list)
+               if mesh_st is not None else
+               tst.evaluate_aligned_batch(tiles, func, nsteps, step,
+                                          w0s_list, w0e_list))
+        return SplitResult(dev, len(members))
 
     # -- packed path -------------------------------------------------------
 

@@ -26,8 +26,13 @@ the ds store's shards and a raw-side exec, stitched on the step grid
 (``StitchExec``). Downsampled chunks are ordinary chunks, so both sides run
 through the same engine, backend and kernels.
 
-Not ported yet: the mesh lowerings (`MeshTileExec`, `MeshAggregateExec`,
-ROADMAP A.11).
+Mesh lowering (``parallel/``): with a backend serving device-resident
+sharded tiles (``TorchBackend.mesh_eval``), the bare windowed shape and
+the fused grouped shape lower to ``MeshTileExec``; with a
+``mesh_executor``, the other aggregations of a windowed selector (min,
+max, topk, bottomk, and histogram sums by bucket) lower to
+``MeshAggregateExec``, the scatter-gather over the mesh's partitions. Both
+act on the per-query deadline; both serve only local shards.
 """
 
 from __future__ import annotations
@@ -44,10 +49,12 @@ from filodb_tpu_torch.core.index import ColumnFilter
 from filodb_tpu_torch.core.record import shard_key_hash
 from filodb_tpu_torch.lint.caches import publishes
 from filodb_tpu_torch.query import logical as lp
-from filodb_tpu_torch.query.engine import METRIC_LABELS, QueryEngine
+from filodb_tpu_torch.query.engine import (METRIC_LABELS, QueryEngine,
+                                           select_raw_series)
 from filodb_tpu_torch.query.model import (GridResult, QueryError,
                                           QueryLimits, QueryStats,
-                                          StaleRoutingError)
+                                          RangeParams, StaleRoutingError)
+
 
 # a regex that is just literal alternations (no metacharacters beyond |)
 _LITERAL_ALT = re.compile(r"[A-Za-z0-9_\-:, ]+$")
@@ -330,6 +337,21 @@ class ConcatExec(ExecPlan):
         return f"{pads}ConcatExec\n{kids}"
 
 
+def _engine_exec(plan, shards, backend, stats, limits):
+    """Evaluate ``plan`` on the engine over ``shards``; a degraded leaf
+    dispatch inside the engine (a shard group dropped under
+    allow_partial) stamps the grid so every aggregation above carries
+    the flag."""
+    eng = QueryEngine(shards, backend=backend, limits=limits)
+    out = eng.execute(plan)
+    stats.add(eng.stats)
+    if isinstance(out, GridResult) and eng.stats.partial:
+        out.partial = True
+        out.warnings.extend(w for w in eng.stats.warnings
+                            if w not in out.warnings)
+    return out
+
+
 @dataclass
 class LocalEngineExec(ExecPlan):
     """Evaluate a LogicalPlan on the single-process engine over a pruned
@@ -341,24 +363,201 @@ class LocalEngineExec(ExecPlan):
     limits: Optional[QueryLimits] = None
 
     def execute(self):
-        eng = QueryEngine(self.shards, backend=self.backend,
-                          limits=self.limits)
-        out = eng.execute(self.plan)
-        self.stats.add(eng.stats)
-        if isinstance(out, GridResult) and eng.stats.partial:
-            # degraded leaf dispatch inside the engine (a shard group
-            # dropped under allow_partial): stamp the grid so every
-            # aggregation above carries the flag
-            out.partial = True
-            out.warnings.extend(w for w in eng.stats.warnings
-                                if w not in out.warnings)
-        return out
+        return _engine_exec(self.plan, self.shards, self.backend,
+                            self.stats, self.limits)
 
     def plan_tree(self, indent: int = 0) -> str:
         pads = " " * indent
         shard_nums = [getattr(s, "shard_num", "?") for s in self.shards]
         return (f"{pads}LocalEngineExec(shards={shard_nums}, "
                 f"plan={type(self.plan).__name__})")
+
+
+@dataclass
+class MeshTileExec(ExecPlan):
+    """A tilestore-servable shape lowered onto the device-RESIDENT
+    sharded tile path: the bare windowed counter/aligned shape
+    (rangefunc(selector[w]), instant or range) and the fused grouped
+    shape (sum/count/avg by of rate/increase/delta). Evaluation runs
+    through the engine over the local shards, and the backend's sharded
+    tile evaluator (``TorchBackend.mesh_eval``, parallel/shardstore.py)
+    runs the slot-major evaluators per partition of the mesh (series on
+    the 'shard' axis, step-grid slices on the 'time' axis, grouped
+    reduction as the one-hot matmul and psum collective) from tiles
+    already resident on the devices. Per-series answers are those of the
+    single-device path bit for bit; this node pins the shapes the
+    sharded store serves at plan time and surfaces the mesh disposition
+    in plan trees. The per-query deadline is checked before the
+    dispatch."""
+    plan: object
+    shards: Sequence[object]
+    backend: Optional[object]
+    stats: QueryStats
+    limits: Optional[QueryLimits] = None
+    deadline: Optional[object] = None
+
+    def execute(self):
+        if self.deadline is not None:
+            self.deadline.check("MeshTileExec dispatch")
+        return _engine_exec(self.plan, self.shards, self.backend,
+                            self.stats, self.limits)
+
+    def plan_tree(self, indent: int = 0) -> str:
+        pads = " " * indent
+        shard_nums = [getattr(s, "shard_num", "?") for s in self.shards]
+        shape = getattr(self.plan, "op", None) \
+            or getattr(self.plan, "function", None)
+        return (f"{pads}MeshTileExec(shape={shape}, "
+                f"shards={shard_nums})")
+
+
+@dataclass
+class MeshAggregateExec(ExecPlan):
+    """agg(rangefunc(selector[w])) by (labels) on the device mesh.
+
+    Runs SelectRawPartitions + PeriodicSamplesMapper + AggregateMapReduce
+    + ReduceAggregateExec as one scatter-gather over the mesh's
+    partitions (parallel/mesh.py ``MeshExecutor.window_aggregate``)."""
+    agg_op: str
+    by: Tuple[str, ...]
+    without: Tuple[str, ...]
+    agg_params: Tuple
+    function: str
+    window_ms: int
+    func_args: Tuple[float, ...]
+    offset_ms: int
+    params: RangeParams
+    raw: lp.RawSeriesPlan
+    shards: Sequence[object]
+    mesh_executor: object
+    stats: QueryStats
+    limits: Optional[QueryLimits] = None
+    hist_les: Optional[np.ndarray] = None
+    deadline: Optional[object] = None
+
+    def execute(self) -> GridResult:
+        from filodb_tpu_torch.query.engine import clip_series, strip_metric
+
+        n_mesh = self.mesh_executor.mesh.shape["shard"]
+        series_by_shard: List[List] = []
+        # the limits budget is per query: check against fresh stats, then
+        # fold into the planner-lifetime counters
+        qstats = QueryStats()
+        for shard in self.shards:
+            if self.deadline is not None:
+                self.deadline.check("MeshAggregateExec data selection")
+            row = select_raw_series(
+                [shard], self.raw.filters, self.raw.start_ms,
+                self.raw.end_ms, self.raw.column, qstats, full=True,
+                limits=self.limits)
+            # pack/ship only the query span, not the whole retention
+            series_by_shard.append(
+                clip_series(row, self.raw.start_ms, self.raw.end_ms))
+        self.stats.add(qstats)
+        nb = len(self.hist_les) if self.hist_les is not None else 1
+        if self.hist_les is not None:
+            series_by_shard = [self._expand_hist(row)
+                               for row in series_by_shard]
+        # pad the shard list to a multiple of the mesh shard axis
+        while len(series_by_shard) % n_mesh:
+            series_by_shard.append([])
+        # global group table: grouping-label tuple -> group id (`by` keeps
+        # the named labels, `without` drops its labels + metric, matching
+        # AggregateMapReduce grouping); histogram buckets ride as extra
+        # group lanes (gid*nb + bucket), folded back into [G, T, NB] after
+        # the collective
+        group_keys: Dict[Tuple, int] = {}
+        gids_by_shard: List[List[int]] = []
+        for row in series_by_shard:
+            gids = []
+            for j, s in enumerate(row):
+                if self.without:
+                    k2 = strip_metric(s.labels)
+                    key = tuple(sorted((l, v) for l, v in k2.items()
+                                       if l not in self.without))
+                else:
+                    key = tuple((l, s.labels.get(l, ""))
+                                for l in self.by)
+                gid = group_keys.setdefault(key, len(group_keys))
+                gids.append(gid * nb + (j % nb) if nb > 1 else gid)
+            gids_by_shard.append(gids)
+        steps = self.params.steps
+        if not group_keys:
+            return GridResult(steps, [],
+                              np.zeros((0, steps.size), dtype=np.float64))
+        if self.deadline is not None:
+            self.deadline.check("MeshAggregateExec dispatch")
+        if self.agg_op in ("topk", "bottomk"):
+            return self._execute_topk(series_by_shard, gids_by_shard,
+                                      len(group_keys), steps)
+        out = self.mesh_executor.window_aggregate(
+            series_by_shard, self.params, self.function, self.window_ms,
+            self.agg_op, gids_by_shard, len(group_keys) * nb,
+            func_args=self.func_args, offset_ms=self.offset_ms)
+        keys = [dict(k) for k in group_keys]
+        out = np.asarray(out)
+        if self.hist_les is not None:
+            hv = out.reshape(len(keys), nb, steps.size).transpose(0, 2, 1)
+            return GridResult(steps, keys,
+                              np.full((len(keys), steps.size), np.nan),
+                              hist_values=hv, bucket_les=self.hist_les)
+        return GridResult(steps, keys, out)
+
+    def _execute_topk(self, series_by_shard, gids_by_shard, num_groups,
+                      steps) -> GridResult:
+        """Assemble per-series topk/bottomk output from the mesh's
+        [G, T, k] winner values + row ids (TopBottomKRowAggregator present
+        semantics: union of winning series, NaN at non-winning steps)."""
+        vals, ids, s_pad = self.mesh_executor.window_topk(
+            series_by_shard, self.params, self.function, self.window_ms,
+            int(self.params_k), self.agg_op == "bottomk", gids_by_shard,
+            num_groups, func_args=self.func_args, offset_ms=self.offset_ms)
+        T = steps.size
+        mask = (ids >= 0) & ~np.isnan(vals)
+        sel = ids[mask]
+        uniq, inv = np.unique(sel, return_inverse=True)
+        out = np.full((uniq.size, T), np.nan)
+        _, t_idx, _ = np.nonzero(mask)
+        out[inv, t_idx] = vals[mask]
+        keys = []
+        for rid in uniq:
+            row = series_by_shard[rid // s_pad]
+            keys.append(dict(row[rid % s_pad].labels))
+        return GridResult(steps, keys, out)
+
+    @property
+    def params_k(self) -> float:
+        return self.agg_params[0] if self.agg_params else 0
+
+    def _expand_hist(self, row: List) -> List:
+        """Expand each histogram series into NB per-bucket pseudo-series.
+        Reset correction (any-bucket drop, sectioned semantics) is applied
+        on the host to the full matrix, so the per-bucket device rows
+        carry no dips: the device counter correction is then the identity
+        and the result matches the oracle exactly."""
+        import dataclasses
+
+        from filodb_tpu_torch.memory import histogram as bh
+        out: List = []
+        nb = len(self.hist_les)
+        for s in row:
+            mat = s.values
+            if s.is_counter and mat.size:
+                mat = mat + bh.hist_counter_correction(
+                    mat, drop_rows=s.hist_drop_rows)
+            for b in range(nb):
+                out.append(dataclasses.replace(
+                    s, values=mat[:, b] if mat.size else
+                    np.zeros(0, dtype=np.float64),
+                    bucket_les=None, snapshot_key=None,
+                    hist_drop_rows=None))
+        return out
+
+    def plan_tree(self, indent: int = 0) -> str:
+        pads = " " * indent
+        shard_nums = [getattr(s, "shard_num", "?") for s in self.shards]
+        return (f"{pads}MeshAggregateExec(agg={self.agg_op}, by={self.by},\n"
+                f"{pads}  func={self.function}, shards={shard_nums})")
 
 
 @dataclass
@@ -395,6 +594,7 @@ class QueryPlanner:
     def __init__(self, shards: Sequence[object],
                  backend: Optional[object] = None,
                  shard_mapper: Optional[object] = None,
+                 mesh_executor: Optional[object] = None,
                  spread: int = 1,   # system default-spread; must match ingest
                  shard_key_columns: Tuple[str, ...] = ("_ws_", "_ns_"),
                  metric_column: str = "_metric_",
@@ -425,6 +625,7 @@ class QueryPlanner:
                         for i, s in enumerate(self.shards)}
         self.backend = backend
         self.mapper = shard_mapper
+        self.mesh = mesh_executor
         self.spread = spread
         # per-shard-key spread overrides (core/SpreadProvider.scala); must
         # be the same provider the ingest edge routes with
@@ -716,9 +917,9 @@ class QueryPlanner:
         """(SingleClusterPlanner.scala:253). Cross-cluster partition
         routing first, then raw/downsample tiering (LongTimeRangePlanner),
         then whole-query pushdown to the one peer owning every shard, then
-        shard-aligned join pushdown; everything else runs on this node
-        over the pruned shard subset, with peers' shards as remote shard
-        groups."""
+        shard-aligned join pushdown, then the mesh-lowerable shapes;
+        everything else runs on this node over the pruned shard subset,
+        with peers' shards as remote shard groups."""
         fed = self._try_partition_routing(plan)
         if fed is not None:
             return fed
@@ -734,6 +935,9 @@ class QueryPlanner:
         pushed = self._try_pushdown_join(plan)
         if pushed is not None:
             return pushed
+        mesh_plan = self._try_mesh_lowering(plan)
+        if mesh_plan is not None:
+            return mesh_plan
         return LocalEngineExec(plan, self._resolve_shards(plan),
                                self.backend, self.stats, self.limits)
 
@@ -1048,3 +1252,146 @@ class QueryPlanner:
             raw_plan = lp_replace_range(plan, boundary, step, end)
             raw_exec = self._materialize_raw(raw_plan)
         return StitchExec(ds_exec=ds_exec, raw_exec=raw_exec)
+
+    # -- mesh lowering ---------------------------------------------------
+    def _try_mesh_lowering(self, plan) -> Optional[ExecPlan]:
+        from filodb_tpu_torch.query.backend import DEVICE_FUNCS
+
+        window = self._try_mesh_window(plan)
+        if window is not None:
+            return window
+        if self.mesh is None:
+            return None
+        from filodb_tpu_torch.parallel.mesh import MESH_AGGS
+
+        topk = plan.op in ("topk", "bottomk") if isinstance(
+            plan, lp.Aggregate) else False
+        if not isinstance(plan, lp.Aggregate) or \
+                (plan.op not in MESH_AGGS and not topk):
+            return None
+        if plan.params and not topk:
+            return None
+        if topk:
+            try:
+                k_ok = (len(plan.params) == 1
+                        and float(plan.params[0]).is_integer()
+                        and int(plan.params[0]) >= 1)
+            except (TypeError, ValueError):
+                k_ok = False
+            if not k_ok:
+                return None
+        inner = plan.inner
+        if not isinstance(inner, lp.PeriodicSeriesWithWindowing):
+            return None
+        if inner.at_ms is not None:
+            return None
+        if inner.function not in DEVICE_FUNCS:
+            return None
+        raw = inner.raw
+        if not isinstance(raw, lp.RawSeriesPlan):
+            return None
+        shards = self._resolve_shards(plan)
+        if not shards:
+            return None
+        # cross-node leaves dispatch over the network, not the local mesh
+        if any(hasattr(s, "fetch_raw") for s in shards):
+            return None
+        # histogram selections ride the mesh by bucket expansion, but only
+        # for the sum(rate|increase(hist[w])) shape with one consistent
+        # bucket scheme; anything else falls back to the local engine
+        hist_kind, hist_les = self._hist_selection(shards, raw)
+        if hist_kind == "mixed":
+            return None
+        if hist_kind == "hist":
+            if plan.op != "sum" or inner.function not in ("rate",
+                                                          "increase"):
+                return None
+            if hist_les is None:
+                return None
+        if topk and hist_kind != "none":
+            return None
+        # the device-RESIDENT tile path before the scatter-gather for the
+        # fused grouped shape: the engine's fused_groupsum routes to the
+        # sharded one-hot matmul and psum off tiles already on the
+        # devices (falling back in the engine when the cohort doesn't
+        # qualify)
+        if not topk and hist_kind == "none" \
+                and plan.op in ("sum", "count", "avg") \
+                and not plan.params \
+                and self.backend is not None \
+                and getattr(self.backend, "mesh_eval", None) is not None:
+            return MeshTileExec(plan, shards, self.backend, self.stats,
+                                self.limits, self.deadline)
+        return MeshAggregateExec(
+            agg_op=plan.op, by=tuple(plan.by),
+            without=tuple(plan.without), agg_params=tuple(plan.params),
+            function=inner.function,
+            window_ms=inner.window_ms, func_args=tuple(inner.func_args),
+            offset_ms=inner.offset_ms,
+            params=RangeParams(inner.start_ms, inner.step_ms, inner.end_ms),
+            raw=raw, shards=shards, mesh_executor=self.mesh,
+            stats=self.stats, limits=self.limits, hist_les=hist_les,
+            deadline=self.deadline)
+
+    def _try_mesh_window(self, plan) -> Optional[MeshTileExec]:
+        """The bare windowed shape (instant/range rangefunc over a raw
+        selector: the tilestore path) lowers for mesh execution when the
+        backend serves device-resident sharded tiles."""
+        from filodb_tpu_torch.query import tilestore as tst
+
+        be = self.backend
+        if be is None or getattr(be, "mesh_eval", None) is None:
+            return None
+        if not isinstance(plan, lp.PeriodicSeriesWithWindowing):
+            return None
+        if plan.at_ms is not None or plan.func_args:
+            return None
+        if plan.function not in tst.ALIGNED_FUNCS:
+            return None     # gather/order-statistics families stay local
+        raw = plan.raw
+        if not isinstance(raw, lp.RawSeriesPlan):
+            return None
+        shards = self._resolve_shards(plan)
+        if not shards:
+            return None
+        # cross-node leaves dispatch over the network, not the local mesh
+        if any(hasattr(s, "fetch_raw") for s in shards):
+            return None
+        hist_kind, _ = self._hist_selection(shards, raw)
+        if hist_kind != "none":
+            return None     # per-series histogram grids stay local
+        return MeshTileExec(plan, shards, self.backend, self.stats,
+                            self.limits, self.deadline)
+
+    @staticmethod
+    def _hist_selection(shards, raw: lp.RawSeriesPlan):
+        """("none"|"hist"|"mixed", les or None): whether the selection hits
+        histogram columns, and the shared bucket scheme if consistent."""
+        from filodb_tpu_torch.core.schemas import ColumnType
+        saw_hist = saw_scalar = False
+        les = None
+        consistent = True
+        for shard in shards:
+            for part in shard.lookup_partitions(raw.filters, raw.start_ms,
+                                                raw.end_ms):
+                name = raw.column or part.schema.value_column
+                for c in part.schema.columns:
+                    if c.name == name:
+                        if c.col_type == ColumnType.HISTOGRAM:
+                            saw_hist = True
+                            sch = part._hist_scheme
+                            cur = sch.les() if sch is not None else None
+                            if cur is None:
+                                consistent = False
+                            elif les is None:
+                                les = cur
+                            elif not np.array_equal(les, cur):
+                                consistent = False
+                        else:
+                            saw_scalar = True
+                        break
+        if saw_hist and saw_scalar:
+            return "mixed", None
+        if saw_hist:
+            return "hist", (les if consistent else None)
+        return "none", None

@@ -98,6 +98,16 @@ DEFAULTS = {
     # spread used for shard-key routing (filodb-defaults.conf:319
     # default-spread); must match the ingest-side spread
     "default-spread": 1,
+    # lower agg(rangefunc(...)) onto a ('shard', 'time') mesh when
+    # parallel.mesh.local_devices() gives more than one partition (the
+    # visible CUDA cards, or FILODB_MESH_PARTITIONS partitions laid over
+    # them: several partitions of one card)
+    "mesh-enabled": False,
+    # with mesh-enabled: serve eligible aligned-tile cohorts from
+    # device-RESIDENT sharded tiles (the per-partition slot-major
+    # evaluators, in-place appends across flushes) instead of
+    # single-device dispatch
+    "mesh-tile-serving": True,
     # chunk/partkey/checkpoint persistence root (store/columnstore.py);
     # None = memory-only
     "data-dir": None,
@@ -310,11 +320,9 @@ DEFAULTS = {
 }
 
 # config keys whose modules are not ported yet -> the ROADMAP item that
-# ports them; FiloServer refuses a config whose value turns the feature on
-REFUSED = {
-    "mesh-enabled": "A.11 mesh and distributed",
-    "mesh-tile-serving": "A.11 mesh and distributed",
-}
+# ports them; FiloServer refuses a config whose value turns the feature on.
+# None at present: the mesh's keys took effect with parallel/ (A.11).
+REFUSED: Dict[str, str] = {}
 
 # keys of the JAX package's DEFAULTS that the port accepts at any value
 # and that change nothing here -> why. Each only tunes a feature that is
@@ -326,9 +334,6 @@ INERT: Dict[str, str] = {}
 def _refused(key: str, value, config: Dict) -> bool:
     """Whether ``value`` turns on the unported feature behind ``key``, by
     the reference's own test of that key."""
-    if key == "mesh-tile-serving":
-        # serves only on the mesh: on when mesh-enabled is on as well
-        return bool(value) and bool(config.get("mesh-enabled"))
     return bool(value)
 
 
@@ -375,6 +380,8 @@ class FiloServer:
         # the server stops the device executor of a backend it built
         self._own_backend = backend is None
         self.http: Optional[FiloHttpServer] = None
+        # the scatter-gather executor of mesh-enabled (set in start)
+        self.mesh_executor = None
         self.node_id: str = self.config["node-id"]
         self.card_trackers: Dict[int, CardinalityTracker] = {}
         # one durable stream per served shard; ONE driver map for
@@ -600,6 +607,34 @@ class FiloServer:
                     self.config["breaker-failure-threshold"]),
                 reset_timeout_s=float(self.config["breaker-reset-s"])))
 
+    def _build_mesh(self):
+        """The mesh executor of ``mesh-enabled`` (None when it is off or
+        ``local_devices()`` gives one partition, as the reference builds
+        its mesh only over more than one device), and with
+        ``mesh-tile-serving`` the backend's resident sharded tile
+        evaluator. A mesh that fails to build raises (no fallback)."""
+        if not self.config.get("mesh-enabled"):
+            return None
+        from filodb_tpu_torch.parallel.mesh import (MeshExecutor,
+                                                    local_devices,
+                                                    make_mesh)
+        devs = local_devices(self.config.get("device"))
+        if len(devs) < 2:
+            return None
+        mesh_ex = MeshExecutor(make_mesh(devices=devs))
+        logging.getLogger(__name__).info(
+            "mesh: %d partitions %s, partition -> device %s",
+            mesh_ex.ndev, mesh_ex.mesh.shape,
+            {f"{i},{j}": str(mesh_ex.mesh.devices[i, j])
+             for i in range(mesh_ex.mesh.shape["shard"])
+             for j in range(mesh_ex.mesh.shape["time"])})
+        if self.config.get("mesh-tile-serving", True) \
+                and self.backend is not None:
+            from filodb_tpu_torch.parallel.shardstore import \
+                ShardedTileEvaluator
+            self.backend.mesh_eval = ShardedTileEvaluator(mesh_ex.mesh)
+        return mesh_ex
+
     def start(self) -> "FiloServer":
         """Build the backend, the shards this node serves (bootstrapped
         from the column store when there is one) and the HTTP edge; start
@@ -631,6 +666,7 @@ class FiloServer:
                     max_batch=int(self.config.get("batch-max", 8)),
                     enabled=bool(self.config.get("batch-enabled", True)),
                     device=device))
+        self.mesh_executor = self._build_mesh()
         n = self.config["num-shards"]
         num_nodes = self._resolve_cluster()
         self.spread_provider = SpreadProvider(
@@ -700,6 +736,7 @@ class FiloServer:
         self.http = FiloHttpServer(
             {self.ref.dataset: self.store.shards(self.ref)},
             backend=self.backend, shard_mapper=self.mapper,
+            mesh_executor=self.mesh_executor,
             spread=int(self.config.get("default-spread", 1)),
             port=self.config["port"],
             ds_store_by_dataset=ds_stores,

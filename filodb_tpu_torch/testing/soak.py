@@ -40,6 +40,11 @@ Two worlds over the reference soak's metric and label universe:
     range for ``http_requests_total`` and ``cpu_usage`` (their last steps
     take the packed path).
 
+The mesh routes (``mesh_backend``): the same soak through a backend
+whose tiles are resident across 4 shard partitions (``mesh-tiles`` keys,
+the fast evaluator's budget) and a planner holding a ``MeshExecutor``
+over them (the scatter-gather ``mesh`` keys, f64).
+
 Used by ``tests/test_torch_promql_differential.py`` on the CPU and by
 ``chip_smoke.py`` phase 13 on the card.
 """
@@ -247,7 +252,32 @@ ROUTE_CLAIMS: Dict[Tuple[str, str], Tuple[str, ...]] = {
     ("tilestore-batch", "slide"): ("counter-slide-hybrid",),
     ("tilestore", "groupsum"): ("groupsum-recombine-f32",
                                 "counter-epilogue-f32"),
+    # the resident sharded tiles run the fast evaluator per partition;
+    # their grouped sums add its f32 values in f64
+    ("mesh-tiles", "mesh-fast"): ("counter-fast-hybrid",),
+    ("mesh-tiles", "mesh-fast-b"): ("counter-fast-hybrid",),
+    ("mesh-tiles", "mesh-grouped-pair"): ("counter-fast-hybrid",),
+    ("mesh-tiles", "mesh-grouped"): ("counter-fast-hybrid",),
 }
+
+MESH_PARTITIONS = 4
+
+
+def mesh_backend(device="cpu"):
+    """A ``TorchBackend`` serving from tiles resident across
+    ``MESH_PARTITIONS`` shard partitions of ``device`` (``mesh_eval``),
+    and a ``MeshExecutor`` over the same partitions for the planner's
+    scatter-gather: (backend, executor)."""
+    import torch
+
+    from filodb_tpu_torch.parallel.mesh import MeshExecutor, make_mesh
+    from filodb_tpu_torch.parallel.shardstore import ShardedTileEvaluator
+    from filodb_tpu_torch.query.backend import TorchBackend
+    mesh = make_mesh(MESH_PARTITIONS, 1,
+                     [torch.device(device)] * MESH_PARTITIONS)
+    return (TorchBackend(device=device,
+                         mesh_eval=ShardedTileEvaluator(mesh)),
+            MeshExecutor(mesh))
 
 
 def route_of(site: str, kind: str) -> str:
@@ -428,10 +458,13 @@ def world_floor(ref: Sequence[RefSeries]) -> float:
 
 
 def run_soak(shard, ref: Sequence[RefSeries], backend,
-             tag: str = "soak") -> SoakResult:
+             tag: str = "soak", mesh_executor=None) -> SoakResult:
     """``SOAK_N`` generated queries (``QueryGen(SOAK_SEED)``) through
     ``QueryEngine([shard], backend)`` against ``ref_eval``, the cache
-    off."""
+    off. With ``mesh_executor`` each query is planned and run by a
+    ``QueryPlanner`` holding it (so the mesh lowerings take their
+    shapes: ``MeshTileExec`` and the scatter-gather
+    ``MeshAggregateExec``)."""
     res = SoakResult()
     floor = world_floor(ref)
     t0 = time.perf_counter()
@@ -439,8 +472,14 @@ def run_soak(shard, ref: Sequence[RefSeries], backend,
     for i in range(SOAK_N):
         q = g.query()
         plan = parse_query_range(q, TimeStepParams(START, STEP, END))
-        got, seen = dispatched(
-            lambda: QueryEngine([shard], backend=backend).execute(plan))
+        if mesh_executor is None:
+            got, seen = dispatched(
+                lambda: QueryEngine([shard], backend=backend).execute(plan))
+        else:
+            planner = QueryPlanner([shard], backend=backend,
+                                   mesh_executor=mesh_executor)
+            got, seen = dispatched(
+                lambda: planner.materialize(plan).execute())
         _account(res, seen)
         compare(f"{tag}[{i}]", canon(got), Reference(q, ref),
                 route_budget(seen), floor, res)

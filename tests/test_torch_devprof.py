@@ -29,11 +29,13 @@ from filodb_tpu.core.record import RecordBuilder as JBuilder
 from filodb_tpu.core.record import ingestion_shard as j_ingestion_shard
 from filodb_tpu.core.schemas import DEFAULT_SCHEMAS as J_SCHEMAS
 from filodb_tpu.core.schemas import PartitionSchema as JPartitionSchema
+from filodb_tpu.lint import capacity as j_capacity
 from filodb_tpu.obs import devprof as j_devprof
 from filodb_tpu.obs import metrics as j_metrics
 from filodb_tpu.query import tpu as j_tpu
 from filodb_tpu.standalone.server import FiloServer as JServer
 from filodb_tpu_torch import state
+from filodb_tpu_torch.lint import capacity as p_capacity
 from filodb_tpu_torch.obs import devprof
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
@@ -438,18 +440,44 @@ def _exec_ids(az):
                   for e in az["device"]["executables"])
 
 
-@pytest.mark.parametrize("query,end", ANALYZE_QUERIES,
-                         ids=[f"{q}@{e}" for q, e in ANALYZE_QUERIES])
-def test_analyze_matches_the_jax_server(servers, query, end):
+def _residency_section(snapshot):
+    """The ``residency`` section an analyze built from ``snapshot`` (a
+    package's ``residency_snapshot()``) carries, None when it has none."""
+    return {family: {"shards": dict(shards),
+                     "total_bytes": sum(shards.values())}
+            for family, shards in snapshot.items()} or None
+
+
+def _analyze_beside_residency(srv, capacity, query, end):
+    """``srv``'s analyze of ``query``, and the residency sections its own
+    package's registry (``capacity.residency_snapshot()``) gave just
+    before and just after it."""
+    before = _residency_section(capacity.residency_snapshot())
+    az = _analyze(srv, query, end)["analyze"]
+    return az, (before, _residency_section(capacity.residency_snapshot()))
+
+
+def _assert_residency_of_its_own_package(az, sections):
+    """The residency section is the process's registry of live sharded
+    stores, which other test files on the same worker may have left
+    filled: present if and only if that registry is not empty at the
+    call, and equal to it."""
+    assert az.get("residency") in sections, (az.get("residency"), sections)
+
+
+def _compare_analyze_with_the_jax_server(servers, query, end):
     """Same stage keys, the same dispatch spans and the same executables
     (identity and dispatch count) as the reference's analyze of the same
-    query over the same data. Each server answers the query once first:
-    the reference's first dispatch of a tile executable adds a ``build``
-    event beside the call's own."""
+    query over the same data; each side's residency section held to its
+    own package's registry."""
     for srv in servers:
         _analyze(srv, query, end)
-    pa, ja = (_analyze(s, query, end)["analyze"] for s in servers)
-    assert set(pa) == set(ja)
+    (pa, p_res), (ja, j_res) = (
+        _analyze_beside_residency(s, cap, query, end)
+        for s, cap in zip(servers, (p_capacity, j_capacity)))
+    _assert_residency_of_its_own_package(pa, p_res)
+    _assert_residency_of_its_own_package(ja, j_res)
+    assert set(pa) - {"residency"} == set(ja) - {"residency"}
     assert set(pa["stages"]) == set(ja["stages"])
     assert sorted(d["span"] for d in pa["device"]["dispatches"]) == \
         sorted(d["span"] for d in ja["device"]["dispatches"])
@@ -461,6 +489,62 @@ def test_analyze_matches_the_jax_server(servers, query, end):
     assert got == _exec_ids(ja)
     for e in pa["device"]["executables"]:
         assert e["dispositions"] == ["jit"], e   # warm: a known key
+    return pa, ja
+
+
+@pytest.mark.parametrize("query,end", ANALYZE_QUERIES,
+                         ids=[f"{q}@{e}" for q, e in ANALYZE_QUERIES])
+def test_analyze_matches_the_jax_server(servers, query, end):
+    """The two analyzes agree (``_compare_analyze_with_the_jax_server``).
+    Each server answers the query once first: the reference's first
+    dispatch of a tile executable adds a ``build`` event beside the
+    call's own."""
+    _compare_analyze_with_the_jax_server(servers, query, end)
+
+
+def _aligned(mod, S=8, N=64):
+    """Dense aligned tiles of ``mod`` (either package's tilestore)."""
+    ts = np.arange(N, dtype=np.float64)[None, :] * DT + np.zeros((S, 1))
+    kw = {"device": "cpu"} if mod is tst else {}
+    return mod.AlignedTiles([{"i": str(i)} for i in range(S)], 0, DT,
+                            np.ones((S, N), bool), ts,
+                            np.cumsum(np.ones((S, N)), axis=1), **kw)
+
+
+@pytest.fixture
+def live_sharded_stores():
+    """A live reference ShardedTiles and a live port one, as test files
+    that ran earlier on the same worker process leave them: both
+    process-wide residency registries are then filled."""
+    import jax
+
+    from filodb_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from filodb_tpu.parallel.shardstore import ShardedTiles as JSharded
+    from filodb_tpu.query import tilestore as j_tst
+    from filodb_tpu_torch.parallel.mesh import make_mesh
+    from filodb_tpu_torch.parallel.shardstore import ShardedTiles
+
+    stores = (JSharded(j_make_mesh(2, 1, jax.devices()[:2]),
+                       _aligned(j_tst)),
+              ShardedTiles(make_mesh(2, 1, [torch.device("cpu")] * 2),
+                           _aligned(tst)))
+    assert j_capacity.residency_snapshot() and p_capacity.residency_snapshot()
+    yield stores
+
+
+PLANTED = ANALYZE_QUERIES[:2] + ANALYZE_QUERIES[-1:]
+
+
+@pytest.mark.parametrize("query,end", PLANTED,
+                         ids=[f"{q}@{e}" for q, e in PLANTED])
+def test_analyze_matches_the_jax_server_beside_live_sharded_stores(
+        servers, live_sharded_stores, query, end):
+    """A busy test run's order of files, reproduced: with sharded stores
+    alive in both packages, each analyze carries its own package's
+    residency section and the comparison holds."""
+    pa, ja = _compare_analyze_with_the_jax_server(servers, query, end)
+    assert "residency" in pa and "residency" in ja
+    assert "shardstore-resident-channels" in pa["residency"]
 
 
 @pytest.mark.parametrize("query,end", ANALYZE_QUERIES[:4],

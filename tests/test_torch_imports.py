@@ -79,6 +79,9 @@ SERVING_MODULES = (
     "filodb_tpu_torch.promql.gen", "filodb_tpu_torch.promql.refeval",
     "filodb_tpu_torch.lint.numerics", "filodb_tpu_torch.lint.ulpcert",
     "filodb_tpu_torch.testing.soak",
+    # the mesh and distributed execution
+    "filodb_tpu_torch.parallel.mesh", "filodb_tpu_torch.parallel.shardstore",
+    "filodb_tpu_torch.parallel.distributed",
 )
 
 

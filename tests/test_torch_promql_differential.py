@@ -9,7 +9,9 @@ packed path) and a regular world (10 s +/-2 s integer-ms jitter, no
 gaps, one reset; dense tiles, the slide evaluator and the fused group-sum
 kernel, and an unflushed tail on the packed path with the boundary-extract
 kernel). Each answer is held to the pure-Python ``ref_eval``, with the
-cache off and through the results cache, cold and warm.
+cache off and through the results cache, cold and warm. The regular
+world's soak runs once more through the mesh routes (tiles resident
+across 4 CPU partitions, a planner with the scatter-gather executor).
 
 Tolerances (``soak.close``): answers of f64 routes within 1e-6 absolute +
 1e-6 relative (the reference soak's); answers that took an f32 route
@@ -102,6 +104,33 @@ def test_the_soak_reached_every_route(soaks):
     for r in ("tilestore/fast", "tilestore/slide", "tilestore/groupsum",
               "packed/pallas", "packed/gather", "packed/endpoint"):
         assert r in routes, (r, sorted(routes))
+
+
+@pytest.fixture(scope="module")
+def mesh_soak(worlds):
+    """The regular world's soak through the mesh routes: a backend whose
+    tiles are resident across 4 CPU partitions and a planner holding a
+    MeshExecutor over them (``soak.mesh_backend``)."""
+    shard, ref = worlds["regular"]
+    be, ex = soak.mesh_backend("cpu")
+    res = soak.run_soak(shard, ref, be, tag="soak-mesh", mesh_executor=ex)
+    return res, be
+
+
+def test_soak_through_the_mesh_routes(mesh_soak):
+    """Every answer within its routes' budgets of ref_eval; the resident
+    sharded evaluators (per series, batched, grouped) and the
+    scatter-gather (aggregates, topk) all took part."""
+    res, be = mesh_soak
+    _report("mesh", res)
+    assert res.queries == soak.SOAK_N
+    assert not res.failures, "\n".join(res.failures[:10])
+    for r in ("mesh-tiles/mesh-fast", "mesh-tiles/mesh-aligned",
+              "mesh-tiles/mesh-grouped-pair", "mesh/agg", "mesh/topk"):
+        assert r in res.routes, (r, sorted(res.routes))
+    assert be.mesh_dispatches > 0 and be.mesh_eval.ndev == 4
+    assert soak.route_budget([("mesh-tiles", "mesh-fast")]) == 16.0
+    assert soak.route_budget([("mesh", "agg")]) == 0.0
 
 
 @pytest.mark.parametrize("name", sorted(WORLDS))

@@ -85,6 +85,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = {"device": "cpu", "gc-freeze": False}
 T0S = 1_600_000_000
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _leave_the_reference_rule_counters_fresh():
+    """This file runs the JAX package's rules engine with the group and
+    rule names of its own tests (``g``, ``Hot``); the engine counts into
+    the process-wide metric registry, which ``tests/test_rules.py``
+    reads as fresh when it shares this worker process after this file.
+    So the file drops the families it left there (collectors stay)."""
+    from filodb_tpu.obs import metrics as j_metrics
+    yield
+    j_metrics.GLOBAL_REGISTRY.reset()
+
 PKGS = {
     "port": SimpleNamespace(engine=p_engine, loader=p_loader,
                             notify=p_notify, main=p_main, wb=p_wb,

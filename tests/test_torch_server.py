@@ -40,8 +40,10 @@ from filodb_tpu.core.record import RecordBuilder as JBuilder
 from filodb_tpu.core.record import ingestion_shard as j_ingestion_shard
 from filodb_tpu.core.schemas import DEFAULT_SCHEMAS as J_SCHEMAS
 from filodb_tpu.core.schemas import PartitionSchema as JPartitionSchema
+from filodb_tpu.lint import capacity as j_capacity
 from filodb_tpu.standalone.server import FiloServer as JServer
 from filodb_tpu_torch import state
+from filodb_tpu_torch.lint import capacity as p_capacity
 from filodb_tpu_torch.standalone import server as psrv
 
 # the suite runs in several worker processes on shared cores
@@ -382,8 +384,14 @@ def test_explain_analyze_answers_with_the_reference_envelope(
     code, pd, jd = _both(servers, path, explain="analyze", cache="false",
                          **params)
     assert code == 200
-    assert set(pd["analyze"]) == set(jd["analyze"]) >= {
-        "stages", "device", "batcher", "qos"}
+    # the residency section follows each process-wide registry of live
+    # sharded stores, which other test files may have left filled
+    assert set(pd["analyze"]) - {"residency"} == \
+        set(jd["analyze"]) - {"residency"} >= {
+            "stages", "device", "batcher", "qos"}
+    for az, cap in ((pd["analyze"], p_capacity),
+                    (jd["analyze"], j_capacity)):
+        assert ("residency" in az) == bool(cap.residency_snapshot())
     assert set(pd["analyze"]["stages"]) == set(jd["analyze"]["stages"])
     assert set(pd["analyze"]["device"]) == {"executables", "dispatches"}
     assert pd["analyze"]["device"]["executables"]
@@ -486,18 +494,34 @@ def test_routes_of_features_off_answer_as_the_reference(path, code):
         jax_srv.stop()
 
 
-# a value that turns each refused key's feature on
+# a value that turns each formerly refused key's feature on (A.11's
+# keys, refused until the mesh was ported, now honoured)
 REFUSED_ON = {"mesh-enabled": True, "mesh-tile-serving": True}
 # mesh tile serving turns on only together with the mesh
 ON_WITH = {"mesh-tile-serving": {"mesh-enabled": True}}
 
 
 @pytest.mark.parametrize("key", sorted(REFUSED_ON))
-def test_unported_config_keys_are_refused(key):
-    assert set(REFUSED_ON) == set(psrv.REFUSED)
-    with pytest.raises(ValueError, match=key):
-        psrv.FiloServer({key: REFUSED_ON[key], **ON_WITH.get(key, {}),
-                         "device": "cpu"})
+def test_unported_config_keys_are_refused(key, monkeypatch):
+    """No key is refused any more (the test keeps the name it had while
+    these keys were refused): A.11's keys build the mesh (here 2
+    partitions of the CPU) and, with tile serving, the backend's
+    resident sharded tile evaluator."""
+    from filodb_tpu_torch.parallel import mesh as pmesh
+
+    assert psrv.REFUSED == {}
+    assert psrv.DEFAULTS[key] == J_DEFAULTS[key]
+    monkeypatch.setenv(pmesh.PARTITIONS_ENV, "2")
+    srv = psrv.FiloServer({key: REFUSED_ON[key], **ON_WITH.get(key, {}),
+                           "port": 0, "grpc-port": None, **CPU}).start()
+    try:
+        assert srv.mesh_executor is not None
+        assert srv.mesh_executor.ndev == 2
+        assert srv.http.mesh_executor is srv.mesh_executor
+        assert srv.backend.mesh_eval is not None
+        assert srv.backend.mesh_eval.ndev == 2
+    finally:
+        srv.stop()
 
 
 # a value that turns each supervisor key on (ROADMAP A.1.5: honoured)
@@ -636,13 +660,16 @@ SUPERVISOR_KEYS = {"worker-id", "accept-port", "accept-host", "accept-fd",
 # downsampling's keys (A.10): honoured, with the reference's defaults
 DOWNSAMPLE_KEYS = {"raw-retention-s", "downsample-resolutions",
                    "flush-downsample"}
+# the mesh's keys (A.11): honoured, with the reference's defaults
+MESH_KEYS = {"mesh-enabled", "mesh-tile-serving"}
 
 
 @pytest.mark.parametrize("key", sorted(J_DEFAULTS))
 def test_every_reference_config_key_is_honoured_refused_or_listed(key):
     places = [key in psrv.DEFAULTS, key in psrv.REFUSED, key in psrv.INERT]
     assert places.count(True) == 1, (key, places)
-    if key in CLUSTER_KEYS | RULES_KEYS | SUPERVISOR_KEYS | DOWNSAMPLE_KEYS:
+    if key in (CLUSTER_KEYS | RULES_KEYS | SUPERVISOR_KEYS | DOWNSAMPLE_KEYS
+               | MESH_KEYS):
         assert key in psrv.DEFAULTS
         assert psrv.DEFAULTS[key] == J_DEFAULTS[key]
     if key in psrv.REFUSED:
@@ -671,10 +698,24 @@ def test_gc_freeze_and_gil_switch_interval_are_applied(monkeypatch):
     assert calls == []
 
 
+# the gauge of live sharded stores: each package's collector renders it
+# while its process-wide residency registry is not empty, which stores
+# other test files left alive on the same worker process may keep it
+RESIDENCY_FAMILY = "filodb_device_memory_bytes"
+
+
 def _families(srv):
+    """The /metrics families of ``srv``, less the residency gauge, held
+    apart to its own package's registry: present if and only if that
+    registry held a store just before or just after the scrape."""
+    cap = p_capacity if isinstance(srv, psrv.FiloServer) else j_capacity
+    before = bool(cap.residency_snapshot())
     _, body = _get(srv, "/metrics")
-    return {ln.split()[2] for ln in body.decode().splitlines()
+    fams = {ln.split()[2] for ln in body.decode().splitlines()
             if ln.startswith("# TYPE ")}
+    after = bool(cap.residency_snapshot())
+    assert (RESIDENCY_FAMILY in fams) in (before, after), (before, after)
+    return fams - {RESIDENCY_FAMILY}
 
 
 # families of the reference with no counterpart in the port -> why: none

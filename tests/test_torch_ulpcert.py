@@ -1,11 +1,13 @@
 """The port's precision rail (``filodb_tpu_torch/lint/numerics.py`` and
-``filodb_tpu_torch/lint/ulpcert.py``) on the CPU: each of the seven
+``filodb_tpu_torch/lint/ulpcert.py``) on the CPU: each of the eight
 ``@precision`` claims is declared at the port's counterpart site with the
 reference's name, bits and budget, and certified against its f64
 reference by its harness, which runs the port's plain versions here (the
 group-sum kernel's plain version included); a widened error is reported
-as a miss. On the card chip_smoke phase 13 runs the same harnesses with
-``device="cuda"``."""
+as a miss. The two ``@order_insensitive`` claims of the mesh are
+certified across 1, 2, 4 and 8 partitions of the CPU. On the card
+chip_smoke phase 13 runs the same harnesses with ``device="cuda"``, and
+phase 14 the mesh's three claims."""
 
 import math
 
@@ -33,6 +35,15 @@ CLAIMS = {
                               "_extrapolated_rate"),
     "groupsum-recombine-f32": ("filodb_tpu_torch.query.kernels",
                                "counter_groupsum"),
+    "append-carry-exact": ("filodb_tpu_torch.parallel.shardstore",
+                           "_append_step"),
+}
+# order claims -> the port's site
+ORDER_CLAIMS = {
+    "grouped-reduce-psum": ("filodb_tpu_torch.parallel.mesh",
+                            "_grouped_reduce"),
+    "grouped-pair-psum": ("filodb_tpu_torch.parallel.shardstore",
+                          "_grouped_pair"),
 }
 
 
@@ -42,9 +53,45 @@ def results():
 
 
 def test_the_inventory_is_the_seven_claims():
+    """The seven claims of the single-device sites, and since the mesh
+    (ROADMAP A.11) its precision claim and its two order claims."""
     inv = nmod.claim_inventory()
     assert set(inv["precision"]) == set(CLAIMS)
-    assert inv["order"] == {}           # the sharded evaluators' come later
+    assert len(CLAIMS) == 8
+    assert set(inv["order"]) == set(ORDER_CLAIMS)
+
+
+@pytest.mark.parametrize("name", sorted(ORDER_CLAIMS))
+def test_order_claim_certified_across_partition_counts(results, name):
+    claim = nmod.order_claim(name)
+    assert (claim.module, claim.qualname) == ORDER_CLAIMS[name]
+    assert claim.tolerance == j_nmod.order_claim(name).tolerance
+    r = results[name]
+    assert r.kind == "order" and r.device == "cpu"
+    assert r.ok, f"{name}: {r.measured} vs {r.claimed} ({r.detail})"
+    assert "(1, 2, 4, 8)" in r.detail
+
+
+def test_the_reference_misses_its_grouped_pair_claim_where_the_port_holds():
+    """The JAX package's own harness of grouped-pair-psum deviates across
+    its virtual device counts (ROADMAP C.13, 0.875 relative); the port's,
+    on the same counter world, stays within 1e-12."""
+    j_nmod.import_annotated_modules()
+    j = j_ulpcert._measure_order(j_nmod.order_claim("grouped-pair-psum"),
+                                 j_ulpcert.HARNESSES["grouped-pair-psum"][1],
+                                 (1, 2, 4, 8))
+    p = ulpcert.certify_order("grouped-pair-psum", "cpu")
+    assert not j.ok and j.measured > 0.1, j.detail
+    assert p.ok and p.measured <= 1e-12, p.detail
+
+
+def test_a_widened_order_deviation_is_a_miss():
+    def drifting(ndev, device):
+        return (np.array([1.0 + 1e-9 * ndev]),)
+
+    r = ulpcert._measure_order(nmod.order_claim("grouped-reduce-psum"),
+                               drifting, (1, 2, 4, 8), "cpu")
+    assert not r.ok and r.measured > 1e-12
 
 
 @pytest.mark.parametrize("name", sorted(CLAIMS))
