@@ -195,6 +195,26 @@ non-zero exit):
      irregular series; started first, overlapping (a) and (b)), each
      rank's answer against the single-process 4-partition mesh (the
      `mesh` line);
+ 15. capacity and contracts (filodb_tpu_torch/lint/memcert.py and the
+     kernels' @kernel_contract), no query and no kernel launch: (a)
+     every @capacity claim certified on the card at full width — the
+     aligned tiles over phase 4's 4,096 counters x 2,880 slots, the tile
+     cache holding phase 4's entries (the counters' tiles, the
+     irregular selection's none), the sharded store on 1, 2 and 4
+     partitions, the downsampler's staging block for one batch of 256
+     of phase 12(b)'s gauges — each with its storage walk, the
+     allocator's requested-bytes and memory_allocated deltas around the
+     build, the claimed bytes and verdict, the bytes per padded slot
+     and the projected resident series per card of its total_memory at
+     2,880 samples each (the `capacity` line); (b) each CUDA contract's
+     registers and static shared bytes against the ptxas report of the
+     kernels' build (kept beside each library, so a reused build reads
+     it too) and against its functions' attributes as the card loaded
+     them (cudaFuncGetAttributes), its shared-memory budget against the
+     card's opt-in limit, and, at every shape phases 3-14 launched in
+     this process, what the library reports it launches (the
+     launcher's own arithmetic) against the contract's plan and limits
+     (the `contracts` line);
   then the `memory` line: the card's allocated memory (live tensors)
   after each phase, each stopped server's held to within 256 MiB of the
   level before it started, and phase 12 starting with at most 1 GiB
@@ -251,6 +271,12 @@ within 1e-9 (the reference test's); topk winners exact; the append
 bitwise on the reset-free series and within 2 f64 ulps on those with a
 reset before it (the same carry added in another order); both ranks
 within 1e-12 of the single-process mesh.
+Phase 15: each claim's walk within the claim and the claim within 1.25x
+the walk; the requested bytes within 512 B a storage of the walk and
+memory_allocated's delta from the walk to 1 MiB a storage above it (a
+cached block is handed out whole when at most 1 MiB would remain);
+registers and static shared bytes equal to ptxas's and the card's; every
+launch the contract's plan and admitted.
 Phase 10: the job rates within rtol 1e-5 of the integer-rule oracle (on
 a tick that did not take the fused group-sum, plus the knife spread) and
 of the uncached HTTP answer; the alert's active set decided by the
@@ -261,8 +287,8 @@ within rtol 1e-5 of a branch variant of the oracle.
 Standard output: the card's name and power limit after phase 1, then each
 phase's JSON line as the phase ends (`functions` with `queries`,
 `serving`, `server`, `rules`, `durability`, `cluster`, `supervisor`,
-`downsample`, `certification`, `mesh`), then the `memory` and `kernels`
-lines,
+`downsample`, `certification`, `mesh`, `capacity`, `contracts`), then
+the `memory` and `kernels` lines,
 and last
 {"ok": true, "device": {...}}. The script exits non-zero,
 printing no result, when there is no CUDA device.
@@ -1021,9 +1047,15 @@ def phase_engine(rng: np.random.Generator) -> dict:
     errs = check_kernel_calls(calls, originals, "the main path")
     log(f"phase 4: main-path kernel calls held against the plain versions: "
         f"{ {k: len(v) for k, v in calls.items()} }")
+    # what the tile cache held after the main path: phase 15 certifies
+    # the cache's claim over the same entries
+    tile_cache = [None if e.tiles is None else list(e.tiles.valid.shape)
+                  for e in be._tile_cache.values()]
+    log(f"phase 4: tile cache entries (series, slots): {tile_cache}")
     return {"launches": launches, "errs": errs, "ingest_s": ingest_s,
             "shard": shard, "backend": be, "irr": irr, "ts": ts,
-            "vals": vals, "rows": rows, "first_query_split": split}
+            "vals": vals, "rows": rows, "first_query_split": split,
+            "tile_cache": tile_cache}
 
 
 class HostSplit:
@@ -5894,6 +5926,268 @@ def _phase_mesh(data: dict, dev, bw: float, smi: str, ranks: dict,
         "card": smi}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: capacity and contracts
+# ---------------------------------------------------------------------------
+
+CAP_PARTITIONS = (1, 2, 4)      # ShardedTiles on these partitions of the card
+CAP_DS_BATCH = 256              # the downsampler job's batch (batch_series)
+CAP_WALK_SLACK = 512            # B per storage: the allocator's rounding
+# a cached large block is handed out whole when at most 1 MiB would remain
+CAP_BLOCK_SLACK = 1 << 20
+
+
+def cap_rows(data: dict):
+    """Phase 4's flushed counters as dense rows (base, dt, valid, ts,
+    vals): the engine shape, S_ENGINE series x N_FULL slots."""
+    ts = data["ts"][:, :N_FULL]
+    vals = data["vals"][:, :N_FULL]
+    return BASE, DT, np.ones(ts.shape, bool), ts, vals
+
+
+def cap_tile_entries(data: dict):
+    """The selections phase 4's tile cache held: the counters' (whose
+    tiles its grouped and per-series rates read) and the irregular
+    series' (no shared cadence: no tiles), as RawSeries over the flushed
+    samples."""
+    from filodb_tpu_torch.query.model import RawSeries
+
+    return [[RawSeries(lab, ts, vals, True)
+             for lab, ts, vals in data[key]]
+            for key in ("counters", "irregular")]
+
+
+def cap_ds_batch(data: dict):
+    """One downsampler batch of phase 12(b)'s backfilled gauges (one in
+    DS_GAUGE_STRIDE), as the job's _pack takes it."""
+    rows = data["gauges"][::DS_GAUGE_STRIDE][:CAP_DS_BATCH]
+    return [(f"pk{i}", lab, ts, vals) for i, (lab, ts, vals) in
+            enumerate(rows)]
+
+
+def capacity_reading(name: str, dev, smi: str, total: int,
+                     counts=None, **shape) -> dict:
+    """Certify one claim on the card at ``shape`` (``counts`` partitions
+    for the sharded one) and hold the storage walk against the
+    allocator around the build: the bytes its tensors requested within
+    CAP_WALK_SLACK a storage of the walk, and memory_allocated's delta
+    at least the walk and at most CAP_BLOCK_SLACK a storage above it
+    (the unsplit remainders of the blocks it was handed)."""
+    from filodb_tpu_torch.lint import capacity as cmod
+    from filodb_tpu_torch.lint import memcert
+
+    torch.cuda.empty_cache()
+    r = memcert.certify(name, str(dev), counts=counts, **shape)
+    claim = cmod.capacity_claim(name)
+    row = memcert.ledger_row(claim, r, N_FULL, total)
+    row.update({
+        "ok": r.ok, "detail": r.detail, "walk_bytes": r.measured,
+        "claimed_bytes": r.claimed, "storages": r.storages,
+        "alloc_delta_bytes": r.alloc_delta,
+        "requested_delta_bytes": r.requested_delta,
+        "bytes_per_padded_slot": (r.measured / r.n_samples
+                                  if r.n_samples else None),
+        "card": smi})
+    log(f"phase 15: {name} {shape and list(shape) or ''} "
+        f"{counts or ''}: walk {r.measured:.0f} B in {r.storages} "
+        f"storages, requested delta {r.requested_delta}, memory_allocated "
+        f"delta {r.alloc_delta}, claimed {r.claimed:.0f} B "
+        f"({r.detail}); {row['projected_series_per_device']} series of "
+        f"{N_FULL} samples per card of {total} B [{smi}]")
+    assert r.ok, f"15: {name} failed certification on the card: {r.detail}"
+    assert abs(r.requested_delta - r.measured) \
+        <= CAP_WALK_SLACK * r.storages, \
+        f"15: {name}: the allocator's requested bytes disagree with the walk"
+    assert 0 <= r.alloc_delta - r.measured \
+        <= CAP_BLOCK_SLACK * r.storages, \
+        f"15: {name}: memory_allocated's delta disagrees with the walk"
+    return row
+
+
+def capacity_on_card(data: dict, dev, smi: str, tile_cache: list) -> dict:
+    """15(a): every @capacity claim certified on the card at full width."""
+    from filodb_tpu_torch.lint import capacity as cmod
+    from filodb_tpu_torch.lint import memcert
+
+    total = memcert.device_memory_bytes(str(dev))
+    rows = cap_rows(data)
+    out = {"tilestore-aligned-tiles": capacity_reading(
+        "tilestore-aligned-tiles", dev, smi, total, rows=rows)}
+    entries = cap_tile_entries(data)
+    cache = capacity_reading("device-tile-cache", dev, smi, total,
+                             entries=entries)
+    # the harness held what phase 4's cache held (tiles of S x N each)
+    want = sorted(s[0] * s[1] for s in tile_cache if s)
+    assert cache["harness_n_samples"] == sum(want), (cache, tile_cache)
+    out["device-tile-cache"] = cache
+    for n in CAP_PARTITIONS:
+        out[f"shardstore-resident-channels@{n}"] = capacity_reading(
+            "shardstore-resident-channels", dev, smi, total, counts=(n,),
+            rows=rows)
+    out["downsample-pack-buffers"] = capacity_reading(
+        "downsample-pack-buffers", dev, smi, total,
+        batch=cap_ds_batch(data))
+    cmod.import_annotated_modules()
+    read = {k.split("@")[0] for k in out}
+    assert read == set(cmod.CAPACITY), (read, set(cmod.CAPACITY))
+    return {"claims": out, "total_memory": total}
+
+
+def device_limits(dev) -> dict:
+    """The card's shared-memory and register limits, read from the card."""
+    props = torch.cuda.get_device_properties(dev)
+    return {"smem_per_block_optin": props.shared_memory_per_block_optin,
+            "smem_per_block": props.shared_memory_per_block,
+            "regs_per_sm": props.regs_per_multiprocessor,
+            "sm_count": props.multi_processor_count}
+
+
+def _call_shape(name: str, sig, a, kw, n_sm: int) -> Optional[tuple]:
+    """A kernel wrapper call's shape as its contract's ``launches``
+    keywords (sorted items), or None where the call launches nothing."""
+    b = sig.bind(*a, **kw).arguments
+    if name == "counter_groupsum":
+        v_p = b["v_p"]
+        if v_p.device.type != "cuda":
+            return None
+        shape = {"n_s": int(v_p.shape[0]), "T": int(b["nsteps"]),
+                 "G": int(b["onehot"].shape[1]),
+                 "hi_mode": int(b["hi_mode"]), "lo_mode": int(b["lo_mode"]),
+                 "n_sm": n_sm}
+    else:
+        pay = b["pay"]
+        S, _, N = pay.shape
+        if pay.device.type != "cuda" or S == 0 or int(b["nsteps"]) == 0:
+            return None
+        shape = {"S": int(S), "N": int(N), "T": int(b["nsteps"])}
+    return tuple(sorted(shape.items()))
+
+
+def record_launch_shapes():
+    """Wrap both kernel wrappers for phases 3-14: each call that launched
+    counts its shape, and keeps no tensor -> (shapes, originals). Phase
+    15 asks each library what it launched at every shape."""
+    from filodb_tpu_torch.query import kernels as kn
+
+    shapes = {"counter_groupsum": {}, "window_extract": {}}
+    originals = {name: getattr(kn, name) for name in shapes}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def recorder(name):
+        sig = inspect.signature(originals[name])
+
+        def call(*a, **kw):
+            out = originals[name](*a, **kw)
+            key = _call_shape(name, sig, a, kw, n_sm)
+            if key is not None:
+                shapes[name][key] = shapes[name].get(key, 0) + 1
+            return out
+        return call
+
+    for name in shapes:
+        setattr(kn, name, recorder(name))
+    return shapes, originals
+
+
+def library_attrs(lib, name: str) -> list:
+    """(name, registers, static shared bytes, most threads per block) of
+    each __global__ instance of a kernel library, as the card loaded it."""
+    import ctypes
+
+    fn = getattr(lib, f"{name}_attrs")
+    out = []
+    while True:
+        kname, vals = ctypes.c_char_p(), (ctypes.c_int * 3)()
+        rc = fn(len(out), ctypes.byref(kname), vals)
+        if rc == -1:
+            return out
+        assert rc == 0, f"15: {name}_attrs({len(out)}): cudaError {rc}"
+        out.append((kname.value.decode(), *vals))
+
+
+def library_launches(lib, name: str, shape: dict) -> list:
+    """What a kernel library launches for one call of ``shape``, as it
+    reports it (``*_geometry``, the launcher's own arithmetic)."""
+    import ctypes
+    from filodb_tpu_torch.lint.contracts import Launch
+    from filodb_tpu_torch.query import kernels as kn
+
+    if name == "counter_groupsum":
+        lp = kn.groupsum_launch_plan(**shape)
+        v = (ctypes.c_int * 10)()
+        rc = lib.counter_groupsum_geometry(
+            shape["n_s"], shape["G"], shape["T"], shape["hi_mode"],
+            shape["lo_mode"], lp["chunk"], lp["stages"], v)
+        assert rc == 0, f"15: the library refuses the plan at {shape}"
+        return [Launch("groupsum_partial_kernel", tuple(v[0:3]), v[3], v[4]),
+                Launch("groupsum_reduce_kernel", tuple(v[5:8]), v[8], v[9])]
+    v = (ctypes.c_int * 5)()
+    rc = lib.window_extract_geometry(shape["S"], shape["N"], shape["T"], v)
+    assert rc == 0, f"15: window_extract_geometry at {shape}: {rc}"
+    return [Launch("window_extract_kernel", tuple(v[0:3]), v[3], v[4])]
+
+
+def contracts_on_card(dev, smi: str, shapes: dict) -> dict:
+    """15(b): each CUDA contract against the ptxas report of the build and
+    its functions' attributes on the card, its budget against the card's
+    opt-in limit, and, at every shape phases 3-14 launched, what the
+    library launches against the contract's plan and limits."""
+    from filodb_tpu_torch.lint import rules_kernel
+    from filodb_tpu_torch.lint.contracts import CONTRACTS
+    from filodb_tpu_torch.query import kernels as kn
+
+    limits = device_limits(dev)
+    libs = kn.build_kernels()
+    out = {}
+    for name in ("counter_groupsum", "window_extract"):
+        c = CONTRACTS[("filodb_tpu_torch.query.kernels", name)]
+        kernels, bad = rules_kernel.check_build(
+            c, rules_kernel.ptxas_report(kn.BUILD_LOG[name]),
+            library_attrs(libs[name], name), limits["smem_per_block_optin"])
+        assert not bad, f"15: {name} disagrees with its build: {bad}"
+        for k in c.kernels:
+            assert k.registers * k.threads <= limits["regs_per_sm"], k.name
+        launches, by_kernel = [], {}
+        for key, n in shapes[name].items():
+            shape = dict(key)
+            got = library_launches(libs[name], name, shape)
+            bad = rules_kernel.check_launches(c, shape, got)
+            assert not bad, f"15: {name} launched outside its contract: " \
+                f"{bad}"
+            launches.extend(got)
+            for lnch in got:
+                by_kernel[lnch.kernel] = by_kernel.get(lnch.kernel, 0) + n
+        assert by_kernel.get(c.kernels[0].name, 0) > 0, \
+            f"15: no {name} launch recorded in phases 3-14"
+        out[name] = {"kernels": kernels, "smem_budget": c.smem_budget,
+                     "launches_admitted": by_kernel,
+                     "shapes": len(shapes[name]),
+                     "max_plan_smem": max(lnch.smem for lnch in launches),
+                     "max_grid": [max(lnch.grid[i] for lnch in launches)
+                                  for i in range(3)]}
+        log(f"phase 15: contract {name}: {json.dumps(out[name])}")
+    return {"contracts": out, "limits": limits, "card": smi}
+
+
+def phase_capacity(data: dict, dev, smi: str, tile_cache: list,
+                   shapes: dict) -> dict:
+    """Phase 15: (a) the capacity claims, (b) the kernel contracts. It runs
+    no query and launches no kernel."""
+    from filodb_tpu_torch.query import kernels as kn
+
+    t0 = time.perf_counter()
+    launched = dict(kn.LAUNCHES)
+    cap = capacity_on_card(data, dev, smi, tile_cache)
+    t1 = time.perf_counter()
+    con = contracts_on_card(dev, smi, shapes)
+    secs = time.perf_counter() - t0
+    assert dict(kn.LAUNCHES) == launched, "15: phase 15 launched a kernel"
+    log(f"phase 15: {secs:.1f} s (capacity {t1 - t0:.1f} s, contracts "
+        f"{secs - (t1 - t0):.1f} s) [{smi}]")
+    return {"capacity": dict(cap, seconds=t1 - t0, card=smi),
+            "contracts": dict(con, seconds=secs - (t1 - t0))}
+
+
 # allocated device memory (live tensors) a stopped server or a finished
 # phase may leave behind (ROADMAP C.23)
 MEM_SLACK = 256 << 20
@@ -5973,6 +6267,8 @@ def main() -> int:
     memory = {"phase1": mem_log("after phase 1")}
     run_phase(2, "kernel parity", phase_parity, gen, dev)
     memory["phase2"] = mem_log("after phase 2")
+    # phase 15 holds every launch of phases 3-14 to its contract
+    shapes, wrappers = record_launch_shapes()
     rows = run_phase(3, "real size", phase_real_size, gen, dev, bw,
                      f32_rate)
     memory["phase3"] = mem_log("after phase 3")
@@ -6066,8 +6362,15 @@ def main() -> int:
         before, "phase 13: its backends released")
     mesh = run_phase(14, "mesh", phase_mesh, data, dev, bw, smi)
     emit("mesh", mesh["mesh"])
-    memory["phase14"] = mem_released(
+    memory["phase14"] = before = mem_released(
         before, "phase 14: its stores dropped and its servers stopped")
+    restore_kernels(wrappers)
+    cap = run_phase(15, "capacity and contracts", phase_capacity, data, dev,
+                    smi, eng["tile_cache"], shapes)
+    emit("capacity", cap["capacity"])
+    emit("contracts", cap["contracts"])
+    memory["phase15"] = mem_released(
+        before, "phase 15: its stores dropped")
     emit("memory", {"allocated_bytes": memory, "slack_bytes": MEM_SLACK,
                     "card": smi})
     kernels = []

@@ -569,10 +569,44 @@ constexpr LaunchFn kLaunch[3][2] = {
     {launch_partial<1, false>, launch_partial<1, true>},
     {launch_partial<2, false>, launch_partial<2, true>}};
 
+constexpr int kReduceThreads = 256;
+
+// The two launches of one call.
+struct Geometry {
+  dim3 part_grid;
+  int part_smem;
+  dim3 reduce_grid;
+};
+
+// Sets the fields of p that follow from G, the modes, chunk and stages,
+// and the call's launches: the partial kernel over (ceil(T / chunk), n_s)
+// blocks of kThreads with layout().total dynamic shared bytes, then the
+// reduction over the T*G outputs. false when the plan lies outside the
+// kernel's range.
+bool plan_launches(int n_s, int G, int T, int hi_mode, int lo_mode,
+                   int chunk, int stages, Params& p, Geometry& g) {
+  p.G = G;
+  p.T = T;
+  p.hi_mode = hi_mode;
+  p.lo_mode = lo_mode;
+  p.chunk = chunk;
+  p.stages = stages;
+  p.fams = 2 + (hi_mode != kCur) + (lo_mode != kCur);
+  p.cw = 1;
+  while (4 * p.cw < (G < kGC ? G : kGC)) p.cw *= 2;
+  p.nbuf = G <= kGC ? 2 : 1;
+  const Layout L = layout(stages, p.fams, p.cw, p.nbuf);
+  g.part_grid = chunk >= 1 ? dim3((T + chunk - 1) / chunk, n_s) : dim3(0);
+  g.part_smem = L.total;
+  g.reduce_grid = dim3((T * G + kReduceThreads - 1) / kReduceThreads);
+  return chunk >= 1 && stages >= 1 && stages <= kStagesMax &&
+         L.total <= kSmemMax;
+}
+
 }  // namespace
 
-// chunk and stages come from the wrapper's groupsum_launch_plan; the grid
-// is (ceil(T / chunk), n_s) blocks of kThreads.
+// chunk and stages come from the wrapper's groupsum_launch_plan; the
+// launches are plan_launches'.
 extern "C" int counter_groupsum_launch(
     const int32_t* v_p, const float* base, const float* onehot,
     float* part_sum, float* part_cnt, float* sums, float* cnts, int n_s,
@@ -582,32 +616,68 @@ extern "C" int counter_groupsum_launch(
   Params p;
   p.st = st;
   p.g_perm = g_perm;
-  p.G = G;
-  p.T = T;
   p.dspan = dspan;
-  p.hi_mode = hi_mode;
-  p.lo_mode = lo_mode;
   p.kl0 = kl0;
   p.w0e_rel = w0e_rel;
   p.window = window;
   p.step = step;
-  p.chunk = chunk;
-  p.stages = stages;
-  p.fams = 2 + (hi_mode != kCur) + (lo_mode != kCur);
-  p.cw = 1;
-  while (4 * p.cw < (G < kGC ? G : kGC)) p.cw *= 2;
-  p.nbuf = G <= kGC ? 2 : 1;
-  const Layout L = layout(stages, p.fams, p.cw, p.nbuf);
-  if (chunk < 1 || stages < 1 || stages > kStagesMax || L.total > kSmemMax ||
+  Geometry g;
+  if (!plan_launches(n_s, G, T, hi_mode, lo_mode, chunk, stages, p, g) ||
       func < 0 || func > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((T + chunk - 1) / chunk, n_s);
   cudaError_t err = kLaunch[func][exact_branch ? 1 : 0](
-      grid, L.total, s, v_p, base, onehot, part_sum, part_cnt, p);
+      g.part_grid, g.part_smem, s, v_p, base, onehot, part_sum, part_cnt,
+      p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tg = T * G;
-  groupsum_reduce_kernel<<<(tg + 255) / 256, 256, 0, s>>>(
-      part_sum, part_cnt, sums, cnts, n_s, tg);
+  groupsum_reduce_kernel<<<g.reduce_grid, kReduceThreads, 0, s>>>(
+      part_sum, part_cnt, sums, cnts, n_s, T * G);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What counter_groupsum_launch launches for these arguments, without
+// launching: out = {grid x, y, z, threads, dynamic shared bytes} of the
+// partial kernel, then of the reduction. cudaErrorInvalidValue where the
+// launcher refuses the plan.
+extern "C" int counter_groupsum_geometry(int n_s, int G, int T,
+                                         int hi_mode, int lo_mode,
+                                         int chunk, int stages, int* out) {
+  Params p;
+  Geometry g;
+  if (!plan_launches(n_s, G, T, hi_mode, lo_mode, chunk, stages, p, g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int v[10] = {static_cast<int>(g.part_grid.x),
+                     static_cast<int>(g.part_grid.y),
+                     static_cast<int>(g.part_grid.z), kThreads,
+                     g.part_smem,
+                     static_cast<int>(g.reduce_grid.x),
+                     static_cast<int>(g.reduce_grid.y),
+                     static_cast<int>(g.reduce_grid.z), kReduceThreads, 0};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The i-th __global__ instance as the card loaded it
+// (cudaFuncGetAttributes): its name, and out = {registers, static shared
+// bytes, the most threads a block may take}. The six partial-kernel
+// instances (func x exact branch), then the reduction. -1 past the last,
+// else a cudaError_t.
+extern "C" int counter_groupsum_attrs(int i, const char** name, int* out) {
+  const void* fns[7] = {
+      reinterpret_cast<const void*>(groupsum_partial_kernel<0, false>),
+      reinterpret_cast<const void*>(groupsum_partial_kernel<0, true>),
+      reinterpret_cast<const void*>(groupsum_partial_kernel<1, false>),
+      reinterpret_cast<const void*>(groupsum_partial_kernel<1, true>),
+      reinterpret_cast<const void*>(groupsum_partial_kernel<2, false>),
+      reinterpret_cast<const void*>(groupsum_partial_kernel<2, true>),
+      reinterpret_cast<const void*>(groupsum_reduce_kernel)};
+  if (i < 0 || i >= 7) return -1;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *name = i < 6 ? "groupsum_partial_kernel" : "groupsum_reduce_kernel";
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = a.maxThreadsPerBlock;
+  return 0;
 }

@@ -86,6 +86,24 @@ __global__ void window_extract_kernel(
   }
 }
 
+constexpr int kThreadsMax = 256;
+
+// One launch: a block per row, a thread per window (whole warps, at most
+// kThreadsMax), the row's timestamps in shared memory when they fit.
+struct Geometry {
+  int threads;
+  size_t smem;
+};
+
+Geometry plan_launch(int N, int T) {
+  Geometry g;
+  g.threads = ((T + 31) / 32) * 32;
+  if (g.threads > kThreadsMax) g.threads = kThreadsMax;
+  if (g.threads < 32) g.threads = 32;
+  g.smem = N <= kSmemRowMax ? static_cast<size_t>(N) * 4 : 0;
+  return g;
+}
+
 }  // namespace
 
 extern "C" int window_extract_launch(const int32_t* tr, const float* pay,
@@ -94,12 +112,37 @@ extern "C" int window_extract_launch(const int32_t* tr, const float* pay,
                                      int S, int N, int C, int T,
                                      long long step, long long window,
                                      void* stream) {
-  int threads = ((T + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  if (threads < 32) threads = 32;
-  const size_t smem = N <= kSmemRowMax ? static_cast<size_t>(N) * 4 : 0;
-  window_extract_kernel<<<S, threads, smem,
+  const Geometry g = plan_launch(N, T);
+  window_extract_kernel<<<S, g.threads, g.smem,
                           static_cast<cudaStream_t>(stream)>>>(
       tr, pay, cnt, tlo, thi, plo, phi, N, C, T, step, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What window_extract_launch launches for these shapes, without
+// launching: out = {grid x, y, z, threads, dynamic shared bytes}.
+extern "C" int window_extract_geometry(int S, int N, int T, int* out) {
+  const Geometry g = plan_launch(N, T);
+  out[0] = S;
+  out[1] = 1;
+  out[2] = 1;
+  out[3] = g.threads;
+  out[4] = static_cast<int>(g.smem);
+  return 0;
+}
+
+// The kernel as the card loaded it (cudaFuncGetAttributes): its name, and
+// out = {registers, static shared bytes, the most threads a block may
+// take}. -1 past the one instance, else a cudaError_t.
+extern "C" int window_extract_attrs(int i, const char** name, int* out) {
+  if (i != 0) return -1;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, reinterpret_cast<const void*>(window_extract_kernel));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *name = "window_extract_kernel";
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = a.maxThreadsPerBlock;
+  return 0;
 }

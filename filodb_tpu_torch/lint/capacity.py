@@ -2,10 +2,19 @@
 ``filodb_tpu/lint/capacity.py``).
 
 Every allocation that escapes into a long-lived device store declares
-its bytes budget with :func:`capacity`. The JAX package's graftlint
-(``python -m filodb_tpu.lint filodb_tpu_torch``) reads the declarations
-by the decorator's leaf name, so the port's copy is seen as the
-reference's is; it does not import or certify the port's claims.
+its bytes budget with :func:`capacity`, and two rails hold the
+declaration to account:
+
+  * statically — :mod:`filodb_tpu_torch.lint.rules_capacity` follows
+    torch device allocations into object attributes and
+    ``@cache_registry`` stores and errors on any escape without a
+    ``@capacity`` claim;
+  * dynamically — :mod:`filodb_tpu_torch.lint.memcert` builds every
+    annotated structure, measures the device bytes it retains (distinct
+    tensor storages; on CUDA also the allocator) and CERTIFIES the
+    claim: measured bytes above it, or a claim more than 1.25x over
+    measured, is a ``capacity-certification`` finding. Sharded claims
+    certify at 1, 2, 4 and 8 partitions.
 
 The claim model is affine in the store's logical contents:
 
@@ -120,6 +129,8 @@ def capacity_claim(name: str) -> CapacityClaim:
 ANNOTATED_MODULES: Tuple[str, ...] = (
     "filodb_tpu_torch.downsample.job",
     "filodb_tpu_torch.parallel.shardstore",
+    "filodb_tpu_torch.query.backend",
+    "filodb_tpu_torch.query.tilestore",
 )
 
 

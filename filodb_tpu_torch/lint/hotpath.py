@@ -2,10 +2,11 @@
 
 :func:`hot_path` marks a function as part of the per-query serving
 fast path. Inside marked functions (and their lexically nested
-helpers) graftlint flags device→host transfer calls — ``np.asarray`` /
-``np.array`` / ``.item()`` / ``.block_until_ready()`` /
-``jax.device_get`` — because an implicit sync on a device array stalls
-the async dispatch pipeline and holds the GIL through device compute.
+helpers) graftlint flags device→host transfers and host syncs —
+``.item()`` / ``.cpu()`` / ``.tolist()`` / ``.to("cpu")`` /
+``np.asarray`` / ``torch.cuda.synchronize()`` — because an implicit sync
+on a CUDA tensor stalls the async launch queue and holds the GIL through
+device compute.
 A *deliberate* sync point (e.g. the one amortized per-batch conversion
 in ``SplitResult.get``) carries a
 ``# graftlint: disable=host-transfer-in-hot-loop (reason)`` pragma.

@@ -609,6 +609,7 @@ class ShardedTileEvaluator:
         with self._lock:
             while len(self._placed) >= self.MAX_PLACEMENTS:
                 self._placed.pop(next(iter(self._placed)))
+            # graftlint: disable=hbm-residency-budget (the placement cache holds ShardedTiles stores, whose channels the shardstore-resident-channels claim on ShardedTiles prices; MAX_PLACEMENTS caps it)
             self._placed[key] = (ref, placed)
             self.placements += 1
         return placed

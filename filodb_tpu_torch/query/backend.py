@@ -52,6 +52,8 @@ import numpy as np
 import torch
 
 from filodb_tpu_torch.lint.caches import cache_registry
+from filodb_tpu_torch.lint.capacity import capacity
+from filodb_tpu_torch.lint.hotpath import hot_path
 from filodb_tpu_torch.lint.numerics import precision
 from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs import metrics as obs_metrics
@@ -511,6 +513,7 @@ class _TileEntry:
 
     def __init__(self, tiles, idx, prefix_has_nan, refs, cov_min_ms,
                  ident_key=None):
+        # graftlint: disable=hbm-residency-budget (a record of the tile cache: the cohort it holds is priced by the device-tile-cache claim on TorchBackend._insert_tile_entry)
         self.tiles = tiles
         self.idx = idx
         self.prefix_has_nan = prefix_has_nan
@@ -762,6 +765,13 @@ class TorchBackend:
         return _TileEntry(tiles, idx, prefix_has_nan,
                           None if use_snap else list(series), cov_min)
 
+    @capacity(
+        "device-tile-cache", bytes_per_sample=17.0,
+        reason="each tile-cache entry retains one AlignedTiles cohort "
+               "(valid bool + ts f64 + vals f64 = 17 B per slot) over "
+               "the selection's immutable chunk prefix, FIFO-capped at "
+               "_TILE_CACHE_MAX entries; warm channel caches on the "
+               "retained cohort are priced by the tilestore claim")
     def _insert_tile_entry(self, key, ident, entry: _TileEntry) -> None:
         # a key already cached (two threads built it at once) is replaced
         # in place: evicting for it would drop a live entry
@@ -887,6 +897,7 @@ class TorchBackend:
                                             step_ms, window_ms, offset_ms)
         return full
 
+    @hot_path
     def _aligned_dispatch(self, tiles, func: str, steps: np.ndarray,
                           window_ms: int, offset_ms: int) -> np.ndarray:
         """Aligned evaluation -> [S, T] numpy. With the batcher on,
@@ -1034,6 +1045,7 @@ class TorchBackend:
             return self._packed_single(func, ts, vals, lens, w0s, w0e, step,
                                        nsteps, scalar, w_bound)
 
+    @hot_path
     def _packed_single(self, func: str, ts, vals, lens, w0s: int, w0e: int,
                        step: int, nsteps: int, scalar: float,
                        w_bound: int) -> np.ndarray:
@@ -1060,6 +1072,7 @@ class TorchBackend:
                 "packed", ("pallas", func, s_bucket, N, nsteps), inputs,
                 out, cost=functools.partial(kn.window_extract_cost,
                                             s_bucket, N, 3, nsteps))
+            # graftlint: disable=host-transfer-in-hot-loop (single-query path: designed sync point at kernel egress)
             return out.cpu().numpy()[:S]
         t_bucket = _next_pow2(nsteps, 8)
         if func in _GATHER_FUNCS:
@@ -1071,6 +1084,7 @@ class TorchBackend:
                                    step, t_bucket)
             key = ("endpoint", func, s_bucket, N, t_bucket)
         tst.note_exec("packed", key, inputs, out)
+        # graftlint: disable=host-transfer-in-hot-loop (single-query path: designed sync point at kernel egress)
         return out.cpu().numpy()[:S, :nsteps]
 
     def _packed_run(self, func: str, t_bucket: int, scalar: float,

@@ -51,6 +51,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from filodb_tpu_torch.lint.hotpath import hot_path
 from filodb_tpu_torch.lint.threads import thread_root
 from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
@@ -135,12 +136,14 @@ class SplitResult:
     def __init__(self, stacked, n: int,
                  split: Optional[Callable[[np.ndarray, int], np.ndarray]]
                  = None):
+        # graftlint: disable=hbm-residency-budget (transient: one batch's device output, held until the first get() copies it to the host and drops it)
         self._stacked = stacked
         self._n = n
         self._split = split
         self._host: Optional[np.ndarray] = None
         self._lock = threading.Lock()
 
+    @hot_path
     def get(self, i: int) -> np.ndarray:
         with self._lock:
             if self._host is None:
@@ -252,6 +255,7 @@ class MicroBatcher:
             self._active -= 1
 
     # -- admission --------------------------------------------------------
+    @hot_path
     def submit(self, key: object, member: object,
                run_batch: Callable[[Sequence[object]], SplitResult]
                ) -> np.ndarray:
@@ -311,6 +315,7 @@ class MicroBatcher:
                             _QWAIT_HELP, 0.0)
         return self._execute(key, p, run_batch, queued=False)
 
+    @hot_path
     def _wait(self, p: _Pending, idx: int) -> np.ndarray:
         t0 = time.perf_counter()
         with obs_trace.span("batcher-queue-wait"):

@@ -11,10 +11,23 @@ against each other on identical packed inputs. Each wrapper:
     ``torch.empty`` and launches on the current stream;
   * adds one to ``LAUNCHES[name]`` per launch, and nowhere else.
 
+Each wrapper carries a ``kind="cuda"`` ``@kernel_contract``: the
+``__global__`` functions it launches with their threads, registers and
+static shared bytes, its shared-memory budget, its launch plan at the
+worst-case workloads, the int31 span guard, and an example its plain
+version evaluates on ``device="meta"``. ``python -m
+filodb_tpu_torch.lint`` checks the contracts on the CPU; chip_smoke holds
+them to the ptxas report, to the functions' attributes and the launch
+geometry that each library reports on the card (``*_attrs``,
+``*_geometry``), and to the card's opt-in shared-memory limit. The
+wrappers' ``_require``s are the run-time guard the contracts describe.
+
 The kernels live in ``filodb_tpu_torch/csrc/`` and are compiled with ``nvcc``
 for ``sm_90a`` into ``build/kernels/`` at the repository root at first use
 (one ``nvcc`` per source, run in parallel), then loaded with ctypes through a
-plain C interface whose return value is ``cudaGetLastError()``.
+plain C interface whose return value is ``cudaGetLastError()``. nvcc's
+report (ptxas registers and shared memory) is kept beside each library
+and read back when the library is reused.
 
 f64 payloads ride three f32 channels (``split3``/``combine3``: 24+24+24
 mantissa bits >= 53, so both directions are exact).
@@ -29,11 +42,13 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from filodb_tpu_torch.lint.contracts import (SMEM_DEFAULT_BYTES, CudaKernel,
+                                             Launch, kernel_contract)
 from filodb_tpu_torch.lint.numerics import precision
 
 # int32 sentinel for padded samples: beyond any valid relative timestamp
@@ -53,6 +68,8 @@ GS_GC = 16             # groups staged in shared memory at a time
 GS_STAGES_MAX = 8      # stages of the boundary-row ring
 GS_SMEM_MAX = 232_448  # shared memory one block may use on sm_90
 GS_ROW_BYTES = 3 * GS_SS * 4   # one boundary row: ts, hi, lo of 512 series
+GS_THREADS = GS_SS + 32        # a consumer thread per series + a producer warp
+GS_REDUCE_THREADS = 256        # the partial-sum reduction's blocks
 
 # boundary-family modes
 GS_BOTH = 0            # jitter straddles the grid phase: select per element
@@ -126,9 +143,19 @@ def _lib_path(name: str) -> Tuple[str, str]:
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
+def _log_path(lib: str) -> str:
+    """nvcc's report of a library, kept beside it."""
+    return lib[:-len(".so")] + ".nvcc.txt"
+
+
+def _load(name: str) -> ctypes.CDLL:
+    return _bind(name, ctypes.CDLL(_lib_path(name)[1]))
+
+
 def build_kernels() -> Dict[str, ctypes.CDLL]:
     """Compile (once) and load every kernel library: one nvcc per source,
-    all started together."""
+    all started together. A library built before, with its report beside
+    it, is reused, and ``BUILD_LOG`` holds that report."""
     with _build_lock:
         if len(_libs) == len(_SOURCES):
             return _libs
@@ -136,8 +163,9 @@ def build_kernels() -> Dict[str, ctypes.CDLL]:
         pending = []
         for name in _SOURCES:
             src, lib = _lib_path(name)
-            if os.path.exists(lib):
-                BUILD_LOG[name] = "cached"
+            if os.path.exists(lib) and os.path.exists(_log_path(lib)):
+                with open(_log_path(lib)) as f:
+                    BUILD_LOG[name] = f.read()
                 continue
             tmp = f"{lib}.{os.getpid()}.tmp"
             # graftlint: disable=lock-blocking-call (one-time kernel build on first use: a second caller must wait for the first build under the lock and never start a second nvcc of the same source)
@@ -152,23 +180,32 @@ def build_kernels() -> Dict[str, ctypes.CDLL]:
             if proc.returncode != 0:
                 failed.append(f"nvcc failed for {name}:\n{out}")
             else:
+                with open(_log_path(lib), "w") as f:
+                    f.write(out)
                 os.replace(tmp, lib)
         if failed:
             raise RuntimeError("\n".join(failed))
         for name in _SOURCES:
-            _libs[name] = _bind(name, ctypes.CDLL(_lib_path(name)[1]))
+            _libs[name] = _load(name)
         return _libs
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument types of the library's entry points: the launcher, and
+    what its launches would be (``_geometry``) and its functions'
+    attributes on the card (``_attrs``)."""
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    IP = ctypes.POINTER(ctypes.c_int)
     if name == "counter_groupsum":
-        fn = lib.counter_groupsum_launch
-        fn.argtypes = [P] * 7 + [I] * 16 + [P]
+        lib.counter_groupsum_launch.argtypes = [P] * 7 + [I] * 16 + [P]
+        lib.counter_groupsum_geometry.argtypes = [I] * 7 + [IP]
     else:
-        fn = lib.window_extract_launch
-        fn.argtypes = [P] * 7 + [I] * 4 + [LL, LL, P]
-    fn.restype = I
+        lib.window_extract_launch.argtypes = [P] * 7 + [I] * 4 + [LL, LL, P]
+        lib.window_extract_geometry.argtypes = [I] * 3 + [IP]
+    attrs = getattr(lib, f"{name}_attrs")
+    attrs.argtypes = [I, ctypes.POINTER(ctypes.c_char_p), IP]
+    for fn in ("launch", "geometry", "attrs"):
+        getattr(lib, f"{name}_{fn}").restype = I
     return lib
 
 
@@ -321,30 +358,44 @@ def counter_groupsum_reference(func: str, st: int, dspan: int, hi_mode: int,
     return (loc2 @ oh).to(f32), (ok2 @ oh).to(f32)
 
 
+def groupsum_smem(stages: int, fams: int, cw: int, nbuf: int) -> int:
+    """Dynamic shared bytes of one group-sum block (csrc/
+    counter_groupsum.cu's ``layout(stages, fams, cw, nbuf).total``): the
+    ring of ``stages`` x ``fams`` boundary rows, the warps' [32, 2*TT+2]
+    rate tiles, ``nbuf`` buffers of their [2*TT, gw] partial products, the
+    staged [SS, gw] weights (gw = 4*cw groups) and two mbarriers a
+    stage."""
+    gw = 4 * cw
+    warps = GS_SS // 32
+    return (stages * fams * GS_ROW_BYTES
+            + warps * 32 * (2 * GS_TT + 2) * 4
+            + nbuf * warps * 2 * GS_TT * gw * 4 + GS_SS * gw * 4
+            + 2 * stages * 8)
+
+
 def groupsum_launch_plan(n_s: int, T: int, G: int, hi_mode: int,
                          lo_mode: int, n_sm: int) -> Dict[str, int]:
     """Tiling of one group-sum launch on a card with ``n_sm`` SMs.
 
     The ring holds ``stages`` steps of ``fams`` boundary rows (kc, kl, and
-    kc-1 / kl+1 where the modes read them): as many stages as the block's
-    shared memory leaves, up to GS_STAGES_MAX, beside the warps' [32, 18]
-    rate tiles, ``nbuf`` buffers of their [16, gw] partial products (two
-    when G fits one staged chunk of GS_GC groups) and the staged weights
-    [SS, gw] (gw = 4*cw groups, cw a power of two). That makes one block per
+    kc-1 / kl+1 where the modes read them): as many stages as GS_SMEM_MAX
+    leaves beside the rest of the block's shared memory
+    (:func:`groupsum_smem`), up to GS_STAGES_MAX. That makes one block per
     SM, so each s-tile's T steps are cut into the fewest chunks that fill
-    the last wave of blocks to at least 90 % of the SMs (a chunk is at least
-    GS_TT steps). Returns fams, cw, nbuf, stages, smem (bytes), chunk and
-    n_chunks; block (c, si) takes steps [c*chunk, min(T, (c+1)*chunk))."""
+    the last wave of blocks to at least 90 % of the SMs (a chunk is at
+    least GS_TT steps). Returns fams, cw, nbuf, stages, smem (bytes),
+    chunk and n_chunks; block (c, si) takes steps [c*chunk, min(T,
+    (c+1)*chunk))."""
     fams = 2 + (hi_mode != GS_CUR) + (lo_mode != GS_CUR)
     cw = 1
     while 4 * cw < min(G, GS_GC):
         cw *= 2
-    gw = 4 * cw
     nbuf = 2 if G <= GS_GC else 1
-    warps = GS_SS // 32
-    fixed = (warps * 32 * (2 * GS_TT + 2) * 4
-             + nbuf * warps * 2 * GS_TT * gw * 4 + GS_SS * gw * 4)
-    per_stage = fams * GS_ROW_BYTES + 16          # rows + two mbarriers
+    fixed = groupsum_smem(0, fams, cw, nbuf)
+    per_stage = groupsum_smem(1, fams, cw, nbuf) - fixed
+    # one stage of the widest configuration fits: no shape needs a route
+    # the kernel does not have
+    assert fixed + per_stage <= GS_SMEM_MAX
     stages = min(GS_STAGES_MAX, (GS_SMEM_MAX - fixed) // per_stage)
     floor = min(T, GS_TT)
     c = 1
@@ -355,8 +406,43 @@ def groupsum_launch_plan(n_s: int, T: int, G: int, hi_mode: int,
             break
         c += 1
     return {"fams": fams, "cw": cw, "nbuf": nbuf, "stages": stages,
-            "smem": fixed + stages * per_stage, "chunk": chunk,
+            "smem": groupsum_smem(stages, fams, cw, nbuf), "chunk": chunk,
             "n_chunks": -(-T // chunk)}
+
+
+def counter_groupsum_launches(n_s: int, T: int, G: int, hi_mode: int,
+                              lo_mode: int, n_sm: int) -> List[Launch]:
+    """The launches of one group-sum call as the planner means them (the
+    card's library reports what it launches: ``counter_groupsum_geometry``):
+    the partial kernel over (n_chunks, n_s) blocks with the plan's dynamic
+    shared memory, then the reduction over the T*G outputs."""
+    lp = groupsum_launch_plan(n_s, T, G, hi_mode, lo_mode, n_sm)
+    return [Launch("groupsum_partial_kernel", (lp["n_chunks"], n_s, 1),
+                   GS_THREADS, lp["smem"]),
+            Launch("groupsum_reduce_kernel",
+                   (-(-(T * G) // GS_REDUCE_THREADS), 1, 1),
+                   GS_REDUCE_THREADS, 0)]
+
+
+def _groupsum_example(device):
+    """The reference's example: st=1 / dspan=0 / both modes GS_CUR, one
+    s-tile, 16 groups, 256 steps."""
+    g_perm = 512
+    args = ("rate", 1, 0, GS_CUR, GS_CUR,
+            torch.empty((1, 1, g_perm, 3 * GS_SS), dtype=torch.int32,
+                        device=device),
+            torch.empty((1, 8, GS_SS), dtype=torch.float32, device=device),
+            torch.empty((GS_SS, 16), dtype=torch.float32, device=device),
+            1, 5_000, 5_000, 1_000, 256)
+    return args, {}
+
+
+def _groupsum_expect(out):
+    want = ((256, 16), torch.float32)
+    for o in out:
+        if tuple(o.shape) != want[0] or o.dtype != want[1]:
+            return f"output {tuple(o.shape)}/{o.dtype} != {want}"
+    return None
 
 
 @precision(
@@ -370,6 +456,29 @@ def groupsum_launch_plan(n_s: int, T: int, G: int, hi_mode: int,
            "delta over full-span boundary pairs; branch decisions "
            "stay in integer space (exact_branch), which "
            "mixed-dtype-comparison polices")
+@kernel_contract(
+    "counter_groupsum", kind="cuda",
+    source="filodb_tpu_torch/csrc/counter_groupsum.cu",
+    kernels=(CudaKernel("groupsum_partial_kernel", GS_THREADS, 94),
+             CudaKernel("groupsum_reduce_kernel", GS_REDUCE_THREADS, 32)),
+    smem_budget=GS_SMEM_MAX,
+    launches=counter_groupsum_launches,
+    # the most s-tiles one launch takes (grid.y), the widest grid and
+    # group count the engine sends, and the smallest call
+    workloads=(dict(n_s=65_535, T=8_192, G=16, hi_mode=GS_BOTH,
+                    lo_mode=GS_BOTH, n_sm=132),
+               dict(n_s=8, T=469, G=4_096, hi_mode=GS_ALT,
+                    lo_mode=GS_CUR, n_sm=132),
+               dict(n_s=1, T=1, G=1, hi_mode=GS_CUR, lo_mode=GS_CUR,
+                    n_sm=1)),
+    rel_time_bits=31,
+    span_guard="filodb_tpu_torch.query.tilestore:_slide_eligible",
+    example=_groupsum_example, expect=_groupsum_expect,
+    plain=counter_groupsum_reference,
+    notes="dispatched only via tilestore.groupsum_counters; the launch "
+          "planner sizes the boundary-row ring to the block's shared "
+          "memory and raises, never falls back, when one stage does not "
+          "fit")
 def counter_groupsum(func: str, st: int, dspan: int, hi_mode: int,
                      lo_mode: int, v_p: torch.Tensor, base: torch.Tensor,
                      onehot: torch.Tensor, kl0: int, w0e_rel: int,
@@ -471,6 +580,32 @@ def window_extract_cost(S: int, N: int, C: int, T: int) -> Dict[str, float]:
     return {"flops": float(ops), "bytes_accessed": float(nbytes)}
 
 
+def window_extract_launches(S: int, N: int, T: int) -> List[Launch]:
+    """The launch of one boundary-extract call as the wrapper means it (the
+    card's library reports what it launches: ``window_extract_geometry``):
+    one block per row, a thread per window up to 256, the row's timestamps
+    staged in shared memory when they fit WX_SMEM_ROW_MAX."""
+    threads = min(max(-(-T // 32) * 32, 32), 256)
+    smem = N * 4 if N <= WX_SMEM_ROW_MAX else 0
+    return [Launch("window_extract_kernel", (S, 1, 1), threads, smem)]
+
+
+def _extract_example(device):
+    """The reference's example: 8 rows of 2,048 samples, 3 payload
+    channels, 128 windows."""
+    args = (torch.empty((8, 2048), dtype=torch.int32, device=device),
+            torch.empty((8, 3, 2048), dtype=torch.float32, device=device))
+    return args, {"step": 1_000, "window": 5_000, "nsteps": 128}
+
+
+def _extract_expect(out):
+    want = [((8, 128), torch.int32)] * 3 + [((8, 3, 128), torch.float32)] * 2
+    got = [(tuple(o.shape), o.dtype) for o in out]
+    if got != want:
+        return f"outputs {got} != {want}"
+    return None
+
+
 def window_extract_reference(tr: torch.Tensor, pay: torch.Tensor, step: int,
                              window: int, nsteps: int):
     """Plain PyTorch version of the boundary-extract kernel (the same
@@ -498,6 +633,25 @@ def window_extract_reference(tr: torch.Tensor, pay: torch.Tensor, step: int,
     return cnt.to(torch.int32), tlo, thi, plo, phi
 
 
+@kernel_contract(
+    "window_extract", kind="cuda",
+    source="filodb_tpu_torch/csrc/window_extract.cu",
+    kernels=(CudaKernel("window_extract_kernel", 256, 40),),
+    # no opt-in attribute: the default per-block limit
+    smem_budget=SMEM_DEFAULT_BYTES,
+    launches=window_extract_launches,
+    # the widest row staged in shared memory, a row searched in device
+    # memory, and phase 3's extract shape
+    workloads=(dict(S=65_536, N=WX_SMEM_ROW_MAX, T=4_096),
+               dict(S=8, N=1 << 20, T=1),
+               dict(S=65_536, N=512, T=128)),
+    rel_time_bits=31,
+    span_guard="filodb_tpu_torch.query.backend:_extract_span_ok",
+    example=_extract_example, expect=_extract_expect,
+    plain=window_extract_reference,
+    notes="rate-family boundary extraction for irregular series; "
+          "timestamps are int32 offsets from the first window start "
+          "(TR_PAD sentinel for padding)")
 def window_extract(tr: torch.Tensor, pay: torch.Tensor, step: int,
                    window: int, nsteps: int):
     """Boundary extract over sorted irregular rows.

@@ -35,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from filodb_tpu_torch.lint.capacity import capacity
 from filodb_tpu_torch.lint.numerics import precision
 from filodb_tpu_torch.obs import devprof
 from filodb_tpu_torch.query import kernels as kn
@@ -98,6 +99,15 @@ def _nan_col(src: torch.Tensor) -> torch.Tensor:
     return torch.full_like(src[:, :1], float("nan"))
 
 
+@capacity(
+    "tilestore-aligned-tiles", bytes_per_sample=17.0,
+    reason="the base device residency of an aligned cohort is three "
+           "[S, N] tensors — validity bool (1 B) + true-timestamp f64 "
+           "(8 B) + value f64 (8 B) = 17 B per slot, the reference's "
+           "layout; the derived channels (ones/cv/fills/prefix sums/"
+           "transposes/the group-sum's packed channel) are lazy "
+           "per-function warm caches over the same slot count, not part "
+           "of the cold footprint")
 class AlignedTiles:
     """One cohort of series sharing cadence dt, as device tiles.
 

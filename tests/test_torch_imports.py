@@ -79,6 +79,17 @@ SERVING_MODULES = (
     "filodb_tpu_torch.promql.gen", "filodb_tpu_torch.promql.refeval",
     "filodb_tpu_torch.lint.numerics", "filodb_tpu_torch.lint.ulpcert",
     "filodb_tpu_torch.testing.soak",
+    # the port's analyser and its capacity rail
+    "filodb_tpu_torch.lint.__main__", "filodb_tpu_torch.lint.astwalk",
+    "filodb_tpu_torch.lint.callgraph", "filodb_tpu_torch.lint.dataflow",
+    "filodb_tpu_torch.lint.ci_annotations",
+    "filodb_tpu_torch.lint.lockorder", "filodb_tpu_torch.lint.memcert",
+    "filodb_tpu_torch.lint.rules_cache",
+    "filodb_tpu_torch.lint.rules_capacity",
+    "filodb_tpu_torch.lint.rules_concurrency",
+    "filodb_tpu_torch.lint.rules_hot", "filodb_tpu_torch.lint.rules_kernel",
+    "filodb_tpu_torch.lint.rules_lock", "filodb_tpu_torch.lint.rules_promql",
+    "filodb_tpu_torch.lint.rules_span",
     # the mesh and distributed execution
     "filodb_tpu_torch.parallel.mesh", "filodb_tpu_torch.parallel.shardstore",
     "filodb_tpu_torch.parallel.distributed",
