@@ -214,7 +214,13 @@ non-zero exit):
      card's opt-in limit, and, at every shape phases 3-14 launched in
      this process, what the library reports it launches (the
      launcher's own arithmetic) against the contract's plan and limits
-     (the `contracts` line);
+     (the `contracts` line); (c) the port's static analyser
+     (filodb_tpu_torch/lint, `run_lint` with its contracts and both
+     certification rails, ulpcert's and memcert's, each on the CPU) over
+     filodb_tpu_torch/ on the card's machine: 0 findings, the sites each
+     family looked at (`seen`), the rules with no torch counterpart and
+     the seconds (the `lint` line; its PromQL micro-soak runs on the
+     host's numpy path, and nothing of it touches the card);
   then the `memory` line: the card's allocated memory (live tensors)
   after each phase, each stopped server's held to within 256 MiB of the
   level before it started, and phase 12 starting with at most 1 GiB
@@ -6169,10 +6175,48 @@ def contracts_on_card(dev, smi: str, shapes: dict) -> dict:
     return {"contracts": out, "limits": limits, "card": smi}
 
 
+# the families of the analyser's `seen` counts, by key prefix
+LINT_FAMILIES = (("numerics_", "numerics"), ("trace_", "trace"),
+                 ("spmd_", "spmd"), ("inplace_", "spmd"),
+                 ("residency_", "capacity"), ("kernel_", "kernel"),
+                 ("cuda_", "kernel"))
+
+
+def lint_on_card(smi: str) -> dict:
+    """15(c): the port's static analyser over filodb_tpu_torch/ with its
+    contracts and both certification rails, as `python -m
+    filodb_tpu_torch.lint` runs it: it must report nothing."""
+    from filodb_tpu_torch.lint import NOT_PORTED, run_lint
+
+    t0 = time.perf_counter()
+    res = run_lint()
+    secs = time.perf_counter() - t0
+    for f in res.findings:
+        log(f"phase 15: lint finding {f.render()}")
+    seen: dict = {}
+    for k, n in sorted(res.seen.items()):
+        fam = next((f for p, f in LINT_FAMILIES if k.startswith(p)),
+                   "other")
+        seen.setdefault(fam, {})[k] = n
+    out = {"files": res.files, "findings": len(res.findings),
+           "baselined": len(res.baselined), "suppressed": res.suppressed,
+           "seen": seen, "not_ported": sorted(NOT_PORTED),
+           "seconds": round(secs, 2), "card": smi}
+    log(f"phase 15: lint {json.dumps(out)}")
+    assert not res.findings, \
+        f"15: the analyser reports {len(res.findings)} finding(s)"
+    assert seen["numerics"]["numerics_precision_sites"] == 8 \
+        and seen["numerics"]["numerics_order_sites"] == 2, seen
+    assert seen["trace"]["trace_bodies"] == 4, seen
+    assert seen["spmd"]["spmd_wrapper_calls"] == 3, seen
+    return out
+
+
 def phase_capacity(data: dict, dev, smi: str, tile_cache: list,
                    shapes: dict) -> dict:
-    """Phase 15: (a) the capacity claims, (b) the kernel contracts. It runs
-    no query and launches no kernel."""
+    """Phase 15: (a) the capacity claims, (b) the kernel contracts, (c)
+    the port's analyser. It runs no query on the card and launches no
+    kernel."""
     from filodb_tpu_torch.query import kernels as kn
 
     t0 = time.perf_counter()
@@ -6180,12 +6224,15 @@ def phase_capacity(data: dict, dev, smi: str, tile_cache: list,
     cap = capacity_on_card(data, dev, smi, tile_cache)
     t1 = time.perf_counter()
     con = contracts_on_card(dev, smi, shapes)
+    t2 = time.perf_counter()
+    lint = lint_on_card(smi)
     secs = time.perf_counter() - t0
     assert dict(kn.LAUNCHES) == launched, "15: phase 15 launched a kernel"
     log(f"phase 15: {secs:.1f} s (capacity {t1 - t0:.1f} s, contracts "
-        f"{secs - (t1 - t0):.1f} s) [{smi}]")
+        f"{t2 - t1:.1f} s, lint {secs - (t2 - t0):.1f} s) [{smi}]")
     return {"capacity": dict(cap, seconds=t1 - t0, card=smi),
-            "contracts": dict(con, seconds=secs - (t1 - t0))}
+            "contracts": dict(con, seconds=t2 - t1),
+            "lint": lint}
 
 
 # allocated device memory (live tensors) a stopped server or a finished
@@ -6369,6 +6416,7 @@ def main() -> int:
                     smi, eng["tile_cache"], shapes)
     emit("capacity", cap["capacity"])
     emit("contracts", cap["contracts"])
+    emit("lint", cap["lint"])
     memory["phase15"] = mem_released(
         before, "phase 15: its stores dropped")
     emit("memory", {"allocated_bytes": memory, "slack_bytes": MEM_SLACK,

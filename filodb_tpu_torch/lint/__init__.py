@@ -40,10 +40,31 @@ Rule families (see the rule modules for the catalog):
   * ``rules_promql`` — the shipped rule files through the port's rules
     loader with semantic analysis, and a seeded engine-vs-``ref_eval``
     micro-soak.
+  * ``rules_spmd`` — over the collectives of ``dataflow.py``: a
+    cross-process collective (``torch.distributed``, or a project
+    wrapper of one) under control flow not proven rank-invariant
+    (``ranks.rank_invariant`` declares the invariant parameters), a mesh
+    axis name no mesh declares (``spmd-collective-balance``); a view of
+    storage an in-place writer (``shardstore._append_step``) overwrites
+    read after the write, or the object's cached device state not
+    invalidated after it (``donation-safety``).
+  * ``rules_numerics`` — the static side of ``@precision`` and
+    ``@order_insensitive`` over a torch dtype inference: f64/i64 values
+    narrowed to f32/f16/i32 without a claim (``precision-narrowing``),
+    f32 accumulations without a term bound (``accumulation-bound``),
+    float psum folds and SUM all-reduces without an order claim
+    (``reduction-order-determinism``), mixed or int-cast float
+    comparisons in the CUDA kernels' plain versions
+    (``mixed-dtype-comparison``). ``ulpcert`` certifies every claim on
+    the CPU (``ulp-certification``).
+  * ``rules_trace`` — inside the ``torch.func.vmap`` bodies (the
+    functions bound to a transform's parameter included): side effects,
+    host escapes of batched values, writes into captured tensors and
+    containers.
 
-Not ported yet (:data:`NOT_PORTED`): the SPMD family over
-``torch.distributed`` and the partition collectives, trace safety of the
-``torch.func.vmap`` bodies, and the static side of ``@precision``.
+Not ported (:data:`NOT_PORTED`), rule by rule, each with the reason it
+has no torch counterpart: ``trace-f64-constant``,
+``partition-spec-consistency`` and ``donation-missing``.
 
 Mechanics:
 
@@ -68,15 +89,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 ERROR = "error"
 WARNING = "warning"
 
-# rule modules of the reference analyser that have no counterpart here
-# yet, with what each would check
+# rules of the reference analyser that have no torch counterpart, with
+# the reason
 NOT_PORTED: Dict[str, str] = {
-    "rules_spmd": "collective balance over torch.distributed and the "
-                  "partition collectives of parallel/",
-    "rules_trace": "side effects and captured-state mutation inside the "
-                   "torch.func.vmap twins' bodies",
-    "rules_numerics": "the static side of @precision (narrowing, "
-                      "accumulation bounds, reduction order)",
+    "trace-f64-constant": "it exists because Mosaic cannot legalise "
+                          "64-bit vectors in a Pallas kernel body; the "
+                          "port's kernels are CUDA C++, which has f64 and "
+                          "i64 registers",
+    "partition-spec-consistency": "eager PyTorch has no PartitionSpecs: "
+                                  "the port's mesh places each partition's "
+                                  "tensors explicitly (parallel/mesh.py)",
+    "donation-missing": "PyTorch has no buffer-donation API; the in-place "
+                        "writers that take its place are checked by "
+                        "donation-safety",
 }
 
 _PRAGMA_RE = re.compile(
@@ -244,7 +269,7 @@ class LintResult:
                 "baselined": [f.to_json() for f in self.baselined],
                 "suppressed": self.suppressed,
                 "seen": dict(sorted(self.seen.items())),
-                "not_ported": sorted(NOT_PORTED),
+                "not_ported": dict(sorted(NOT_PORTED.items())),
                 "exit_code": 1 if self.errors else 0}
 
 
@@ -283,7 +308,9 @@ def _load_rule_modules() -> None:
                                        rules_cache, rules_capacity,
                                        rules_concurrency, rules_hot,
                                        rules_kernel, rules_lock,
-                                       rules_promql, rules_span)
+                                       rules_numerics, rules_promql,
+                                       rules_span, rules_spmd, rules_trace,
+                                       ulpcert)
 
 
 def run_lint(paths: Optional[Sequence[str]] = None, *,
@@ -295,8 +322,9 @@ def run_lint(paths: Optional[Sequence[str]] = None, *,
     AST rules run per file; the interprocedural families run once over
     the whole module set on one call graph and one dataflow layer; when
     ``check_contracts`` is set, the modules that declare kernel contracts
-    are imported and each contract is verified, and the capacity claims
-    are certified (``memcert``, memoized per process).
+    are imported and each contract is verified, and the precision and
+    order claims (``ulpcert``) and the capacity claims (``memcert``) are
+    certified on the CPU, memoized per process.
 
     ``report_only`` (a set of repo-relative paths) keeps the analysis
     whole-program but drops findings anchored outside those files —
@@ -308,7 +336,8 @@ def run_lint(paths: Optional[Sequence[str]] = None, *,
     from filodb_tpu_torch.lint import (rules_cache, rules_capacity,
                                        rules_concurrency, rules_hot,
                                        rules_kernel, rules_lock,
-                                       rules_promql, rules_span)
+                                       rules_numerics, rules_promql,
+                                       rules_span, rules_spmd, rules_trace)
     from filodb_tpu_torch.lint import callgraph as _cgmod
     from filodb_tpu_torch.lint import dataflow as _dfmod
     root = package_root()
@@ -347,7 +376,16 @@ def run_lint(paths: Optional[Sequence[str]] = None, *,
     df = _dfmod.DeviceDataflow(mods, cg)
     for relpath, f in rules_concurrency.check_project(mods, cg=cg):
         raw.append((bymod.get(relpath), f))
+    for relpath, f in rules_spmd.check_project(mods, cg=cg, df=df,
+                                               seen=seen):
+        raw.append((bymod.get(relpath), f))
+    for relpath, f in rules_trace.check_project(mods, cg=cg, df=df,
+                                                seen=seen):
+        raw.append((bymod.get(relpath), f))
     for relpath, f in rules_cache.check_project(mods, cg=cg, df=df):
+        raw.append((bymod.get(relpath), f))
+    for relpath, f in rules_numerics.check_project(mods, cg=cg, df=df,
+                                                   seen=seen):
         raw.append((bymod.get(relpath), f))
     for relpath, f in rules_capacity.check_project(mods, cg=cg, df=df,
                                                    seen=seen):
@@ -359,7 +397,13 @@ def run_lint(paths: Optional[Sequence[str]] = None, *,
         for relpath, f in rules_kernel.check_contracts(mods, root, seen):
             raw.append((bymod.get(relpath), f))
         if report_only is None:
-            from filodb_tpu_torch.lint import memcert
+            # both certification rails: every @precision and
+            # @order_insensitive claim measured on the CPU (ulpcert),
+            # every @capacity claim built and walked (memcert); memoized
+            # per process, skipped under --changed-only
+            from filodb_tpu_torch.lint import memcert, ulpcert
+            for relpath, f in ulpcert.check_certifications(mods):
+                raw.append((bymod.get(relpath), f))
             for relpath, f in memcert.check_certifications(mods):
                 raw.append((bymod.get(relpath), f))
     result.seen = seen

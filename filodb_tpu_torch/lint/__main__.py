@@ -44,9 +44,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m filodb_tpu_torch.lint",
         description="graftlint of the port: CUDA kernel-contract, "
-                    "device-residency and capacity, lock-discipline, "
-                    "cache-invalidation, hot-path and PromQL-surface "
-                    "(promlint) static analysis")
+                    "device-residency and capacity, SPMD and in-place "
+                    "write, numeric-precision, trace-safety, "
+                    "lock-discipline, cache-invalidation, hot-path and "
+                    "PromQL-surface (promlint) static analysis")
     ap.add_argument("paths", nargs="*",
                     help="files/directories to lint (default: the "
                          "filodb_tpu_torch package)")
@@ -64,8 +65,8 @@ def main(argv=None) -> int:
                          "filodb_tpu_torch/lint/baseline.json)")
     ap.add_argument("--no-contracts", action="store_true",
                     help="skip runtime kernel-contract verification "
-                         "and the capacity certification (AST rules "
-                         "only)")
+                         "and the ulp and capacity certifications (AST "
+                         "rules only)")
     ap.add_argument("--changed-only", action="store_true",
                     help="report only findings anchored in files git "
                          "considers changed (working tree + index vs "

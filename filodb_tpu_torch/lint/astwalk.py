@@ -32,5 +32,29 @@ def walk_nodes(root: ast.AST) -> Tuple[ast.AST, ...]:
     return ent[1]
 
 
+_OWN: Dict[int, Tuple[ast.AST, Tuple[ast.AST, ...]]] = {}
+
+
+def own_nodes(fn_node: ast.AST) -> Tuple[ast.AST, ...]:
+    """A function's body nodes excluding nested function/lambda bodies
+    (those are their own closure members), computed once per function per
+    run."""
+    ent = _OWN.get(id(fn_node))
+    if ent is None or ent[0] is not fn_node:
+        out = []
+        stack = list(ast.iter_child_nodes(fn_node))
+        while stack:
+            n = stack.pop()
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.Lambda)):
+                continue
+            out.append(n)
+            stack.extend(ast.iter_child_nodes(n))
+        ent = (fn_node, tuple(out))
+        _OWN[id(fn_node)] = ent
+    return ent[1]
+
+
 def clear() -> None:
     _CACHE.clear()
+    _OWN.clear()

@@ -49,7 +49,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from filodb_tpu_torch.lint import Finding, register_rule
 from filodb_tpu_torch.lint import numerics as nmod
+
+register_rule("ulp-certification", "numerics",
+              "a @precision / @order_insensitive claim whose measured "
+              "error (f64 reference vs production dtype, or across "
+              "partition counts) exceeds its declared tolerance, or that "
+              "has no certification harness")
 
 # claim name -> harness(device, **shape) -> (prod, ref, floor)
 HARNESSES: Dict[str, Callable] = {}
@@ -224,11 +231,53 @@ def certify(name: str, device: str = "cpu", **shape) -> CertResult:
     return res
 
 
-def certify_all(device: str = "cpu") -> List[CertResult]:
-    """Certify every registered claim on ``device``."""
+_MEMO: Dict[str, List[CertResult]] = {}
+
+
+def certify_all(device: str = "cpu", force: bool = False
+                ) -> List[CertResult]:
+    """Certify every registered claim on ``device``. Memoized per process
+    and device (``force`` measures again)."""
+    key = str(device)
+    if key in _MEMO and not force:
+        return _MEMO[key]
     nmod.import_annotated_modules()
     out = [certify(name, device) for name in sorted(nmod.PRECISION)]
     out += [certify_order(name, device) for name in sorted(nmod.ORDER)]
+    _MEMO[key] = out
+    return out
+
+
+def _claim_anchor(claim, mods) -> Tuple[Optional[str], int]:
+    """The claim's site: the line of its module that names it."""
+    relpath = claim.module.replace(".", "/") + ".py"
+    for mod in mods or ():
+        if mod.relpath == relpath:
+            for i, line in enumerate(mod.lines, start=1):
+                if claim.name in line:
+                    return relpath, i
+            return relpath, 1
+    return relpath, 1
+
+
+def check_certifications(mods=None
+                         ) -> List[Tuple[Optional[str], Finding]]:
+    """Lint-facing entry: one finding per claim that fails its
+    certification on the CPU, anchored at the claim's site."""
+    out: List[Tuple[Optional[str], Finding]] = []
+    for res in certify_all("cpu"):
+        if res.ok:
+            continue
+        claim = nmod.PRECISION.get(res.name) or nmod.ORDER.get(res.name)
+        if claim is None:
+            continue
+        relpath, line = _claim_anchor(claim, mods)
+        out.append((relpath, Finding(
+            rule="ulp-certification", path=relpath or "?", line=line,
+            message=(f"annotation {res.name!r} ({res.kind}) failed "
+                     f"certification: measured {res.measured:.3g} vs "
+                     f"claimed {res.claimed:.3g} — {res.detail}"),
+            context=f"ulpcert:{res.name}")))
     return out
 
 

@@ -23,6 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from filodb_tpu_torch.lint.ranks import rank_invariant
+
 
 def backend_for(device, num_processes: int) -> str:
     """The collective backend of a group of ``num_processes`` ranks whose
@@ -72,6 +74,12 @@ def _all_reduce(t: torch.Tensor, op) -> torch.Tensor:
     return buf.to(t.device)
 
 
+@rank_invariant(
+    "params", "func", "agg", "window_ms", "num_groups", "offset_ms",
+    reason="every rank runs the same query: the step grid, the function, "
+           "the aggregation, the window, the global group table's size "
+           "and the offset come from it; only a rank's shard groups and "
+           "their group ids are its own")
 def window_aggregate_distributed(mesh_ex, local_series_by_shard,
                                  local_group_ids, params, func: str,
                                  agg: str, window_ms: int,
@@ -140,10 +148,12 @@ def window_aggregate_distributed(mesh_ex, local_series_by_shard,
                                 [g for _, g in col], num_groups, agg)
         cnts.append(c)
         vals_.append(v)
+    # graftlint: disable=reduction-order-determinism (f64 counts of present values are exact integers below 2**53, so every grouping of ranks sums them alike)
     cnt = _all_reduce(torch.cat(cnts, dim=1), dist.ReduceOp.SUM)
     val: Optional[torch.Tensor] = None
     if vals_[0] is not None:
         op = {"min": dist.ReduceOp.MIN,
               "max": dist.ReduceOp.MAX}.get(agg, dist.ReduceOp.SUM)
+        # graftlint: disable=reduction-order-determinism (f64 partial sums regrouped across ranks as grouped-reduce-psum regroups them across partitions, certified at 1/2/4/8; tests/test_torch_distributed.py holds the two-process answer to the one-process mesh within 1e-12)
         val = _all_reduce(torch.cat(vals_, dim=1), op)
     return grouped_finish(cnt, val, agg)[:, :T].cpu().numpy()

@@ -281,9 +281,11 @@ def grouped_partials(local: Sequence[torch.Tensor],
             vals.append(red)
     val = None
     if agg in ("sum", "avg"):
+        # graftlint: disable=reduction-order-determinism (the f64 partial sums of grouped-reduce-psum and grouped-pair-psum, whose harnesses run this fold at 1/2/4/8 partitions)
         val = psum(vals)
     elif agg in ("min", "max"):
         val = (pmin if agg == "min" else pmax)(vals)
+    # graftlint: disable=reduction-order-determinism (f64 counts of present values are exact integers below 2**53: every partition grouping sums them alike)
     return psum(cnts), val
 
 

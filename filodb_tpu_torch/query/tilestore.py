@@ -935,6 +935,7 @@ def _wdur_s(w0s, w0e, device) -> torch.Tensor:
     d = w0e - w0s
     if not isinstance(d, torch.Tensor):
         d = torch.tensor(d, dtype=I64, device=device)
+    # graftlint: disable=precision-narrowing (a window in ms is exact in f32 below 2**24 ms, and a longer one rounds by half an f32 ulp, inside the budgets of counter-fast-hybrid and counter-slide-hybrid, certified through this path)
     return ms_to_s(d.to(F32))
 
 

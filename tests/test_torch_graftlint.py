@@ -847,8 +847,10 @@ def test_the_catalog_and_what_is_not_ported():
                 "kernel-abstract-eval", "kernel-module-import"):
         assert cat[rid].family == "kernel"
     assert "kernel-vmem-budget" not in cat
-    assert set(NOT_PORTED) == {"rules_spmd", "rules_trace",
-                               "rules_numerics"}
+    assert set(NOT_PORTED) == {"trace-f64-constant",
+                               "partition-spec-consistency",
+                               "donation-missing"}
+    assert not set(NOT_PORTED) & set(cat)
 
 
 def test_pragma_requires_reason_and_baseline_grandfathers(tmp_path):
@@ -884,3 +886,690 @@ def test_cli_json_github_and_exit_codes(tmp_path):
     assert gh.returncode == 1
     assert gh.stdout.startswith("::error file=") \
         and "graftlint hbm-residency-budget" in gh.stdout
+
+
+# -- the families taught torch in full: trace, SPMD, numerics ----------------
+#
+# Each torch twin below states in torch idiom the fact its reference fixture
+# (tests/test_graftlint.py, of the same name) states in JAX idiom; the port's
+# analyser must find on the twin what the reference's finds on the fixture.
+
+TORCH_TWINS = {
+    # trace safety, in a torch.func.vmap body
+    "TRACE_SIDE_EFFECT": """
+import time
+import torch
+
+def f(x):
+    return x + time.time()
+
+def run(xs):
+    return torch.func.vmap(f)(xs)
+""",
+    "TRACE_SIDE_EFFECT_CLEAN": """
+import time
+import torch
+
+def now():
+    return time.time()          # host helper, never traced
+
+def f(x):
+    return x * 2
+
+def run(xs):
+    return torch.func.vmap(f)(xs)
+""",
+    "TRACE_TRACER_LEAK": """
+import torch
+
+def f(x):
+    return 1.0 if bool(x) else 0.0
+
+def run(xs):
+    return torch.func.vmap(f)(xs)
+""",
+    "TRACE_TRACER_LEAK_CLEAN": """
+import functools
+import torch
+
+def f(flag, x):
+    return torch.where(torch.tensor(bool(flag)), x, -x)   # bound: fine
+
+def run(xs, flag):
+    return torch.func.vmap(functools.partial(f, flag))(xs)
+""",
+    "TRACE_MUTATE": """
+import torch
+
+_seen = []
+
+def f(x):
+    _seen.append(x)
+    return x
+
+def run(xs):
+    return torch.func.vmap(f)(xs)
+""",
+    "TRACE_MUTATE_CLEAN": """
+import torch
+
+def f(x):
+    acc = []
+    acc.append(x)               # function-local: fine
+    return acc[0]
+
+def run(xs):
+    return torch.func.vmap(f)(xs)
+""",
+    # collective balance over torch.distributed
+    "SPMD_DIVERGENT": """
+import torch
+import torch.distributed as dist
+
+def reduce_all(t):
+    if dist.get_rank() == 0:
+        dist.all_reduce(t.to(torch.int32))
+    return t
+""",
+    "SPMD_DIVERGENT_CLEAN": """
+import torch
+import torch.distributed as dist
+from filodb_tpu_torch.lint.ranks import rank_invariant
+
+@rank_invariant("agg", reason="every rank runs the same query")
+def reduce_all(t, agg):
+    # the reference's idiom: branching on a value every rank shares
+    out = t.to(torch.int32)
+    dist.all_reduce(out)
+    if agg == "mean":
+        dist.all_reduce(out)
+    return out
+""",
+    "SPMD_DIVERGENT_PRAGMA": """
+import torch
+import torch.distributed as dist
+
+def reduce_all(t):
+    if dist.get_rank() == 0:
+        # graftlint: disable=spmd-collective-balance (single-rank test rig)
+        dist.all_reduce(t.to(torch.int32))
+    return t
+""",
+    "SPMD_BAD_AXIS": """
+class Mesh:
+    axis_names = ("shard", "time")
+
+    def __init__(self, devices):
+        self.shape = dict(zip(self.axis_names, (len(devices), 1)))
+
+def width(mesh):
+    return mesh.shape["shards"]
+""",
+    # a collective reached through a helper, on a data-dependent branch
+    "SPMD_COND_BRANCH": """
+import torch
+import torch.distributed as dist
+
+def then_branch(t):
+    dist.all_reduce(t.to(torch.int32))
+    return t
+
+def f(t):
+    return then_branch(t) if t.sum() > 0 else t
+""",
+    # in-place writers, the port's counterpart of donation
+    "DONATE_USE_AFTER": """
+def write_into(buf, new):
+    buf[:new.shape[0]].copy_(new)
+    return buf
+
+def advance(x, y):
+    head = x[:4]
+    write_into(x, y)
+    return head + 1
+""",
+    "DONATE_CLEAN": """
+def write_into(buf, new):
+    buf[:new.shape[0]].copy_(new)
+    return buf
+
+def advance(x, y):
+    head = x[:4].clone()    # a copy: the write does not reach it
+    write_into(x, y)
+    return head + x         # the written storage itself: fine
+""",
+    "DONATE_DOUBLE": """
+def write_into(buf, new):
+    buf[:new.shape[0]].copy_(new)
+    return buf
+
+def advance(x):
+    return write_into(x, x)
+""",
+    "DONATE_ALIASED": """
+def append_into(buf, new, n):
+    buf[n:n + new.shape[0]].copy_(new)
+
+
+class Store:
+    def __init__(self, buf):
+        self.buf = buf
+        self.head = None
+
+    def refresh(self):
+        self.head = self.buf[:8]
+
+    def append(self, new, n):
+        append_into(self.buf, new, n)   # self.head is left as it was
+        return n
+""",
+    # two resident buffers written in place by one call; the refresh
+    # idiom takes the cached view again after the write
+    "DONATE_TUPLE_CLEAN": """
+def append(ts, vals, new, n):
+    ts[n:n + new.shape[0]].copy_(new)
+    vals[n:n + new.shape[0]].copy_(new)
+
+
+class Store:
+    def __init__(self, ts, vals):
+        self.ts = ts
+        self.vals = vals
+        self.tail = self.vals[-8:]
+
+    def refresh(self, new, n):
+        append(self.ts, self.vals, new, n)
+        self.tail = self.vals[-8:]
+""",
+    "DONATE_TUPLE_VIOLATION": """
+def append(ts, vals, new, n):
+    ts[n:n + new.shape[0]].copy_(new)
+    vals[n:n + new.shape[0]].copy_(new)
+
+
+class Store:
+    def __init__(self, ts, vals):
+        self.ts = ts
+        self.vals = vals
+        self.tail = self.vals[-8:]
+
+    def refresh(self, new, n):
+        # self.tail, taken from self.vals, is left as it was
+        append(self.ts, self.vals, new, n)
+""",
+    "DONATE_PRAGMA": """
+def write_into(buf, new):
+    buf[:new.shape[0]].copy_(new)
+    return buf
+
+def advance(x, y):
+    head = x[:4]
+    write_into(x, y)  # graftlint: disable=donation-safety (head provably outside the written rows)
+    return head + 1
+""",
+    # numerics
+    "NARROW_VIOLATION": """
+import torch
+
+def grid(dev):
+    t = torch.arange(16, dtype=torch.int64, device=dev)
+    rel = t * 60000 + 5
+    return rel.to(torch.int32)
+""",
+    "NARROW_CLEAN": """
+import torch
+from filodb_tpu_torch.lint.numerics import precision
+
+@precision("fixture-span-guard", bits=31, rel_ulps=0,
+           reason="grid proved inside int32 ms by the dispatcher")
+def grid(dev):
+    t = torch.arange(16, dtype=torch.int64, device=dev)
+    rel = t * 60000 + 5
+    return rel.to(torch.int32)
+""",
+    "NARROW_PRAGMA": """
+import torch
+
+def grid(dev):
+    t = torch.arange(16, dtype=torch.int64, device=dev)
+    rel = t * 60000 + 5
+    # graftlint: disable=precision-narrowing (fixture: span guarded upstream)
+    return rel.to(torch.int32)
+""",
+    "NARROW_F64_VIOLATION": """
+import torch
+
+def shrink(x, dev):
+    v = torch.as_tensor(x, device=dev).double() * 2.0
+    return v.float()
+""",
+    "ACCUM_VIOLATION": """
+import torch
+
+def total(x, dev):
+    y = torch.as_tensor(x, device=dev).to(torch.float32)
+    return torch.sum(y)
+""",
+    "ACCUM_CLEAN_ANNOTATED": """
+import torch
+from filodb_tpu_torch.lint.numerics import precision
+
+@precision("fixture-accum", bits=24, rel_ulps=4, accum_terms=1 << 20,
+           reason="at most 2**20 window terms by the dispatcher bound")
+def total(x, dev):
+    y = torch.as_tensor(x, device=dev).to(torch.float32)
+    return torch.sum(y)
+""",
+    "ACCUM_CLEAN_F64": """
+import torch
+
+def total(x, dev):
+    y = torch.as_tensor(x, device=dev).to(torch.float32)
+    return torch.sum(y, dtype=torch.float64)
+""",
+    "ACCUM_OVERCLAIM": """
+import torch
+from filodb_tpu_torch.lint.numerics import precision
+
+@precision("fixture-accum-over", bits=24, rel_ulps=4,
+           accum_terms=1 << 30,
+           reason="bound exceeds the f32 mantissa on purpose")
+def total(x, dev):
+    y = torch.as_tensor(x, device=dev).to(torch.float32)
+    return torch.sum(y)
+""",
+    "ORDER_VIOLATION": """
+import torch.distributed as dist
+
+def total(x):
+    dist.all_reduce(x)
+    return x
+""",
+    "ORDER_CLEAN_ANNOTATED": """
+import torch.distributed as dist
+from filodb_tpu_torch.lint.numerics import order_insensitive
+
+@order_insensitive("fixture-psum", tolerance=1e-12,
+                   reason="f64 partials; a few ulps across regroupings")
+def total(x):
+    dist.all_reduce(x)
+    return x
+""",
+    "ORDER_CLEAN_INT": """
+import torch
+import torch.distributed as dist
+
+def total(x):
+    counts = x.to(torch.int64)
+    dist.all_reduce(counts)
+    return counts
+""",
+    "ORDER_PRAGMA": """
+import torch.distributed as dist
+
+def total(x):
+    # graftlint: disable=reduction-order-determinism (fixture rig)
+    dist.all_reduce(x)
+    return x
+""",
+    # the plain version of a CUDA kernel
+    "MIXED_CMP_VIOLATION": """
+import torch
+from filodb_tpu_torch.lint.contracts import kernel_contract
+
+def kern_reference(x):
+    idx = torch.arange(8, dtype=torch.int32, device=x.device)
+    fidx = idx.to(torch.float32)
+    return torch.where(fidx > 3.0, x, 0.0)
+
+@kernel_contract("fixture_kernel", kind="cuda", plain=kern_reference)
+def kern(x):
+    return kern_reference(x)
+""",
+    "MIXED_CMP_CLEAN": """
+import torch
+from filodb_tpu_torch.lint.contracts import kernel_contract
+
+def kern_reference(x):
+    idx = torch.arange(8, dtype=torch.int32, device=x.device)
+    return torch.where(idx > 3, x, 0.0)
+
+@kernel_contract("fixture_kernel", kind="cuda", plain=kern_reference)
+def kern(x):
+    return kern_reference(x)
+""",
+    "MIXED_CMP_PRAGMA": """
+import torch
+from filodb_tpu_torch.lint.contracts import kernel_contract
+
+def kern_reference(x):
+    idx = torch.arange(8, dtype=torch.int32, device=x.device)
+    fidx = idx.to(torch.float32)
+    # graftlint: disable=mixed-dtype-comparison (indices bounded < 2**24)
+    return torch.where(fidx > 3.0, x, 0.0)
+
+@kernel_contract("fixture_kernel", kind="cuda", plain=kern_reference)
+def kern(x):
+    return kern_reference(x)
+""",
+}
+
+
+@pytest.mark.parametrize("name", sorted(TORCH_TWINS))
+def test_a_torch_twin_is_flagged_as_the_reference_flags_its_fixture(
+        tmp_path, name):
+    ref = _reference_lint(tmp_path, getattr(ref_fx, name))
+    port = lint_src(tmp_path, TORCH_TWINS[name])
+    assert rules_of(port) == rules_of(ref), (name, port.findings)
+    assert port.suppressed == ref.suppressed
+    assert all(f.severity == "error" for f in port.findings)
+
+
+def test_the_twins_are_not_vacuous(tmp_path):
+    """Every ported rule fires on some twin, and every violating twin
+    fires exactly one rule."""
+    fired = {}
+    for name, src in TORCH_TWINS.items():
+        fired[name] = rules_of(lint_src(tmp_path, src))
+    assert {r for rs in fired.values() for r in rs} == {
+        "trace-side-effect", "trace-tracer-leak", "trace-mutate-capture",
+        "spmd-collective-balance", "donation-safety",
+        "precision-narrowing", "accumulation-bound",
+        "reduction-order-determinism", "mixed-dtype-comparison"}
+    for name, got in fired.items():
+        if "CLEAN" in name or "PRAGMA" in name:
+            assert got == [], name
+        else:
+            assert len(got) == 1, (name, got)
+
+
+def test_the_tuple_refresh_names_the_stale_attribute(tmp_path):
+    res = lint_src(tmp_path, TORCH_TWINS["DONATE_TUPLE_VIOLATION"])
+    assert [f.rule for f in res.findings] == ["donation-safety"]
+    assert "self.tail" in res.findings[0].message
+
+
+def test_the_axis_and_overclaim_messages(tmp_path):
+    res = lint_src(tmp_path, TORCH_TWINS["SPMD_BAD_AXIS"])
+    assert "'shards'" in res.findings[0].message
+    res = lint_src(tmp_path, TORCH_TWINS["ACCUM_OVERCLAIM"])
+    assert "2**24" in res.findings[0].message
+
+
+@pytest.mark.parametrize("fixture,rule", [
+    ("TRACE_F64", "trace-f64-constant"),
+    ("SPEC_ARITY", "partition-spec-consistency"),
+    ("SPEC_BAD_MESH_AXIS", "partition-spec-consistency"),
+    ("SPEC_OUT_ARITY", "partition-spec-consistency"),
+    ("SPEC_POSITIONAL_OUT_OF_RANGE", "partition-spec-consistency"),
+    ("SPEC_POSITIONAL_DOUBLE_NEG", "partition-spec-consistency"),
+    ("DONATE_MISSING", "donation-missing"),
+])
+def test_a_rule_without_a_torch_counterpart_is_listed_with_its_reason(
+        tmp_path, fixture, rule):
+    """The reference's fixture for the rule trips it there; the port
+    registers no such rule and lists it, with the reason, instead."""
+    assert rule in rules_of(_reference_lint(tmp_path,
+                                            getattr(ref_fx, fixture)))
+    assert rule not in rules()
+    assert NOT_PORTED[rule].strip()
+
+
+# -- trace: the bodies bound through a parameter, and the scalar guard --------
+
+VMAP_GRIDS = """
+import functools
+import numpy as np
+import torch
+
+def body(n, w0):
+    if isinstance(w0, torch.Tensor):
+        k = torch.floor(w0 / 10)
+    else:
+        k = int(np.floor(w0 / 10))      # eager scalar calls only
+    return torch.arange(n) + k
+
+def _vmap_grids(body, w0s):
+    return torch.func.vmap(lambda w: body(w))(torch.tensor(w0s))
+
+def batch(n, w0s):
+    fn = functools.partial(body, n)
+    return _vmap_grids(fn, w0s)
+"""
+
+
+def test_a_body_bound_through_a_partial_is_traced(tmp_path):
+    assert not lint_src(tmp_path, VMAP_GRIDS).findings
+    unguarded = VMAP_GRIDS.replace(
+        "    if isinstance(w0, torch.Tensor):\n"
+        "        k = torch.floor(w0 / 10)\n    else:\n    ", "")
+    res = lint_src(tmp_path, unguarded)
+    assert rules_of(res) == ["trace-tracer-leak"]
+    assert "int()" in res.findings[0].message
+    # the same leak in a body nothing binds to the transform is not traced
+    untraced = unguarded.replace("return _vmap_grids(fn, w0s)",
+                                 "return fn(w0s[0])")
+    assert not lint_src(tmp_path, untraced).findings
+
+
+def test_a_write_into_a_partial_bound_tensor_is_a_captured_mutation(
+        tmp_path):
+    src = """
+import functools
+import torch
+
+def f(buf, x):
+    buf[0] = x.sum()
+    return x
+
+def run(xs, buf):
+    return torch.func.vmap(functools.partial(f, buf))(xs)
+"""
+    assert rules_of(lint_src(tmp_path, src)) == ["trace-mutate-capture"]
+    fixed = src.replace("    buf[0] = x.sum()",
+                        "    out = buf.clone()\n    out[0] = x.sum()")
+    assert not lint_src(tmp_path, fixed).findings
+
+
+def test_the_ports_vmap_site_resolves_its_four_bodies(port_df):
+    flow, _ = port_df
+    (site,) = flow.sites
+    bodies = {flow.cg.funcs[k].qualname for k in site.body_keys}
+    assert {"_eval_counter_slide", "_eval_counter_fast", "_eval_counter_t",
+            "_eval_core"} <= bodies
+    # vmap batches the two grid offsets, past the partial's arguments
+    for q in ("_eval_counter_slide", "_eval_counter_fast",
+              "_eval_counter_t", "_eval_core"):
+        assert flow.batched[f"filodb_tpu_torch.query.tilestore:{q}"] \
+            == {"w0s", "w0e"}, q
+
+
+# -- SPMD: rank-invariance through agreement and None-ness ---------------------
+
+AGREED = """
+import torch
+import torch.distributed as dist
+
+def _agree(t):
+    buf = t.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX)
+    return buf
+
+def run(t, n_local):
+    agreed = _agree(torch.tensor([n_local])).tolist()
+    if agreed[0] > 0:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t
+"""
+
+NONE_BY_QUERY = """
+import torch.distributed as dist
+from filodb_tpu_torch.lint.ranks import rank_invariant
+
+def _partials(x, agg):
+    val = None
+    if agg == "sum":
+        val = x * 2
+    return x, val
+
+def _all_reduce(t, op):
+    dist.all_reduce(t, op=op)
+    return t
+
+@rank_invariant("agg", reason="every rank runs the same query")
+def run(x, agg):
+    vals = []
+    for part in x:
+        c, v = _partials(part, agg)
+        vals.append(v)
+    if vals[0] is not None:
+        _all_reduce(vals[0], dist.ReduceOp.MAX)
+    return vals
+"""
+
+
+def test_the_result_of_a_collective_is_rank_invariant(tmp_path):
+    assert not lint_src(tmp_path, AGREED).findings
+    res = lint_src(tmp_path, AGREED.replace("if agreed[0] > 0",
+                                            "if n_local > 0"))
+    assert rules_of(res) == ["spmd-collective-balance"]
+
+
+def test_none_ness_is_proven_through_a_helpers_returns(tmp_path):
+    assert not lint_src(tmp_path, NONE_BY_QUERY).findings
+    # the helper chooses None on its data: not rank-invariant
+    res = lint_src(tmp_path, NONE_BY_QUERY.replace('if agg == "sum":',
+                                                   "if x.sum() > 0:"))
+    assert rules_of(res) == ["spmd-collective-balance"]
+    # without the declaration agg is a rank's own value
+    res = lint_src(tmp_path, NONE_BY_QUERY.replace(
+        '@rank_invariant("agg", reason="every rank runs the same query")\n',
+        ""))
+    assert rules_of(res) == ["spmd-collective-balance"]
+
+
+def test_a_wrapper_forwards_its_op_to_its_call_sites(tmp_path):
+    assert not lint_src(tmp_path, NONE_BY_QUERY).findings
+    res = lint_src(tmp_path, NONE_BY_QUERY.replace("dist.ReduceOp.MAX",
+                                                   "dist.ReduceOp.SUM"))
+    assert rules_of(res) == ["reduction-order-determinism"]
+    assert res.findings[0].line == NONE_BY_QUERY.splitlines().index(
+        "        _all_reduce(vals[0], dist.ReduceOp.MAX)") + 1
+
+
+def test_the_ports_collectives_and_in_place_append(port_df):
+    flow, _ = port_df
+    mod = "filodb_tpu_torch.parallel.distributed"
+    calls = [s for s in flow.collective_sites
+             if s.via == f"{mod}:_all_reduce"]
+    assert len(calls) == 3
+    assert {s.key for s in calls} == {f"{mod}:window_aggregate_distributed"}
+    assert flow.rank_invariant[f"{mod}:window_aggregate_distributed"] \
+        >= {"func", "agg", "num_groups", "params"}
+    folds = {s.name for s in flow.collective_sites if s.kind == "fold"}
+    assert {"psum", "pmin", "pmax", "all_gather"} <= folds
+    appends = [c for c in flow.inplace_calls
+               if c.writer.endswith("shardstore:_append_step")
+               and c.relpath == "filodb_tpu_torch/parallel/shardstore.py"]
+    assert len(appends) == 1
+    assert flow.inplace_writers[appends[0].writer] == {"tsr", "v", "cv"}
+
+
+def test_the_append_without_its_invalidation_is_flagged(tmp_path):
+    """shardstore.append_slots clears the per-snapshot placements after
+    writing the resident channels in place; the same file without that
+    line is flagged."""
+    src = open(os.path.join(REPO, "filodb_tpu_torch", "parallel",
+                            "shardstore.py")).read()
+    line = "        self._aligned.clear()   # row-major placements are " \
+           "per-snapshot\n"
+    assert src.count(line) == 1
+    assert "donation-safety" not in rules_of(
+        lint_src(tmp_path, src, "shardstore.py"))
+    res = lint_src(tmp_path, src.replace(line, ""), "shardstore.py")
+    assert [f.rule for f in res.findings] == ["donation-safety"]
+    assert "self._aligned" in res.findings[0].message
+
+
+def test_numerics_families_flow_through_json_github_changed(tmp_path):
+    """The numerics families ride the reporting rails: --json carries the
+    rule ids, --github renders annotation lines, and report_only
+    (--changed-only) drops findings anchored elsewhere."""
+    from filodb_tpu_torch.lint.ci_annotations import github_annotations
+    res = lint_src(tmp_path, TORCH_TWINS["NARROW_VIOLATION"])
+    payload = res.to_json()
+    assert payload["exit_code"] == 1
+    assert [f["rule"] for f in payload["findings"]] \
+        == ["precision-narrowing"]
+    lines = github_annotations(payload)
+    assert len(lines) == 1 and "graftlint precision-narrowing" in lines[0]
+    assert lines[0].startswith("::error ")
+    p = tmp_path / "fixture.py"
+    other = run_lint([str(p)], baseline=frozenset(), check_contracts=False,
+                     report_only=frozenset(["somewhere/else.py"]))
+    assert not other.findings
+
+
+# -- the torch dtype inference, form by form ------------------------------------
+
+DTYPE_FIXTURE = """
+import numpy as np
+import torch
+
+F32 = torch.float32
+
+
+def site(x, dev):
+    v = torch.zeros(4, dtype=torch.float64, device=dev)
+    t = torch.arange(4, dtype=torch.int64, device=dev)
+    y = torch.zeros(4, dtype=torch.float32, device=dev)
+    idx = torch.arange(4, device=dev)
+    h = np.asarray(x, dtype=np.float64)
+    return {expr}
+"""
+
+
+@pytest.mark.parametrize("expr", [
+    "v.to(torch.float32)", "v.to(dtype=torch.float32)",
+    "v.to(dev, torch.float32)", "v.to(F32)", "v.float()", "v.half()",
+    "v.type(torch.float32)", "(v * 2.0 + 1).float()", "t.int()",
+    "t.to(torch.int32)", "(t >> 31).to(torch.int32)",
+    "torch.where(t > 0, v, v).float()", "h.astype(np.float32)",
+    "np.float32(h)", "t.float()",
+])
+def test_each_narrowing_form_is_seen(tmp_path, expr):
+    src = DTYPE_FIXTURE.format(expr=expr)
+    assert rules_of(lint_src(tmp_path, src)) == ["precision-narrowing"]
+
+
+@pytest.mark.parametrize("expr", [
+    "v.to(torch.float64)", "v.double()", "t.long()", "y.float()",
+    "t.to(dev)", "(t / 2).to(torch.float32)", "(t * 0.5).float()",
+    "x.to(torch.float32)", "v.to(dev)",
+])
+def test_what_is_not_provably_a_narrowing_is_quiet(tmp_path, expr):
+    """Widening, same-width and device moves, an integer tensor's true
+    division or product with a Python float (torch's default float
+    dtype) and a parameter of unknown dtype stay quiet."""
+    src = DTYPE_FIXTURE.format(expr=expr)
+    assert "precision-narrowing" not in rules_of(lint_src(tmp_path, src))
+
+
+@pytest.mark.parametrize("expr", [
+    "torch.sum(y)", "y.sum()", "torch.nansum(y)", "torch.cumsum(y, 0)",
+    "y.cumsum(0)", "y @ y", "torch.matmul(y, y)", "torch.mm(y, y)",
+    "torch.bmm(y, y)", 'torch.einsum("i,i->", y, y)',
+    "y.index_add_(0, idx, y)", "y.scatter_add_(0, idx, y)",
+])
+def test_each_f32_accumulation_needs_a_bound(tmp_path, expr):
+    src = DTYPE_FIXTURE.format(expr=expr)
+    assert rules_of(lint_src(tmp_path, src)) == ["accumulation-bound"]
+
+
+@pytest.mark.parametrize("expr", [
+    "torch.sum(y, dtype=torch.float64)", "y.sum(dtype=torch.float64)",
+    "v.sum()", "v @ v", "t.cumsum(0)", "torch.sum(x)",
+])
+def test_an_f64_or_unknown_accumulation_is_quiet(tmp_path, expr):
+    src = DTYPE_FIXTURE.format(expr=expr)
+    assert "accumulation-bound" not in rules_of(lint_src(tmp_path, src))

@@ -10,6 +10,7 @@ chip_smoke phase 13 runs the same harnesses with ``device="cuda"``, and
 phase 14 the mesh's three claims."""
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -18,6 +19,8 @@ from filodb_tpu.lint import numerics as j_nmod
 from filodb_tpu.lint import ulpcert as j_ulpcert
 from filodb_tpu_torch.lint import numerics as nmod
 from filodb_tpu_torch.lint import ulpcert
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CLAIMS = {
     # name -> the port's site (module, qualname)
@@ -274,3 +277,149 @@ def test_ms_to_s_divides_as_the_cpu_does(dtype):
     assert torch.equal(got, x / 1000.0)
     if dtype == "float64":
         assert np.array_equal(got.numpy(), ms / 1000.0)
+
+
+# -- the ulp-certification gate in the port's run_lint -------------------------
+#
+# Twins of the reference's gate cases (tests/test_ulpcert.py): the same lying
+# data is measured by both packages' rails, and the port's run_lint carries
+# the port's verdict as a ulp-certification finding at the claim's site.
+
+TILESTORE = "filodb_tpu_torch/query/tilestore.py"
+
+
+def _lying_data():
+    """~64 f32 ulps off an f64 reference."""
+    ref = np.linspace(1.0, 2.0, 64)
+    prod = (ref + 64 * np.spacing(ref.astype(np.float32), dtype=np.float64)
+            ).astype(np.float32)
+    return prod, ref
+
+
+def _grouping_dependent_sum(ndev):
+    """An f32 sum whose accumulation order interleaves per-partition
+    lanes, so its rounding moves with the partition count."""
+    data = np.random.default_rng(7).uniform(0.1, 1.0, 4096).astype(
+        np.float32)
+    acc = np.float32(0.0)
+    for x in data.reshape(ndev, -1).T.ravel():
+        acc = np.float32(acc + x)
+    return np.asarray([acc], dtype=np.float32)
+
+
+class _Registered:
+    """Register claims (and harnesses) for one test; restore the
+    registries and the memo after."""
+
+    def __init__(self, precision=(), order=()):
+        self.precision, self.order = precision, order
+
+    def __enter__(self):
+        self.memo = dict(ulpcert._MEMO)
+        for claim, harness in self.precision:
+            nmod.PRECISION[claim.name] = claim
+            if harness is not None:
+                ulpcert.HARNESSES[claim.name] = harness
+        for claim, harness in self.order:
+            nmod.ORDER[claim.name] = claim
+            ulpcert.ORDER_HARNESSES[claim.name] = harness
+        return self
+
+    def __exit__(self, *exc):
+        for claim, _ in self.precision:
+            nmod.PRECISION.pop(claim.name, None)
+            ulpcert.HARNESSES.pop(claim.name, None)
+        for claim, _ in self.order:
+            nmod.ORDER.pop(claim.name, None)
+            ulpcert.ORDER_HARNESSES.pop(claim.name, None)
+        ulpcert._MEMO.clear()
+        ulpcert._MEMO.update(self.memo)
+
+
+LYING = nmod.PrecisionClaim(
+    name="lying-claim", bits=24, reason="deliberately wrong",
+    rel_ulps=0.01, module="filodb_tpu_torch.query.tilestore",
+    qualname="lying")
+LYING_ORDER = nmod.OrderClaim(
+    name="lying-order", tolerance=0.0, reason="claims bitwise, is not",
+    module="filodb_tpu_torch.parallel.mesh", qualname="lying")
+
+
+def test_a_lying_precision_claim_is_flagged_as_the_reference_flags_it():
+    prod, ref = _lying_data()
+    j = j_ulpcert._measure_precision(j_nmod.PrecisionClaim(
+        name="lying-claim", bits=24, reason="deliberately wrong",
+        rel_ulps=0.01), prod, ref, 0.0)
+    with _Registered(precision=[(LYING, lambda device: (*_lying_data(),
+                                                        0.0))]):
+        res = {r.name: r for r in ulpcert.certify_all("cpu", force=True)}
+        r = res["lying-claim"]
+        findings = [f for _rel, f in ulpcert.check_certifications()]
+    assert not j.ok and not r.ok
+    assert r.measured == pytest.approx(j.measured, rel=1e-12)
+    assert [f.rule for f in findings] == ["ulp-certification"]
+    assert "lying-claim" in findings[0].message
+    assert findings[0].path == TILESTORE
+
+
+def test_a_lying_order_claim_is_flagged_as_the_reference_flags_it():
+    j = j_ulpcert._measure_order(j_nmod.OrderClaim(
+        name="lying-order", tolerance=0.0, reason="claims bitwise, is not"),
+        _grouping_dependent_sum, (1, 2, 4, 8))
+    with _Registered(order=[(LYING_ORDER,
+                             lambda ndev, device:
+                             _grouping_dependent_sum(ndev))]):
+        res = {r.name: r for r in ulpcert.certify_all("cpu", force=True)}
+        findings = [f for _rel, f in ulpcert.check_certifications()]
+    assert not j.ok and not res["lying-order"].ok
+    assert "byte-identity" in res["lying-order"].detail
+    assert [f.rule for f in findings] == ["ulp-certification"]
+    assert findings[0].path == "filodb_tpu_torch/parallel/mesh.py"
+
+
+def test_an_annotation_without_a_harness_is_flagged():
+    orphan = nmod.PrecisionClaim(
+        name="orphan-claim", bits=24, reason="no harness", rel_ulps=1.0,
+        module="filodb_tpu_torch.query.tilestore", qualname="orphan")
+    with _Registered(precision=[(orphan, None)]):
+        res = {r.name: r for r in ulpcert.certify_all("cpu", force=True)}
+        findings = [f for _rel, f in ulpcert.check_certifications()]
+    r = res["orphan-claim"]
+    assert not r.ok and "no certification harness" in r.detail
+    assert [f.context for f in findings] == ["ulpcert:orphan-claim"]
+
+
+def test_certification_rides_the_lint_gate():
+    """The full run_lint (contracts on) carries ulp-certification
+    findings at the claim's site, and the port's ten claims pass it."""
+    from filodb_tpu_torch.lint import rules, run_lint
+    cat = rules()
+    assert cat["ulp-certification"].severity == "error"
+    assert cat["ulp-certification"].family == "numerics"
+    assert not ulpcert.check_certifications()
+    assert len(ulpcert.certify_all("cpu")) == 10
+    path = os.path.join(REPO, TILESTORE)
+    with _Registered(precision=[(LYING, lambda device: (*_lying_data(),
+                                                        0.0))]):
+        ulpcert.certify_all("cpu", force=True)
+        res = run_lint([path], baseline=frozenset())
+        quick = run_lint([path], baseline=frozenset(),
+                         report_only=frozenset({TILESTORE}))
+    got = [f for f in res.findings if f.rule == "ulp-certification"]
+    assert len(got) == 1 and got[0].path == TILESTORE
+    assert "lying-claim" in got[0].message
+    # --changed-only skips the certification, as the reference does
+    assert not [f for f in quick.findings
+                if f.rule == "ulp-certification"]
+    assert not [f for f in run_lint([path], baseline=frozenset()).findings
+                if f.rule == "ulp-certification"]
+
+
+def test_the_v4_families_are_registered_at_error():
+    from filodb_tpu_torch.lint import rules
+    cat = rules()
+    for rid in ("precision-narrowing", "accumulation-bound",
+                "reduction-order-determinism", "mixed-dtype-comparison",
+                "ulp-certification"):
+        assert cat[rid].severity == "error"
+        assert cat[rid].family == "numerics"
