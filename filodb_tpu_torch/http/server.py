@@ -58,6 +58,7 @@ import json
 import re
 import sys
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
@@ -111,6 +112,11 @@ def _lint_memo(query: str, schema_items: Tuple) -> Tuple:
 
 class _Handled(Exception):
     """Control-flow: response (code, payload) already decided."""
+
+    def __init__(self, code: int, payload):
+        super().__init__(code)
+        self.code = code
+        self.payload = payload
 
 
 class _FastHeaders(dict):
@@ -443,59 +449,118 @@ class FiloHttpServer:
     # these roots beside the ingest, detector and worker threads
     @thread_root("http-handler")
     def _handle(self, req: BaseHTTPRequestHandler) -> None:
-        retry_after_s: Optional[float] = None
-        body_raw = b""
-        body_json = None
+        """Read one request, route it, map a refusal or an error to its
+        status, write the answer. A traced request to a query endpoint
+        (not a peer hop's, which records under the caller's context)
+        starts its trace here, before the admission gate: the root span
+        ``request`` runs from this handler's start to the response's
+        last byte written, tagged ``path`` and ``status``; under it
+        ``admission-wait``, the query path's ``query`` and ``respond``
+        (the write, tagged ``bytes``)."""
+        t_req = time.time_ns()
         try:
-            parsed = urllib.parse.urlparse(req.path)
-            qs = urllib.parse.parse_qs(parsed.query)
-            if req.command == "POST":
-                ln = int(req.headers.get("Content-Length") or 0)
-                if ln > (64 << 20):     # request-size cap (DoS guard)
-                    code, payload = 413, prom_json.error(
-                        "request body too large")
-                    raise _Handled()
-                body_raw = req.rfile.read(ln) if ln else b""
-                ctype = req.headers.get("Content-Type", "")
-                if "application/x-www-form-urlencoded" in ctype:
-                    for k, v in urllib.parse.parse_qs(
-                            body_raw.decode()).items():
-                        qs.setdefault(k, []).extend(v)
-                elif "application/json" in ctype and body_raw:
-                    body_json = json.loads(body_raw)
+            parsed, qs, body_raw, body_json = self._read_request(req)
             # propagated trace context (Dapper-style): a peer hop's
             # header makes this node record spans under the caller's
             # trace and ship them back in the response envelope
             tctx = obs_trace.parse_context(
                 req.headers.get(obs_trace.HEADER))
-            code, payload = self._route(
-                parsed.path, qs, body_raw, body_json=body_json, tctx=tctx,
-                tenant_hdr=req.headers.get(qos.TENANT_HEADER),
-                priority_hdr=req.headers.get(qos.PRIORITY_HEADER))
-        except _Handled:
-            pass
-        except qos.AdmissionRejected as e:
+            tr = self._request_trace(parsed.path, qs, tctx)
+        except Exception as e:   # noqa: BLE001 — edge must not crash
+            self._respond(req, *self._error_answer(e))
+            return
+        with obs_trace.activate(tr), \
+                obs_trace.span("request", path=parsed.path) as rsp:
+            if tr is not None:
+                # the request's read and parse belong to it too
+                rsp.start_ns = t_req
+            retry_after_s: Optional[float] = None
+            try:
+                code, payload = self._route(
+                    parsed.path, qs, body_raw, body_json=body_json,
+                    tctx=tctx,
+                    tenant_hdr=req.headers.get(qos.TENANT_HEADER),
+                    priority_hdr=req.headers.get(qos.PRIORITY_HEADER))
+            except Exception as e:   # noqa: BLE001 — edge must not crash
+                code, payload, retry_after_s = self._error_answer(e)
+            rsp.tag(status=code)
+            # the retention decision of a request whose query path never
+            # ran (a 429 at the gate, a bad route); made once, so a no-op
+            # after the query path's own
+            self.tracer.finish_request(
+                tr, error=code >= 400,
+                duration_ms=(time.time_ns() - t_req) / 1e6)
+            self._respond(req, code, payload, retry_after_s)
+
+    def _read_request(self, req: BaseHTTPRequestHandler):
+        """(parsed URL, query params, raw body, JSON body): a POST's form
+        fields join the query params."""
+        parsed = urllib.parse.urlparse(req.path)
+        qs = urllib.parse.parse_qs(parsed.query)
+        body_raw = b""
+        body_json = None
+        if req.command == "POST":
+            ln = int(req.headers.get("Content-Length") or 0)
+            if ln > (64 << 20):     # request-size cap (DoS guard)
+                raise _Handled(413, prom_json.error(
+                    "request body too large"))
+            body_raw = req.rfile.read(ln) if ln else b""
+            ctype = req.headers.get("Content-Type", "")
+            if "application/x-www-form-urlencoded" in ctype:
+                for k, v in urllib.parse.parse_qs(
+                        body_raw.decode()).items():
+                    qs.setdefault(k, []).extend(v)
+            elif "application/json" in ctype and body_raw:
+                body_json = json.loads(body_raw)
+        return parsed, qs, body_raw, body_json
+
+    def _request_trace(self, path: str, qs: Dict, tctx):
+        """The trace of a request to a query endpoint, started before its
+        admission wait; None for other paths, peer hops (the query path
+        records those under the caller's context) and untraced
+        requests. ``&explain=trace|analyze`` forces one."""
+        if tctx is not None:
+            return None
+        m = _ROUTE.match(path)
+        if m is None or m.group("rest") not in ("query_range", "query"):
+            return None
+        return self.tracer.start(force=self._param(qs, "explain") in (
+            "trace", "analyze"))
+
+    @staticmethod
+    def _error_answer(e: Exception):
+        """An exception out of a request's handling -> (status, payload,
+        Retry-After seconds or None)."""
+        if isinstance(e, _Handled):
+            return e.code, e.payload, None
+        if isinstance(e, qos.AdmissionRejected):
             # admission said no and no degraded answer exists: 429 +
             # Retry-After. Distinct from the 503 deadline path below —
             # a rejected query was never executed, so the client can
             # back off and resubmit as-is.
-            code, payload = 429, prom_json.error(str(e), "throttled")
-            retry_after_s = e.retry_after_s
-        except DeadlineExceeded as e:
+            return 429, prom_json.error(str(e), "throttled"), \
+                e.retry_after_s
+        if isinstance(e, DeadlineExceeded):
             # clean budget-exhaustion error (Prometheus timeout shape),
             # never a hung socket
-            code, payload = 503, prom_json.error(str(e), "timeout")
-        except ingest_health.IngestReadOnly as e:
+            return 503, prom_json.error(str(e), "timeout"), None
+        if isinstance(e, ingest_health.IngestReadOnly):
             # the ingest edge while write-path out-of-space degradation
             # is active: recoverable — resubmit after space is freed
-            code, payload = 503, prom_json.error(str(e), "read_only")
-            retry_after_s = e.retry_after_s
-        except QueryLimitError as e:
-            code, payload = 422, prom_json.error(str(e), "query_limit")
-        except QueryError as e:
-            code, payload = 400, prom_json.error(str(e))
-        except Exception as e:   # noqa: BLE001 — edge must not crash
-            code, payload = 500, prom_json.error(str(e), "internal")
+            return 503, prom_json.error(str(e), "read_only"), \
+                e.retry_after_s
+        if isinstance(e, QueryLimitError):
+            return 422, prom_json.error(str(e), "query_limit"), None
+        if isinstance(e, QueryError):
+            return 400, prom_json.error(str(e)), None
+        return 500, prom_json.error(str(e), "internal"), None
+
+    @staticmethod
+    def _respond(req: BaseHTTPRequestHandler, code: int, payload,
+                 retry_after_s: Optional[float]) -> None:
+        """Encode and write one answer; the write (flushed here, not
+        after the handler returns) is the traced request's ``respond``
+        span."""
         extra_headers = {}
         if retry_after_s is not None:
             extra_headers["Retry-After"] = str(
@@ -513,13 +578,15 @@ class FiloHttpServer:
         else:
             body = json.dumps(payload).encode()
             ctype = "application/json"
-        req.send_response(code)
-        req.send_header("Content-Type", ctype)
-        for k, v in extra_headers.items():
-            req.send_header(k, v)
-        req.send_header("Content-Length", str(len(body)))
-        req.end_headers()
-        req.wfile.write(body)
+        with obs_trace.span("respond", bytes=len(body)):
+            req.send_response(code)
+            req.send_header("Content-Type", ctype)
+            for k, v in extra_headers.items():
+                req.send_header(k, v)
+            req.send_header("Content-Length", str(len(body)))
+            req.end_headers()
+            req.wfile.write(body)
+            req.wfile.flush()
 
     def _route(self, path: str, qs: Dict, body_raw: bytes = b"",
                body_json=None, tctx=None, tenant_hdr: Optional[str] = None,
@@ -1440,6 +1507,14 @@ class FiloHttpServer:
         return None
 
     def _query_range(self, engine, qs, ds: str, tctx=None):
+        """One range query under the request's trace: the one the HTTP
+        handler started before the admission gate (``_handle``), or for
+        a peer hop one recorded under the caller's context. Its ``query``
+        span holds parse, plan, execute and encode. The tail-retention
+        decision is made here, once per request. An ``&explain=trace``
+        payload is built before the response is written, so it holds the
+        ``admission-wait`` span but not ``request`` or ``respond``,
+        which close with the write."""
         import time as _time
         query = self._param(qs, "query")
         if not query:
@@ -1457,7 +1532,8 @@ class FiloHttpServer:
         # dispositions, shed decisions: obs/devprof.py)
         explain = self._param(qs, "explain")
         explain_trace = explain in ("trace", "analyze")
-        tr = self.tracer.start(tctx, force=explain_trace)
+        tr = self.tracer.start(tctx) if tctx is not None \
+            else obs_trace.current_trace()
         entry = self.inflight.register(
             query, ds, kind="range",
             trace_id=tr.trace_id if tr is not None else None)
@@ -1591,9 +1667,10 @@ class FiloHttpServer:
             warnings = list(getattr(st, "warnings", ()) or ())
             warnings.extend(res.warnings)
             partial = bool(getattr(st, "partial", False) or res.partial)
-            out = prom_json.matrix_bytes(
-                res, stats_json, warnings=warnings, partial=partial,
-                rows_memo=ses.encode_memo())
+            with obs_trace.span("encode"):
+                out = prom_json.matrix_bytes(
+                    res, stats_json, warnings=warnings, partial=partial,
+                    rows_memo=ses.encode_memo())
             stages["encodeMs"] = round(
                 (_time.perf_counter() - t3) * 1000, 3)
             return 200, out
@@ -1662,7 +1739,9 @@ class FiloHttpServer:
         time_s = int(float(self._param(qs, "time", "0")))
         explain = self._param(qs, "explain")
         explain_trace = explain in ("trace", "analyze")
-        tr = self.tracer.start(tctx, force=explain_trace)
+        # the handler's trace, or a peer hop's (as _query_range)
+        tr = self.tracer.start(tctx) if tctx is not None \
+            else obs_trace.current_trace()
         entry = self.inflight.register(
             query, ds, kind="instant",
             trace_id=tr.trace_id if tr is not None else None)

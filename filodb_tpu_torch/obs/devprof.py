@@ -401,7 +401,7 @@ def analyze_payload(spans: List[Dict], stages: Dict,
             disp = str(tags.get("disposition", ""))
             if disp and disp not in e["dispositions"]:
                 e["dispositions"].append(disp)
-        elif name in ("device-dispatch", "device-eval", "kernel-build",
+        elif name in ("device-dispatch", "device-eval",
                       "batcher-dispatch", "device-sync",
                       "batcher-queue-wait"):
             d = {"span": name, "dur_us": sp.get("dur_us")}

@@ -24,6 +24,11 @@ Design constraints:
   * bounded memory: a trace stops recording past ``MAX_SPANS`` (a
     runaway fan-out can't balloon the ring buffer), and the
     :class:`Tracer`'s recorder keeps the last N finished traces.
+  * wall time and thread CPU time: a live span reads the wall clock
+    (``time.time_ns()``, the clock the device trace is tied to) and the
+    thread's CPU clock (``time.thread_time_ns()``) on enter and exit,
+    so ``dur_us - cpu_us`` is the time its thread waited (for the
+    interpreter lock, a lock, a device sync or a peer).
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ class Span:
     mutate tags through ``tag()`` while open."""
 
     __slots__ = ("name", "span_id", "parent_id", "start_ns", "dur_ns",
-                 "tags", "error")
+                 "cpu_ns", "tags", "error")
 
     def __init__(self, name: str, span_id: str, parent_id: Optional[str],
                  start_ns: int):
@@ -69,6 +74,7 @@ class Span:
         self.parent_id = parent_id
         self.start_ns = start_ns
         self.dur_ns = -1            # -1 = still open
+        self.cpu_ns = -1            # -1 = not measured (events)
         self.tags: Dict[str, object] = {}
         self.error: Optional[str] = None
 
@@ -81,6 +87,8 @@ class Span:
              "parent_id": self.parent_id,
              "start_us": self.start_ns // 1000,
              "dur_us": self.dur_ns // 1000 if self.dur_ns >= 0 else -1}
+        if self.cpu_ns >= 0:
+            d["cpu_us"] = self.cpu_ns // 1000
         if self.tags:
             d["tags"] = dict(self.tags)
         if self.error:
@@ -93,6 +101,8 @@ class Span:
                 d.get("parent_id"), int(d.get("start_us", 0)) * 1000)
         dur = int(d.get("dur_us", -1))
         s.dur_ns = dur * 1000 if dur >= 0 else -1
+        if d.get("cpu_us") is not None:
+            s.cpu_ns = int(d["cpu_us"]) * 1000
         s.tags = dict(d.get("tags") or {})
         s.error = d.get("error")
         return s
@@ -104,7 +114,7 @@ class Trace:
     HTTP workers and the device executor both record."""
 
     __slots__ = ("trace_id", "node", "spans", "truncated", "_lock",
-                 "root_parent", "sampled", "retain_reason")
+                 "root_parent", "sampled", "retain_reason", "decided")
 
     def __init__(self, trace_id: Optional[str] = None,
                  node: str = "", root_parent: Optional[str] = None,
@@ -124,6 +134,10 @@ class Trace:
         # Tracer.finish_request for /debug/traces readers.
         self.sampled = sampled
         self.retain_reason: Optional[str] = None
+        # set by Tracer.finish_request: the retention decision is made
+        # once; spans closing after it (an HTTP request's response
+        # write) still append to this object, retained or not
+        self.decided = False
         self._lock = threading.Lock()
 
     def add(self, sp: Span) -> None:
@@ -148,11 +162,15 @@ class Trace:
             return [s.to_json() for s in self.spans]
 
     def to_json(self) -> Dict:
+        """The trace as JSON; ``duration_us`` is the longest of its
+        top-most closed spans (those whose parent is not recorded here:
+        the root, or while the root is still open, its closed
+        children)."""
         spans = self.spans_json()
+        ids = {s["span_id"] for s in spans}
         dur = 0
         for s in spans:
-            if s["parent_id"] is None or s["parent_id"] == \
-                    self.root_parent:
+            if s["parent_id"] not in ids:
                 dur = max(dur, s["dur_us"])
         d = {"trace_id": self.trace_id, "node": self.node,
              "num_spans": len(spans), "duration_us": dur,
@@ -183,7 +201,7 @@ _NOOP = _NoopSpan()
 class _LiveSpan:
     """Context manager recording one span into the active trace."""
 
-    __slots__ = ("_trace", "_span", "_prev")
+    __slots__ = ("_trace", "_span", "_prev", "_cpu0")
 
     def __init__(self, trace: Trace, name: str, parent_id: Optional[str],
                  tags: Dict):
@@ -196,10 +214,14 @@ class _LiveSpan:
     def __enter__(self) -> Span:
         self._prev = getattr(_state, "parent", None)
         _state.parent = self._span.span_id
+        # read after the wall clock on entry and before it on exit, so
+        # the CPU interval lies inside the wall one
+        self._cpu0 = time.thread_time_ns()
         return self._span
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         sp = self._span
+        sp.cpu_ns = time.thread_time_ns() - self._cpu0
         sp.dur_ns = time.time_ns() - sp.start_ns
         if exc is not None and sp.error is None:
             sp.error = f"{type(exc).__name__}: {exc}"
@@ -278,7 +300,10 @@ class use:
 
 class activate:
     """Install ``trace`` as the thread's active trace for the scope
-    (the per-request entry point; :class:`Tracer` wraps this)."""
+    (the per-request entry point; :class:`Tracer` wraps this).
+    Activating the trace that is already active keeps its open span as
+    the parent: a query path that activates the trace its HTTP handler
+    started nests under the handler's ``request`` span."""
 
     __slots__ = ("_trace", "_prev")
 
@@ -288,9 +313,10 @@ class activate:
     def __enter__(self) -> Optional[Trace]:
         self._prev = (getattr(_state, "trace", None),
                       getattr(_state, "parent", None))
-        _state.trace = self._trace
-        _state.parent = self._trace.root_parent \
-            if self._trace is not None else None
+        if self._trace is None or self._trace is not self._prev[0]:
+            _state.trace = self._trace
+            _state.parent = self._trace.root_parent \
+                if self._trace is not None else None
         return self._trace
 
     def __exit__(self, *exc):
@@ -439,9 +465,13 @@ class Tracer:
         above ``slow_ms``) or the start-time coin already kept it (or
         ``force`` — the explain path). Returns True when retained, so
         the caller can link the trace id (slowlog, exemplars) only to
-        traces that actually resolve in ``/debug/traces``."""
+        traces that actually resolve in ``/debug/traces``. Made once per
+        trace: a second call returns the first decision."""
         if trace is None:
             return False
+        if trace.decided:
+            return trace.retain_reason is not None
+        trace.decided = True
         slow = (self.slow_ms > 0.0 and duration_ms is not None
                 and duration_ms >= self.slow_ms)
         if error:
@@ -532,6 +562,8 @@ def _otlp_span(trace: Trace, d: Dict) -> Dict:
         out["parentSpanId"] = str(parent).zfill(16)
     attrs = [_otlp_attr(k, v)
              for k, v in sorted((d.get("tags") or {}).items())]
+    if d.get("cpu_us") is not None:
+        attrs.append(_otlp_attr("filodb.cpu_us", int(d["cpu_us"])))
     if attrs:
         out["attributes"] = attrs
     if d.get("error"):

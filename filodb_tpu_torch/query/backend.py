@@ -844,7 +844,14 @@ class TorchBackend:
             self.batcher.executor.submit(refresh,
                                          priority=qos.PRIORITY_BACKGROUND)
             return stale
-        entry = self._build_tile_entry(series, use_snap)
+        # a query's tile miss: the ``tile-build`` span, tagged with the
+        # selection's series and the tiles' device bytes
+        with obs_trace.span("tile-build", series=len(series)) as sp:
+            entry = self._build_tile_entry(series, use_snap)
+            t = entry.tiles
+            sp.tag(bytes=0 if t is None else sum(
+                x.numel() * x.element_size()
+                for x in (t.valid, t.ts, t.vals)))
         self._insert_tile_entry(key, ident, entry)
         return entry
 
@@ -1060,9 +1067,11 @@ class TorchBackend:
             ts, vals, lens = _pad_series_rows(ts, vals, lens, s_bucket)
         self._count("packed_dispatches")
         dev = self.device
-        ts_t = torch.as_tensor(ts, device=dev)
-        vals_t = torch.as_tensor(vals, device=dev)
-        lens_t = torch.as_tensor(lens, device=dev)
+        with obs_trace.span("h2d", bytes=ts.nbytes + vals.nbytes
+                            + lens.nbytes):
+            ts_t = torch.as_tensor(ts, device=dev)
+            vals_t = torch.as_tensor(vals, device=dev)
+            lens_t = torch.as_tensor(lens, device=dev)
         inputs = (ts_t, vals_t, lens_t)
         if func in _ENDPOINT_RATE and _extract_span_ok(ts, lens, w0s, w0e,
                                                        step, nsteps):
@@ -1072,8 +1081,10 @@ class TorchBackend:
                 "packed", ("pallas", func, s_bucket, N, nsteps), inputs,
                 out, cost=functools.partial(kn.window_extract_cost,
                                             s_bucket, N, 3, nsteps))
-            # graftlint: disable=host-transfer-in-hot-loop (single-query path: designed sync point at kernel egress)
-            return out.cpu().numpy()[:S]
+            with obs_trace.span("d2h", bytes=out.numel()
+                                * out.element_size()):
+                # graftlint: disable=host-transfer-in-hot-loop (single-query path: designed sync point at kernel egress)
+                return out.cpu().numpy()[:S]
         t_bucket = _next_pow2(nsteps, 8)
         if func in _GATHER_FUNCS:
             out = _window_gather(func, w_bound, ts_t, vals_t, lens_t, w0s,
@@ -1084,8 +1095,9 @@ class TorchBackend:
                                    step, t_bucket)
             key = ("endpoint", func, s_bucket, N, t_bucket)
         tst.note_exec("packed", key, inputs, out)
-        # graftlint: disable=host-transfer-in-hot-loop (single-query path: designed sync point at kernel egress)
-        return out.cpu().numpy()[:S, :nsteps]
+        with obs_trace.span("d2h", bytes=out.numel() * out.element_size()):
+            # graftlint: disable=host-transfer-in-hot-loop (single-query path: designed sync point at kernel egress)
+            return out.cpu().numpy()[:S, :nsteps]
 
     def _packed_run(self, func: str, t_bucket: int, scalar: float,
                     members) -> SplitResult:
@@ -1124,10 +1136,14 @@ class TorchBackend:
                 np.array([getattr(m, attr) for m in members], np.int64),
                 sizes), device=dev)
 
-        ts, vals, lens = (rows("ts", np.int64), rows("vals", np.float64),
-                          rows("lens", np.int32))
-        w0s_v, w0e_v, step_v = per_row("w0s"), per_row("w0e"), \
-            per_row("step")
+        with obs_trace.span("h2d") as sp:
+            ts, vals, lens = (rows("ts", np.int64),
+                              rows("vals", np.float64),
+                              rows("lens", np.int32))
+            w0s_v, w0e_v, step_v = per_row("w0s"), per_row("w0e"), \
+                per_row("step")
+            sp.tag(bytes=sum(t.numel() * t.element_size() for t in (
+                ts, vals, lens, w0s_v, w0e_v, step_v)))
         self._count("packed_dispatches")
         # the key names the stack's pow2 bucket, as the reference's does
         s_bucket, N = _next_pow2(int(offs[-1]), 8), int(ts.shape[1])

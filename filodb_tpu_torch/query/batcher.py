@@ -122,7 +122,9 @@ class DeviceExecutor:
 
 def _to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.cpu().numpy()
+        # the copy waits for the kernels that produce x
+        with obs_trace.span("d2h", bytes=x.numel() * x.element_size()):
+            return x.cpu().numpy()
     return np.asarray(x)
 
 

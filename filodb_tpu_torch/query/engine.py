@@ -393,7 +393,17 @@ def aggregate(grid: GridResult, op: str, params: Tuple = (),
               by: Tuple[str, ...] = (), without: Tuple[str, ...] = ()
               ) -> GridResult:
     """Cross-series aggregation on the grid
-    (exec/aggregator/*.scala map-reduce-present protocol)."""
+    (exec/aggregator/*.scala map-reduce-present protocol), on the host:
+    the ``aggregate`` span, tagged ``op`` and ``groups``."""
+    with obs_trace.span("aggregate", op=op) as sp:
+        out = _aggregate(grid, op, params, by, without)
+        sp.tag(groups=out.num_series)
+    return out
+
+
+def _aggregate(grid: GridResult, op: str, params: Tuple,
+               by: Tuple[str, ...], without: Tuple[str, ...]
+               ) -> GridResult:
     if grid.is_hist() and op == "sum":
         return _aggregate_hist_sum(grid, by, without)
     v = grid.values  # [S, T]

@@ -53,6 +53,9 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from filodb_tpu_torch.obs import metrics as obs_metrics
+from filodb_tpu_torch.obs import trace as obs_trace
+
 
 DEFAULT_TENANT = "default"
 TENANT_HEADER = "X-Filo-Tenant"
@@ -515,6 +518,11 @@ class AdmissionRejected(Exception):
         self.reason = reason or "throttled"
 
 
+_AWAIT_HELP = ("Wall seconds an admitted query waited for its admission "
+               "slot (timeouts count in "
+               "filodb_admission_wait_timeouts_total)")
+
+
 class AdmissionController:
     """The HTTP edge's query gate, tenant-aware.
 
@@ -524,7 +532,11 @@ class AdmissionController:
     slot within ``wait_s`` raises :class:`AdmissionRejected` (429 +
     Retry-After) instead of hanging on the semaphore until the client's
     own timeout. Per-tenant budget decisions live in ``budgets``; the
-    HTTP layer runs the degrade ladder between the two."""
+    HTTP layer runs the degrade ladder between the two.
+
+    ``filodb_admission_wait_seconds`` (the global registry's, in every
+    ``/metrics`` from the controller's construction on) holds how long
+    each admitted query waited for its slot."""
 
     def __init__(self, max_inflight: int = 0, wait_s: float = 5.0,
                  budgets: Optional[TenantBudgets] = None):
@@ -537,6 +549,8 @@ class AdmissionController:
         self.inflight = 0
         self.wait_timeouts = 0
         self.slot_rejections = 0
+        obs_metrics.GLOBAL_REGISTRY.histogram(
+            "filodb_admission_wait_seconds", _AWAIT_HELP)
 
     @property
     def gated(self) -> bool:
@@ -546,9 +560,12 @@ class AdmissionController:
         """Bounded slot acquire; True when admitted (or ungated)."""
         if self._sem is None:
             return True
+        t0 = time.perf_counter()
         ok = self._sem.acquire(timeout=self.wait_s
                                if wait_s is None else float(wait_s))
         if ok:
+            obs_metrics.observe("filodb_admission_wait_seconds",
+                                _AWAIT_HELP, time.perf_counter() - t0)
             with self._lock:
                 self.inflight += 1
         else:
@@ -567,8 +584,14 @@ class AdmissionController:
     def slot(self, tenant: str = DEFAULT_TENANT):
         """Bounded-wait admission slot; raises AdmissionRejected on
         saturation (the caller may still serve the stale-cache rung —
-        that path reads memory, not a slot)."""
-        if not self.try_acquire():
+        that path reads memory, not a slot). The wait is the traced
+        request's ``admission-wait`` span: ``inflight`` the slots held
+        when it asked, ``outcome`` admitted or timeout."""
+        with obs_trace.span("admission-wait",
+                            inflight=self.inflight) as sp:
+            ok = self.try_acquire()
+            sp.tag(outcome="admitted" if ok else "timeout")
+        if not ok:
             with self._lock:
                 self.slot_rejections += 1
             raise AdmissionRejected(

@@ -38,6 +38,7 @@ import torch
 from filodb_tpu_torch.lint.capacity import capacity
 from filodb_tpu_torch.lint.numerics import precision
 from filodb_tpu_torch.obs import devprof
+from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.query import kernels as kn
 from filodb_tpu_torch.query.model import RawSeries
 
@@ -1407,8 +1408,9 @@ def _vmap_grids(body, w0s_list: Sequence[int], w0e_list: Sequence[int],
                 step: int, device) -> torch.Tensor:
     """``body(w0s, w0e, step)`` for every member grid, as one batched
     evaluation with a leading [B] axis."""
-    w0s_v = torch.tensor(list(w0s_list), dtype=I64, device=device)
-    w0e_v = torch.tensor(list(w0e_list), dtype=I64, device=device)
+    with obs_trace.span("h2d", bytes=16 * len(w0s_list)):
+        w0s_v = torch.tensor(list(w0s_list), dtype=I64, device=device)
+        w0e_v = torch.tensor(list(w0e_list), dtype=I64, device=device)
     return torch.func.vmap(lambda s, e: body(s, e, step))(w0s_v, w0e_v)
 
 
