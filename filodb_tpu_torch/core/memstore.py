@@ -30,7 +30,8 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 
@@ -82,7 +83,11 @@ def _is_hist(buf: bytes) -> bool:
                                             "hist_drop_rows")})
 @cache_registry("partition-merge", keyed=("column",),
                 validated_by={"chunk-set": ("read_full",)})
-@guarded_by("_cache_lock", "_decode_cache", "_merge_cache")
+# the selection memo validates against the write stamp: every chunk-set
+# publish, buffered row, eviction and page-in changes it
+@cache_registry("partition-select", keyed=("column", "write-stamp"),
+                validated_by={"chunk-set": ("select_record",)})
+@guarded_by("_cache_lock", "_decode_cache", "_merge_cache", "_select_memo")
 class TimeSeriesPartition:
     """One time series in one shard (memstore/TimeSeriesPartition.scala:64).
 
@@ -96,7 +101,7 @@ class TimeSeriesPartition:
                  "max_chunk_rows", "_chunk_seq",
                  "ingested", "ooo_dropped", "_decode_cache", "_merge_cache",
                  "persisted_chunks", "odp_pending", "_cache_lock",
-                 "card_active", "on_encode")
+                 "card_active", "on_encode", "_select_memo", "_page_epoch")
 
     def __init__(self, part_id: int, part_key: PartKey, schema: DataSchema,
                  max_chunk_rows: int = DEFAULT_MAX_CHUNK_ROWS):
@@ -120,6 +125,12 @@ class TimeSeriesPartition:
         # col_index -> (n_chunks, tail_len, ts, vals): last chunks+tail
         # merge, reused until either side changes (per-scrape, not per-query)
         self._merge_cache: Dict[int, Tuple] = {}
+        # col_index -> (write stamp, ts, vals, record): select_record's
+        # memo, reused until the stamp moves
+        self._select_memo: Dict[int, Tuple] = {}
+        # bumped (under _cache_lock) by eviction and page-in, the writes
+        # that rebind `chunks` rather than append to it
+        self._page_epoch = 0
         self.persisted_chunks = 0   # prefix of `chunks` already in the store
         self.odp_pending = False    # True: chunks live in the ColumnStore
         self.card_active = True     # counted as active in the tracker
@@ -377,6 +388,12 @@ class TimeSeriesPartition:
         + current write-buffer tail. Returns (ts, vals, chunk_len) where
         chunk_len is the length of the chunk-backed (immutable) prefix —
         downstream device caches key on it (num_chunks pins its content)."""
+        return self._read_full(col_index)[:3]
+
+    def _read_full(self, col_index: int
+                   ) -> Tuple[np.ndarray, np.ndarray, int, int]:
+        """read_full plus the number of chunks its prefix holds, taken
+        under the same lock as the prefix."""
         col = self.schema.columns[col_index]
         # one lock acquisition covers decode AND the tail snapshot: a
         # switch_buffers publishing the tail as a chunk between the two
@@ -395,10 +412,10 @@ class TimeSeriesPartition:
             else:
                 cached = self._merge_cache.get(col_index)
         if not buf_ts.size:
-            return cts, cvals, cts.size
+            return cts, cvals, cts.size, n_chunks
         if cached is not None and cached[0] == n_chunks \
                 and cached[1] == buf_ts.size:
-            return cached[2], cached[3], cts.size
+            return cached[2], cached[3], cts.size, n_chunks
         if col.col_type == ColumnType.HISTOGRAM:
             rows = buf_cols[col_index - 1]
             tail = (np.stack(rows).astype(np.float64) if rows
@@ -418,7 +435,34 @@ class TimeSeriesPartition:
         with self._cache_lock:
             self._merge_cache[col_index] = (n_chunks, buf_ts.size,
                                             mts, mvals)
-        return mts, mvals, cts.size
+        return mts, mvals, cts.size, n_chunks
+
+    def select_record(self, col_index: int, build: Callable, *args):
+        """One column's selection record, memoized until a write changes
+        what ``read_full`` returns. Returns (record, hit).
+
+        On a miss, ``build(self, col_index, ts, vals, chunk_len,
+        num_chunks, *args)`` makes the record from one ``read_full``
+        (``num_chunks`` from the same lock as ``chunk_len``). The write
+        stamp is taken BEFORE that read and under ``_cache_lock``, and
+        every write moves it: ingest raises the buffered row count only
+        after its rows are appended, ``switch_buffers`` adds a chunk and
+        empties the buffer under the lock, eviction and page-in bump
+        ``_page_epoch`` under it. So a stamp is always a state that
+        existed (never a published chunk beside the tail it came from), a
+        record never holds less than its stamp's state, and a record that
+        raced a write carries a stamp no later state has: the next lookup
+        misses and rebuilds."""
+        with self._cache_lock:
+            stamp = (self._page_epoch, len(self.chunks), self._buf_rows)
+            memo = self._select_memo.get(col_index)
+        if memo is not None and memo[0] == stamp:
+            return memo[3], True
+        ts, vals, chunk_len, n_chunks = self._read_full(col_index)
+        rec = build(self, col_index, ts, vals, chunk_len, n_chunks, *args)
+        with self._cache_lock:
+            self._select_memo[col_index] = (stamp, ts, vals, rec)
+        return rec, False
 
     def hist_drop_rows(self, col_index: int) -> np.ndarray:
         """Global reset row indices over this histogram column's full
@@ -455,15 +499,32 @@ class TimeSeriesPartition:
 
     def _cache_bytes_locked(self) -> int:
         n = 0
+        held = set()
         for entry in self._decode_cache.values():
             for part in entry[1]:
                 n += int(part.nbytes)
             for part in entry[2]:
                 n += int(getattr(part, "nbytes", 0))
+            if entry[3] is not None:
+                held.update(map(id, entry[3]))
         for cached in self._merge_cache.values():
             n += int(cached[2].nbytes) + int(getattr(cached[3],
                                                      "nbytes", 0))
+            held.update((id(cached[2]), id(cached[3])))
+        # a selection record shares the caches' arrays; one left behind
+        # by a write keeps the arrays it was built over until rebuilt
+        for memo in self._select_memo.values():
+            for a in memo[1:3]:
+                if id(a) not in held:
+                    n += int(getattr(a, "nbytes", 0))
         return n
+
+    def _drop_caches_locked(self) -> None:
+        """Forget every decode, merge and selection entry (caller holds
+        ``_cache_lock``)."""
+        self._decode_cache.clear()
+        self._merge_cache.clear()
+        self._select_memo.clear()
 
     def release_caches(self) -> int:
         """Drop the decoded-chunk and merge caches when every published
@@ -476,22 +537,8 @@ class TimeSeriesPartition:
             if self.persisted_chunks < len(self.chunks):
                 return 0
             n = self._cache_bytes_locked()
-            self._decode_cache.clear()
-            self._merge_cache.clear()
+            self._drop_caches_locked()
             return n
-
-    def read_range(self, start_ts: int, end_ts: int, col_index: int
-                   ) -> Tuple[np.ndarray, np.ndarray]:
-        """All samples with start_ts <= t <= end_ts for one data column.
-        Returns (timestamps int64, values f64 or [n, nb] f64 for histograms).
-
-        Merges immutable chunks with the current write-buffer snapshot — the
-        equivalent of the reference's RawDataRangeVector iteration over
-        ChunkMap + appenders (TimeSeriesPartition readers)."""
-        ts_all, val_all, _ = self.read_full(col_index)
-        lo = int(np.searchsorted(ts_all, start_ts, side="left"))
-        hi = int(np.searchsorted(ts_all, end_ts, side="right"))
-        return ts_all[lo:hi], val_all[lo:hi]
 
     @property
     def num_chunks(self) -> int:
@@ -861,17 +908,18 @@ class TimeSeriesShard:
                 part.chunks = infos + part.chunks
                 part.persisted_chunks += len(infos)
                 part._chunk_seq = max(part._chunk_seq, len(part.chunks))
-                part._decode_cache.clear()
-                part._merge_cache.clear()
+                # bootstrapped shells never saw an ingest row: learn the
+                # bucket scheme from the paged-in chunk header, before the
+                # new epoch lets a selection record read it
+                if infos and part._hist_scheme is None:
+                    for ci, col in enumerate(part.schema.columns):
+                        if col.col_type == ColumnType.HISTOGRAM:
+                            part._hist_scheme = bh.hist_scheme_of(
+                                infos[0].vectors[ci])
+                            break
+                part._page_epoch += 1
+                part._drop_caches_locked()
             self._resident += sum(c.num_rows for c in infos)
-            # bootstrapped shells never saw an ingest row: learn the bucket
-            # scheme from the paged-in chunk header
-            if infos and part._hist_scheme is None:
-                for ci, col in enumerate(part.schema.columns):
-                    if col.col_type == ColumnType.HISTOGRAM:
-                        part._hist_scheme = bh.hist_scheme_of(
-                            infos[0].vectors[ci])
-                        break
             part.odp_pending = False
             self.stats.partitions_paged_in += 1
 
@@ -1010,8 +1058,8 @@ class TimeSeriesShard:
                         part.odp_pending = True
                         part.chunks = []
                         part.persisted_chunks = 0
-                        part._decode_cache.clear()
-                        part._merge_cache.clear()
+                        part._page_epoch += 1
+                        part._drop_caches_locked()
             if entries:
                 self.column_store.write_part_keys(
                     self.ref.dataset, self.shard_num, entries)

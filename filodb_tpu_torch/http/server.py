@@ -84,7 +84,8 @@ from filodb_tpu_torch.promql.parser import (TimeStepParams, parse_query,
                                             selector_to_filters)
 from filodb_tpu_torch.query import logical as lp
 from filodb_tpu_torch.query import qos
-from filodb_tpu_torch.query.engine import QueryEngine
+from filodb_tpu_torch.query.engine import (SELECT_MEMO_HITS,
+                                           SELECT_MEMO_MISSES, QueryEngine)
 from filodb_tpu_torch.query.planner import QueryPlanner
 from filodb_tpu_torch.query.model import (GridResult, QueryError,
                                           QueryLimitError, QueryLimits,
@@ -277,6 +278,10 @@ class FiloHttpServer:
             if max_inflight_queries else 0,
             wait_s=float(admission_wait_s),
             budgets=qos_budgets)
+        # the selection memo's counters (query/engine.py), in /metrics
+        # from the start rather than from the first selection
+        for fam in (SELECT_MEMO_HITS, SELECT_MEMO_MISSES):
+            obs_metrics.GLOBAL_REGISTRY.counter(*fam).inc(0)
         # brownout ladder knobs: coarsen rung targets at most this many
         # evaluation steps; False turns the whole ladder off (over-
         # budget goes straight to 429)

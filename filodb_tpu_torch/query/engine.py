@@ -24,6 +24,7 @@ from filodb_tpu_torch.core.memstore import TimeSeriesShard
 from filodb_tpu_torch.core.schemas import ColumnType
 from filodb_tpu_torch.memory import histogram as bh
 from filodb_tpu_torch.memory.vectors import counter_correction
+from filodb_tpu_torch.obs import metrics as obs_metrics
 from filodb_tpu_torch.obs import trace as obs_trace
 from filodb_tpu_torch.query import logical as lp
 from filodb_tpu_torch.query import rangefn as rf
@@ -72,16 +73,72 @@ def select_raw_series(shards: Sequence[TimeSeriesShard],
     grid reads, beside the local whole series, and the same tiles and
     kernels serve both (answers are unchanged: windows select by time)."""
     with obs_trace.span("select-series", shards=len(shards)) as _sp:
-        out = _select_raw_series(shards, filters, start_ms, end_ms,
-                                 column, stats, full, limits, deadline,
-                                 margin_ms)
-        _sp.tag(series=len(out))
-        return out
+        memo = [0, 0]           # selection records built, reused
+        try:
+            out = _select_raw_series(shards, filters, start_ms, end_ms,
+                                     column, stats, full, limits, deadline,
+                                     margin_ms, memo)
+            _sp.tag(series=len(out))
+            return out
+        finally:
+            # counted also when a limit or the deadline cuts it short
+            _sp.tag(memo_hits=memo[1], memo_misses=memo[0])
+            reg = obs_metrics.GLOBAL_REGISTRY
+            reg.counter(*SELECT_MEMO_HITS).inc(memo[1])
+            reg.counter(*SELECT_MEMO_MISSES).inc(memo[0])
+
+
+# (name, help) of the selection memo's counters, counted per series
+SELECT_MEMO_HITS = ("filodb_select_memo_hits_total",
+                    "Series whose selection record was reused (no write "
+                    "to the partition since it was built)")
+SELECT_MEMO_MISSES = ("filodb_select_memo_misses_total",
+                      "Series whose selection record was (re)built")
+
+
+def _selected_series(part, ci, ts, vals, chunk_len, num_chunks, shard,
+                     col) -> RawSeries:
+    """A partition's whole-series RawSeries for one column: the record
+    ``TimeSeriesPartition.select_record`` memoizes. Its arrays are the
+    decode cache's, read-only; queries share it, so nothing downstream
+    writes to it."""
+    les = drops = None
+    if col.col_type == ColumnType.HISTOGRAM:
+        if part._hist_scheme is not None:
+            les = part._hist_scheme.les()
+            les.setflags(write=False)
+        if col.is_counter_like:
+            # taken after read_full's snapshot: rows appended in
+            # between may carry drop indices beyond ts.size
+            drops = part.hist_drop_rows(ci)
+            drops = drops[drops < ts.size]
+            drops.setflags(write=False)
+    return RawSeries(
+        labels=dict(part.part_key.labels), ts=ts, values=vals,
+        is_counter=col.is_counter_like, bucket_les=les,
+        snapshot_key=(shard.ref.dataset, shard.shard_num, part.part_id,
+                      num_chunks, ci),
+        chunk_len=chunk_len, hist_drop_rows=drops)
+
+
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
 
 
 def _select_raw_series(shards, filters, start_ms, end_ms, column, stats,
-                       full, limits, deadline, margin) -> List[RawSeries]:
+                       full, limits, deadline, margin,
+                       memo: List[int]) -> List[RawSeries]:
+    """The series; counts the selection records built in ``memo[0]`` and
+    those reused in ``memo[1]``."""
     out: List[RawSeries] = []
+    # timestamps are whole ms: the samples in [start_ms, end_ms] are those
+    # past the last <= ceil(start_ms) - 1 up to the last <= floor(end_ms),
+    # one searchsorted call a series; bounds whose keys leave int64 (or
+    # are NaN) take two calls with the bounds as given
+    bounds = None
+    if _I64_MIN < start_ms <= _I64_MAX and _I64_MIN <= end_ms <= _I64_MAX:
+        bounds = np.array([math.ceil(start_ms) - 1, math.floor(end_ms)],
+                          dtype=np.int64)
+    cols: Dict[str, Tuple[int, object]] = {}     # schema name -> column
     for shard in shards:
         if deadline is not None:
             deadline.check("raw series selection")
@@ -123,47 +180,30 @@ def _select_raw_series(shards, filters, start_ms, end_ms, column, stats,
             continue
         for part in shard.lookup_partitions(filters, start_ms, end_ms):
             schema = part.schema
-            col_name = column or schema.value_column
-            try:
-                ci = [c.name for c in schema.columns].index(col_name)
-            except ValueError:
-                raise QueryError(
-                    f"schema {schema.name} has no column {col_name}")
-            col = schema.columns[ci]
-            if full:
-                ts, vals, chunk_len = part.read_full(ci)
-                snap = (shard.ref.dataset, shard.shard_num, part.part_id,
-                        part.num_chunks, ci)
+            got = cols.get(schema.name)
+            if got is None:
+                col_name = column or schema.value_column
+                try:
+                    ci = [c.name for c in schema.columns].index(col_name)
+                except ValueError:
+                    raise QueryError(
+                        f"schema {schema.name} has no column {col_name}")
+                got = cols[schema.name] = (ci, schema.columns[ci])
+            s, hit = part.select_record(got[0], _selected_series, shard,
+                                        got[1])
+            memo[hit] += 1
+            if bounds is not None:
+                lo, hi = s.ts.searchsorted(bounds, "right").tolist()
             else:
-                ts, vals = part.read_range(start_ms, end_ms, ci)
-                chunk_len, snap = -1, None
-            les = None
-            drops = None
-            if col.col_type == ColumnType.HISTOGRAM:
-                les = part._hist_scheme.les() if part._hist_scheme is not None \
-                    else None
-                if full and col.is_counter_like:
-                    # taken after read_full's snapshot: rows appended in
-                    # between may carry drop indices beyond ts.size
-                    drops = part.hist_drop_rows(ci)
-                    drops = drops[drops < ts.size]
-            out.append(RawSeries(
-                labels=dict(part.part_key.labels),
-                ts=ts, values=vals,
-                is_counter=col.is_counter_like,
-                bucket_les=les,
-                snapshot_key=snap,
-                chunk_len=chunk_len if full else -1,
-                hist_drop_rows=drops,
-            ))
+                lo = int(np.searchsorted(s.ts, start_ms, side="left"))
+                hi = int(np.searchsorted(s.ts, end_ms, side="right"))
+            if not full:
+                s = RawSeries(s.labels, s.ts[lo:hi], s.values[lo:hi],
+                              s.is_counter, s.bucket_les)
+            out.append(s)
             if stats is not None:
                 stats.series_scanned += 1
-                if full:
-                    lo = int(np.searchsorted(ts, start_ms, side="left"))
-                    hi = int(np.searchsorted(ts, end_ms, side="right"))
-                    stats.samples_scanned += hi - lo
-                else:
-                    stats.samples_scanned += int(ts.size)
+                stats.samples_scanned += hi - lo
                 if limits is not None:
                     limits.check(stats)     # abort before materializing more
     return out

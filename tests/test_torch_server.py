@@ -745,6 +745,8 @@ EXTRA_FAMILIES = {
     "filodb_grpc_plane_fallbacks_total",
     # how long each admitted query waited for its admission slot
     "filodb_admission_wait_seconds",
+    # the selection memo's reused and rebuilt records, per series
+    "filodb_select_memo_hits_total", "filodb_select_memo_misses_total",
 }
 DEFAULT_ON_FAMILIES = {
     # the gRPC plane and membership, on at the defaults
@@ -1052,8 +1054,10 @@ def test_write_path_metric_families_match(ingest_servers):
     by what else this process ran)."""
     pf, jf = (_families(s) for s in ingest_servers[:2])
     assert WRITE_FAMILIES <= pf & jf
-    # the port's one extra family of EXTRA_FAMILIES with the gRPC plane off
-    assert pf - jf == {"filodb_admission_wait_seconds"}
+    # the port's extra families of EXTRA_FAMILIES with the gRPC plane off
+    assert pf - jf == {"filodb_admission_wait_seconds",
+                       "filodb_select_memo_hits_total",
+                       "filodb_select_memo_misses_total"}
 
 
 def test_a_repeat_query_after_ingest_is_not_served_stale(ingest_servers):
